@@ -1,0 +1,24 @@
+"""convnet_tpu_torch — the PyTorch/CUDA port of convnet_tpu for an NVIDIA H100.
+
+The JAX package `convnet_tpu` stays the reference; this package runs the
+same `.pbtxt` models through PyTorch. Its first slice is the serving
+path: `Predictor` (predictor.py) over the eval forward (trainer.py,
+model.py). Convolutions, pooling and GEMMs go to cuDNN, cuBLAS and
+ATen through `torch.nn.functional`, as the JAX package left them to
+XLA; the two Pallas kernels of that path are hand-written CUDA kernels
+here (`csrc/`, bound in `ops/_build.py`):
+
+- `ops/lrn.py`: response norm forward with the conv bias and ReLU fused;
+- `ops/s2d_relayout.py`: the uint8 -> space-to-depth input prologue.
+
+Each kernel has a plain PyTorch version beside it, which its wrapper
+takes for CPU tensors. The package never imports JAX; it reuses the JAX
+package's protobuf config reader and graph IR (`convnet_tpu.config`,
+`convnet_tpu.graph`), which import no JAX either.
+
+Layouts at public functions are the JAX package's: NHWC activations,
+HWIO conv weights, FC weights (H*W*C, units). An NHWC-contiguous tensor's
+NCHW view is a channels_last tensor, which is what cuDNN is handed.
+"""
+
+__version__ = "0.1.0"

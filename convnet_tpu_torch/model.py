@@ -1,0 +1,258 @@
+"""Model builder: Graph IR -> the eval forward (counterpart of
+`convnet_tpu/model.py`).
+
+Params are `{edge_name: {"w": tensor, "b": tensor}}` for weighted edges,
+f32, in the JAX package's layouts (HWIO conv weights, (H*W*C, units) FC
+weights), so a JAX params tree maps over unchanged (`params_from_numpy`).
+Activations are NHWC; FC outputs are (B, 1, 1, units).
+
+The forward keeps the reference's fusion plan and cast points:
+- a conv whose ReLU output feeds only a response-norm edge leaves its bias
+  to the LRN kernel, which adds it in f32 (model.py:287-303) -- always on
+  here, as on the TPU, since the port always has its kernel;
+- the ReLU of an LRN's source layer runs inside the LRN (model.py:377-385);
+- edges compute in compute_dtype (bf16 outputs), a bias is cast to the
+  output's dtype before its add (model.py:176), layers are stored in the
+  activation dtype (model.py:433) and output pre-activations are promoted
+  to f32 (model.py:404-409).
+PyTorch runs eagerly, so activations that only the fused LRN would have
+replaced (dead code that XLA drops) are never computed.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from convnet_tpu.graph import ACT, ET, INIT, EdgeSpec, Graph
+from convnet_tpu_torch.ops.activations import apply_activation
+from convnet_tpu_torch.ops.conv import S2DInput, conv2d, fc
+from convnet_tpu_torch.ops.lrn import (
+    response_norm_cross_map,
+    response_norm_cross_map_bias,
+)
+from convnet_tpu_torch.ops.pool import maxpool2d
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _weight_shape(graph: Graph, e: EdgeSpec) -> Tuple[int, ...]:
+    src_h, src_w, src_c = graph.shapes[e.source]
+    dst_c = graph.shapes[e.dest][2]
+    if e.edge_type == ET.FC:
+        return (src_h * src_w * src_c, dst_c)
+    if e.edge_type == ET.CONV:
+        return (e.kernel_size, e.kernel_size, src_c // e.num_groups, dst_c)
+    raise NotImplementedError(
+        f"edge {e.name}: {ET.Name(e.edge_type)} weights are not ported yet"
+    )
+
+
+def _bias_shape(graph: Graph, e: EdgeSpec) -> Tuple[int, ...]:
+    dst_h, dst_w, dst_c = graph.shapes[e.dest]
+    if e.edge_type == ET.CONV and not e.shared_bias:
+        return (dst_h, dst_w, dst_c)
+    return (dst_c,)
+
+
+def param_shapes(graph: Graph) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """{edge: {"w": shape, "b": shape}} for every weighted edge."""
+    return {
+        e.name: {"w": _weight_shape(graph, e), "b": _bias_shape(graph, e)}
+        for e in graph.weighted_edges
+    }
+
+
+def _init_weight(rng: np.random.Generator, e: EdgeSpec, shape) -> np.ndarray:
+    kind, scale = e.initialization, e.init_wt
+    fan_in = int(np.prod(shape[:-1]))  # every layout contracts all but the last dim
+    if kind == INIT.CONSTANT:
+        return np.full(shape, scale, np.float32)
+    if kind == INIT.DENSE_GAUSSIAN:
+        return scale * rng.standard_normal(shape, np.float32)
+    if kind == INIT.DENSE_GAUSSIAN_SQRT_FAN_IN:
+        return (scale / math.sqrt(fan_in)) * rng.standard_normal(shape, np.float32)
+    if kind == INIT.DENSE_UNIFORM:
+        return rng.uniform(-scale, scale, shape).astype(np.float32)
+    if kind == INIT.DENSE_UNIFORM_SQRT_FAN_IN:
+        lim = scale / math.sqrt(fan_in)
+        return rng.uniform(-lim, lim, shape).astype(np.float32)
+    if kind == INIT.SPARSE_GAUSSIAN:
+        # ~sqrt(fan_in) nonzero inputs per unit (Martens-style)
+        w = scale * rng.standard_normal(shape, np.float32)
+        return np.where(rng.random(shape) < 1.0 / math.sqrt(fan_in), w, 0.0).astype(np.float32)
+    if kind == INIT.PRETRAINED:
+        raise NotImplementedError(
+            f"edge {e.name}: PRETRAINED init needs checkpoint loading, not ported yet"
+        )
+    raise ValueError(f"unknown initialization {kind}")
+
+
+def init_params(graph: Graph, seed: Optional[int] = None, device="cpu") -> Params:
+    """Initialise every weighted edge with its pbtxt init mode, from numpy
+    Generators seeded by (seed, edge index). The draws are not the JAX
+    package's (threefry); parity tests share params via params_from_numpy."""
+    root = graph.seed if seed is None else seed
+    params: Params = {}
+    for i, e in enumerate(graph.weighted_edges):
+        rng = np.random.default_rng((root, i))
+        w = _init_weight(rng, e, _weight_shape(graph, e))
+        b = np.full(_bias_shape(graph, e), e.init_bias, np.float32)
+        params[e.name] = {
+            "w": torch.from_numpy(w).to(device),
+            "b": torch.from_numpy(b).to(device),
+        }
+    return params
+
+
+def params_from_numpy(params, device="cpu") -> Params:
+    """{edge: {"w", "b"}} arrays (a JAX params tree, or numpy) -> the
+    port's f32 tensors, same layouts and values."""
+    return {
+        name: {
+            k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in p.items()
+        }
+        for name, p in params.items()
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _bias_deferral_plan(graph: Graph) -> Dict[str, str]:
+    """layer -> the conv edge whose bias the layer's single response-norm
+    consumer adds in its kernel (convnet_tpu/model.py:287-303; a conv with
+    per-position biases keeps its own add)."""
+    plan = {}
+    for name in graph.topo_layer_order():
+        l = graph.layer(name)
+        inc = graph.incoming(name)
+        cons = [e for e in graph.edges if e.source == name]
+        if (
+            not l.is_input
+            and not l.is_output
+            and l.activation == ACT.RECTIFIED_LINEAR
+            and l.dropprob == 0.0
+            and len(inc) == 1
+            and inc[0].edge_type == ET.CONV
+            and inc[0].shared_bias
+            and len(cons) == 1
+            and cons[0].edge_type == ET.RESPONSE_NORM
+        ):
+            plan[name] = inc[0].name
+    return plan
+
+
+def _edge_fprop(e: EdgeSpec, p, x, cdt, fuse_relu=False, defer_bias=False, bias=None):
+    t = e.edge_type
+    if t == ET.FC:
+        z = fc(x, p["w"], compute_dtype=cdt)
+        z = z + p["b"].to(z.dtype)
+        return z[:, None, None, :]
+    if t == ET.CONV:
+        z = conv2d(x, p["w"], e.stride, e.padding, compute_dtype=cdt, groups=e.num_groups)
+        if defer_bias:
+            return z  # the consuming response-norm kernel adds the bias
+        return z + p["b"].to(z.dtype)
+    if t == ET.MAXPOOL:
+        return maxpool2d(x, e.kernel_size, e.stride, e.padding)
+    if t == ET.RESPONSE_NORM:
+        args = (
+            e.add_scale,
+            e.pow_scale,
+            e.frac_of_filters_response_norm,
+            e.response_norm_blocked,
+            fuse_relu,
+        )
+        if bias is not None:
+            return response_norm_cross_map_bias(x, bias, *args)
+        return response_norm_cross_map(x, *args)
+    raise NotImplementedError(f"edge {e.name}: {ET.Name(t)} is not ported yet")
+
+
+def apply_fn(
+    graph: Graph,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    return_layers: Optional[List[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Eval fprop. `batch` maps each input layer's data_field to a
+    (B, H, W, C) tensor or an S2DInput. Returns {layer: activation} for
+    `return_layers` (default: all layers) plus "<name>:preact" (B, units)
+    f32 for every output layer."""
+    cdt = torch.bfloat16 if graph.compute_dtype == "bfloat16" else None
+    adt = torch.bfloat16 if graph.activation_dtype == "bfloat16" else None
+    store_dt = adt if adt is not None else (torch.float32 if cdt is not None else None)
+    want = set(return_layers) if return_layers is not None else None
+    acts: Dict[str, torch.Tensor] = {}
+    preacts: Dict[str, torch.Tensor] = {}  # pre-ReLU values the LRN fuses over
+    out: Dict[str, torch.Tensor] = {}
+
+    for l in graph.input_layers:
+        if l.data_field not in batch:
+            raise ValueError(
+                f"input layer {l.name!r} expects data field {l.data_field!r} "
+                f"but the batch has {sorted(batch)}"
+            )
+        x = batch[l.data_field]
+        if not isinstance(x, S2DInput) and x.dim() != 4:
+            raise ValueError(f"input {l.name}: expected NHWC, got shape {tuple(x.shape)}")
+        acts[l.name] = x
+
+    defer_bias = _bias_deferral_plan(graph)
+    pending_bias: Dict[str, torch.Tensor] = {}
+    for name in graph.topo_layer_order():
+        l = graph.layer(name)
+        if not l.is_input:
+            z = None
+            for e in graph.incoming(name):
+                p = params.get(e.name)
+                if p is None and e.has_weights:
+                    raise ValueError(
+                        f"no parameters for edge {e.name!r}; params provide {sorted(params)}"
+                    )
+                fuse = e.edge_type == ET.RESPONSE_NORM and e.source in preacts
+                x_in = preacts[e.source] if fuse else acts[e.source]
+                dbias = defer_bias.get(name) == e.name
+                contrib = _edge_fprop(
+                    e, p, x_in, cdt,
+                    fuse_relu=fuse,
+                    defer_bias=dbias,
+                    bias=pending_bias.get(e.source) if fuse else None,
+                )
+                if dbias:
+                    pending_bias[name] = p["b"]
+                z = contrib if z is None else z + contrib
+            if l.is_output:
+                z = z.to(torch.promote_types(z.dtype, torch.float32))
+                out[f"{name}:preact"] = z.reshape(z.shape[0], -1)
+            consumers = [e2 for e2 in graph.edges if e2.source == name]
+            relu_fusable = (
+                l.activation == ACT.RECTIFIED_LINEAR and not l.is_output and l.dropprob == 0.0
+            )
+            if relu_fusable and any(e2.edge_type == ET.RESPONSE_NORM for e2 in consumers):
+                preacts[name] = z
+            # the activation is materialized only if a consumer or the caller
+            # reads it: a response-norm consumer of a ReLU layer reads preacts
+            readers = [
+                e2 for e2 in consumers
+                if not (relu_fusable and e2.edge_type == ET.RESPONSE_NORM)
+            ]
+            if readers or want is None or name in want:
+                if name in pending_bias:
+                    z = z + pending_bias[name].to(z.dtype)
+                a = apply_activation(z, l.activation)
+                acts[name] = a.to(store_dt) if store_dt is not None else a
+        if (want is None or name in want) and name in acts:
+            out[name] = acts[name]
+    return out

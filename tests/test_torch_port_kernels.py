@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+This file imports no JAX, so it also runs on a machine with a card and no
+JAX (the repository's conftest imports JAX, hence `--noconftest`):
+
+    python -m pytest --noconftest tests/test_torch_port_kernels.py -q
+
+Tests that need a card skip without one; chip_smoke.py makes the same
+comparisons at the serving path's full shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from convnet_tpu_torch.ops import _build
+from convnet_tpu_torch.ops import lrn
+from convnet_tpu_torch.ops import s2d_relayout as s2d
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: chip_smoke.py runs this check on the H100")
+    return torch.device("cuda")
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i >= 0, i, -32768 - i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# On any machine: the wrappers' CPU route and the build's bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def test_lrn_wrapper_takes_the_plain_version_on_cpu():
+    rng = np.random.default_rng(1)
+    z = torch.from_numpy(rng.standard_normal((50, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(96).astype(np.float32))
+    before = lrn.LAUNCHES
+    y = lrn.lrn_fwd(z, 5, 1e-4 / 5, 0.75, bias=b, relu=True)
+    ref = lrn.response_norm_reference(z, 1e-4, 0.75, 5 / 96, bias=b, relu=True)
+    assert torch.equal(y, ref)
+    assert lrn.LAUNCHES == before  # the plain version is not a launch
+    with pytest.raises(ValueError, match="bias shape"):
+        lrn.lrn_fwd(z, 5, 1e-4, 0.75, bias=b[:10])
+    with pytest.raises(ValueError, match="rows"):
+        lrn.lrn_fwd(z[None], 5, 1e-4, 0.75)
+
+
+def test_prologue_wrapper_takes_the_plain_version_on_cpu():
+    x = torch.randint(0, 256, (2, 12, 12, 3), dtype=torch.uint8)
+    off = torch.full((2,), 1, dtype=torch.int32)
+    before = s2d.LAUNCHES
+    kw = dict(crop=9, stride=4, p=s2d.relayout_geometry(9, 5, 4), scale=1 / 255)
+    out = s2d.s2d_prologue(x, off, off, None, **kw)
+    assert out.shape == (2, 3, 3, 48) and out.dtype == torch.bfloat16
+    assert torch.equal(out, s2d.s2d_prologue_reference(x, off, off, None, **kw))
+    assert s2d.LAUNCHES == before
+    # the third grid row/column lies past the 9-pixel crop: exactly zero
+    assert (out.view(2, 3, 3, 4, 4, 3)[:, 2, :, 1:] == 0).all()
+    with pytest.raises(TypeError, match="uint8"):
+        s2d.s2d_prologue(x.float(), off, off, None, **kw)
+    with pytest.raises(ValueError, match="mean"):
+        s2d.s2d_prologue(x, off, off, None, mean=torch.zeros(4), **{**kw, "scale": 1.0})
+    with pytest.raises(ValueError, match="ox outside"):
+        s2d.s2d_prologue(x, off, off + 3, None, **kw)
+
+
+def test_library_is_keyed_by_the_sources():
+    path = _build._library_path()
+    assert path == _build._library_path()
+    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+    names = {p.name for p in _build._sources()}
+    assert names == {"lrn_fwd.cu", "s2d_prologue.cu"}
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("beta,q", [(0.75, 3), (1.0, 4), (1.25, 5), (0.6, 0), (5.0, 0)])
+def test_quarter_power(beta, q):
+    assert lrn.quarter_power(beta) == q
+    d = torch.linspace(1.0, 9.0, 17)
+    torch.testing.assert_close(lrn._neg_pow(d, beta), d ** -beta, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# On a card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias,relu,blocked", [(True, True, False), (False, False, False),
+                                               (True, True, True)])
+def test_lrn_kernel_matches_plain(cuda, c, dtype, bias, relu, blocked):
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    z = (2.0 * torch.randn((3000, c), generator=gen, device=cuda)).to(dtype)
+    b = 0.5 * torch.randn((c,), generator=gen, device=cuda) if bias else None
+    before = lrn.LAUNCHES
+    y = lrn.lrn_fwd(z, 5, 0.2, 0.75, bias=b, relu=relu, blocked=blocked)
+    assert lrn.LAUNCHES == before + 1
+    ref = lrn._fwd_math(z, 5, 0.2, 0.75, b, relu, blocked)
+    assert y.dtype == dtype and y.shape == z.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=0)
+    else:
+        assert bf16_ulps(y, ref) <= 1
+
+
+def test_lrn_kernel_rejects_what_it_does_not_take(cuda):
+    z = torch.zeros((8, 16), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        lrn.lrn_fwd(z.half(), 5, 0.2, 0.75)
+    with pytest.raises(ValueError, match="contiguous"):
+        lrn.lrn_fwd(torch.zeros((16, 8), device=cuda).t(), 5, 0.2, 0.75)
+    with pytest.raises(TypeError, match="bias"):
+        lrn.lrn_fwd(z, 5, 0.2, 0.75, bias=torch.zeros(16, device=cuda).half())
+
+
+@pytest.mark.parametrize("flip,std", [(False, False), (True, True)])
+def test_s2d_kernel_matches_plain(cuda, flip, std):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(0, 256, (8, 40, 40, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    oy = torch.randint(0, 6, (8,), generator=gen, device=cuda, dtype=torch.int32)
+    ox = torch.randint(0, 6, (8,), generator=gen, device=cuda, dtype=torch.int32)
+    flips = torch.randint(0, 2, (8,), generator=gen, device=cuda).bool() if flip else None
+    kw = dict(
+        crop=35, stride=4, p=s2d.relayout_geometry(35, 11, 4), scale=1 / 255,
+        mean=torch.tensor([0.4, 0.5, 0.6], device=cuda),
+        std=torch.tensor([0.2, 0.25, 0.3], device=cuda) if std else None,
+    )
+    before = s2d.LAUNCHES
+    got = s2d.s2d_prologue(x, oy, ox, flips, **kw)
+    assert s2d.LAUNCHES == before + 1
+    assert torch.equal(got, s2d.s2d_prologue_reference(x, oy, ox, flips, **kw))
+
+
+def test_s2d_kernel_marks_crops_outside_the_image(cuda):
+    x = torch.zeros((2, 12, 12, 3), dtype=torch.uint8, device=cuda)
+    off = torch.tensor([0, 5], dtype=torch.int32, device=cuda)  # 5 > 12 - 9
+    out = s2d.s2d_prologue(x, off, off, None, crop=9, stride=4, p=s2d.relayout_geometry(9, 5, 4))
+    assert not torch.isnan(out[0].float()).any()
+    assert torch.isnan(out[1].float()).any()
