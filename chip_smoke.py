@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and train paths once on one CUDA card.
 
     python3 chip_smoke.py [--profile-dir DIR]
 
@@ -9,8 +9,13 @@ any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), and the build
    of the CUDA kernels from convnet_tpu_torch/csrc.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes: the input prologue must be array-equal; the
-   response norm within 1 bf16 ulp in bf16 and rtol 1e-5 in f32.
+   serving and train paths' shapes: the input prologue must be
+   array-equal; the response norm within 1 bf16 ulp in bf16 and rtol
+   1e-5 in f32; its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
+   within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
+   1e-4 of a float64 column sum; dropout array-equal, with the backward's
+   mask equal to the forward's. An f32 conv's gradients at conv2's shape
+   must match float64 within rtol 1e-5 (no TF32 in dgrad or wgrad).
 3. Serving: a Predictor on full-width AlexNet (examples/imagenet/
    alexnet.pbtxt, bf16, crop 224 from 256, uint8 wire, batch 128, random
    weights from the port's seeded init, mean 0.45, scale 1/255) answers
@@ -19,13 +24,22 @@ any failure raises and the script exits non-zero:
    kernels' launch counts must show the requests went through them; and
    the logits must agree with AlexNet's forward composed directly from
    the plain versions (tolerance printed below).
-4. Timing with CUDA events (median of 20 runs after warm-up): each kernel
-   and its plain version, the forward pass, and the Predictor's
-   milliseconds per batch and images per second.
+4. Training: a Trainer on the same full-width AlexNet over DUMMY data
+   (uint8 256x256x3 images, 1000 classes, random 224 crops and flips,
+   scale 1/255, mean 0.45, batch 128) takes 20 steps and one validation
+   pass. The parameters must move and stay finite, the losses be finite,
+   each step launch lrn_fwd 2, lrn_bwd 2, dropout 4 and s2d_prologue 1
+   times, and three steps from one state must agree with a train step
+   composed from the plain versions with autograd (tolerance printed).
+5. Timing with CUDA events (median of 20 runs after warm-up): each kernel
+   and its plain version, the forward pass, the Predictor's milliseconds
+   per batch and images per second, the train step (device time and host
+   clock) and the Trainer's images per second over 50 steps.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
-the forward pass is also traced with torch.profiler into that directory.
+the forward pass and five train steps are also traced with torch.profiler
+into that directory.
 """
 
 from __future__ import annotations
@@ -43,6 +57,12 @@ ALEXNET = REPO / "examples" / "imagenet" / "alexnet.pbtxt"
 BATCH, RAW, CROP = 128, 256, 224
 REQUESTS = (128, 128, 57)
 ITERS, WARMUP = 20, 3
+TRAIN_STEPS, TRAINER_STEPS, PARITY_STEPS = 20, 50, 3
+DUMMY_ROWS = 384
+MEAN = 0.45
+# bf16 train steps: each parameter's update within this share of its
+# largest update from the plain-composed step (see check_train_parity)
+UPDATE_TOL = 6e-2
 
 
 def card_line() -> str:
@@ -71,6 +91,29 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, iters: int = ITERS, warmup: int = WARMUP, spin_ms: float = 40.0) -> float:
+    """Median device milliseconds of fn() with the host's launch cost
+    hidden: each run is queued behind a spin kernel long enough for the
+    host to enqueue all of fn's work, so the events time the card alone.
+    Valid for work that never waits for the card."""
+    import torch
+
+    cycles = int(spin_ms * 2e6)  # at least spin_ms at SM clocks up to 2 GHz
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def bf16_ulps(a, b) -> int:
     """Largest distance in bf16 ulps between two bf16 tensors."""
     import torch
@@ -80,6 +123,85 @@ def bf16_ulps(a, b) -> int:
         return torch.where(i >= 0, i, -32768 - i)
 
     return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def reset_launches():
+    from convnet_tpu_torch.ops import dropout, lrn, s2d_relayout
+
+    lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
+
+
+def read_launches():
+    from convnet_tpu_torch.ops import dropout, lrn, s2d_relayout
+
+    return {"lrn_fwd": lrn.LAUNCHES, "lrn_bwd": lrn.BWD_LAUNCHES, "dropout": dropout.LAUNCHES,
+            "s2d_prologue": s2d_relayout.LAUNCHES}
+
+
+def dummy_imagenet(batch: int, rows: int, randomize: bool):
+    """A DUMMY DatasetConfig shaped like ImageNet's train data: uint8
+    256x256x3 images cropped to 224 with random translations and flips,
+    scale 1/255, 1000 classes. Nothing is read from or written to disk."""
+    from convnet_tpu.config import parse_dataset_config
+
+    return parse_dataset_config(f"""
+        name: "dummy_imagenet" batch_size: {batch} randomize_cpu: {str(randomize).lower()}
+        data_config {{ layer_name: "input" data_type: DUMMY raw_image_size: {RAW}
+                      image_size: {CROP} num_colors: 3 can_translate: true can_flip: true
+                      scale: {1 / 255} dummy_size: {rows} }}
+        data_config {{ layer_name: "labels" data_type: DUMMY dummy_size: {rows}
+                      dummy_num_classes: 1000 }}
+    """)
+
+
+def clone_state(state):
+    def copy(tree):
+        return {n: {k: v.detach().clone() for k, v in p.items()} for n, p in tree.items()}
+
+    return {"params": copy(state["params"]), "moms": copy(state["moms"]),
+            "step": state["step"], "seed": state["seed"]}
+
+
+def check_train_parity(graph, state, jitter, batches, spec, mean_t, card):
+    """PARITY_STEPS steps of the port's train step and of the plain-
+    composed one from the same state, keys and batches. Each momentum
+    buffer (the sum of the steps' updates) must agree within UPDATE_TOL of
+    its largest element, and each parameter within UPDATE_TOL of its
+    largest update plus 2 ulps of its largest element (an update below
+    half an ulp leaves an f32 weight unchanged). UPDATE_TOL because the
+    LRN kernels may round a bf16 value the other way (1 ulp), and a max
+    pool can then pick another winner among near-equal bf16 values, which
+    routes that window's gradient elsewhere."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.trainer import make_train_step
+
+    step = make_train_step(graph, jitter)
+    port, plain, start = clone_state(state), clone_state(state), clone_state(state)
+    losses, plain_losses = [], []
+    for b in batches:
+        losses.append(step(port, b)["loss"].item())
+        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t).item())
+    print(f"[{card}] {PARITY_STEPS} train steps: port losses {losses}, plain-composed {plain_losses}")
+    for name in start["params"]:
+        for k in ("w", "b"):
+            m_port, m_plain = port["moms"][name][k], plain["moms"][name][k]
+            m_err = (m_port - m_plain).abs().max().item()
+            m_scale = m_plain.abs().max().item()
+            p0 = start["params"][name][k]
+            upd = (plain["params"][name][k] - p0).abs().max().item()
+            p_err = (port["params"][name][k] - plain["params"][name][k]).abs().max().item()
+            big = p0.abs().max()
+            ulp = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big).item()
+            p_tol = UPDATE_TOL * upd + 2 * ulp
+            print(f"[{card}]   {name}/{k}: momentum |port - plain| {m_err} = "
+                  f"{m_err / m_scale if m_scale else 0.0:.4g} of its largest {m_scale}; "
+                  f"param |port - plain| {p_err} (largest update {upd}, tolerance {p_tol})")
+            if m_err > UPDATE_TOL * m_scale or p_err > p_tol:
+                raise AssertionError(f"{name}/{k}: the port's step differs from the plain one")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
 
 
 def check_prologue(dev, gen, card):
@@ -158,34 +280,163 @@ def check_lrn(dev, gen, card):
     return worst
 
 
-def plain_alexnet(graph, params, x_u8, spec, mean_t):
-    """AlexNet's eval logits composed directly from the plain versions of
-    the kernels (and the same cuDNN/cuBLAS ops), not through apply_fn."""
+def check_lrn_bwd(dev, gen, card):
+    """The LRN backward kernel vs its plain version. bf16 dx: at most 1
+    bf16 ulp from the plain version (f32 math, one rounding) at AlexNet's
+    alpha, where dx has no cancellation; f32 dx: rtol 1e-4, atol 3e-5 of
+    the largest |dx| (also at alpha = 0.2, where it cancels); db: rtol 1e-4
+    of a float64 column sum of the plain f32 dx. Returns max |dx err|."""
     import torch
 
-    from convnet_tpu_torch.data.jitter import center_offsets
-    from convnet_tpu_torch.ops.conv import S2DInput, conv2d, fc
+    from convnet_tpu_torch.ops import lrn
+
+    worst = 0.0
+    for shape_name, (m, c) in LRN_SHAPES.items():
+        z32 = 2.0 * torch.randn((m, c), generator=gen, device=dev)
+        g32 = torch.randn((m, c), generator=gen, device=dev)
+        bias = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            z, g = z32.to(dtype), g32.to(dtype)
+            scales = (1e-4, 1.0) if dtype == torch.float32 else (1e-4,)
+            for add_scale in scales:
+                for use_bias, blocked in ((True, False), (False, False), (True, True)):
+                    b = bias if use_bias else None
+                    n, alpha = 5, add_scale / 5
+                    dx, db = lrn.lrn_bwd(g, z, n, alpha, 0.75, bias=b, relu=use_bias,
+                                         blocked=blocked)
+                    want = lrn._bwd_math(g, z, n, alpha, 0.75, b, use_bias, blocked)[0]
+                    torch.cuda.synchronize()
+                    err = (dx.float() - want.float()).abs().max().item()
+                    worst = max(worst, err)
+                    tag = (f"lrn_bwd {shape_name} ({m},{c}) {str(dtype)[6:]} add_scale={add_scale} "
+                           f"bias+relu={use_bias} blocked={blocked}")
+                    if dtype == torch.bfloat16:
+                        ulps = bf16_ulps(dx, want)
+                        msg = f"max_abs_err {err} bf16_ulps {ulps}"
+                        if ulps > 1:
+                            raise AssertionError(f"{tag}: {ulps} bf16 ulps from the plain version")
+                    else:
+                        msg = f"max_abs_err {err}"
+                        torch.testing.assert_close(dx, want, rtol=1e-4,
+                                                   atol=3e-5 * want.abs().max().item())
+                    if use_bias:
+                        ref = lrn._bwd_math(g.float(), z.float(), n, alpha, 0.75, b, True,
+                                            blocked)[0].double()
+                        db_rel = ((db.double() - ref.sum(0)).abs() / ref.sum(0).abs()).max().item()
+                        msg += f"; db max_rel_err {db_rel}"
+                        torch.testing.assert_close(db.double(), ref.sum(0), rtol=1e-4,
+                                                   atol=1e-5 * ref.abs().sum(0).max().item())
+                        again = lrn.lrn_bwd(g, z, n, alpha, 0.75, bias=b, relu=True,
+                                            blocked=blocked)[1]
+                        if not torch.equal(db, again):
+                            raise AssertionError(f"{tag}: db differs between two runs")
+                    print(f"[{card}] {tag}: {msg}")
+    return worst
+
+
+def check_dropout(dev, gen, card):
+    """The dropout kernel vs its plain version at fc6/fc7's shape: array-
+    equal; the backward's mask equals the forward's; the keep fraction
+    within 4 sigma of 0.5; another step or layer draws another mask.
+    Returns max |err| (0)."""
+    import torch
+
+    from convnet_tpu_torch.ops import dropout as drop
+
+    n = BATCH * 4096
+    sigma = 0.5 / n ** 0.5
+    key = drop.dropout_key(0, 7, 10)
+    keep = drop.dropout_bits(n, key, device=dev).view(BATCH, 1, 1, 4096) >= drop.keep_threshold(0.5)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.rand((BATCH, 1, 1, 4096), generator=gen, device=dev) + 0.5).to(dtype)
+        got = drop.dropout_apply(x, 0.5, key)
+        want = drop.dropout_reference(x, 0.5, key)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        xg = x.clone().requires_grad_()
+        y = drop.dropout(xg, 0.5, seed=0, step=7, layer=10)
+        (gx,) = torch.autograd.grad(y, xg, torch.ones_like(y))
+        frac = keep.double().mean().item()
+        other = [
+            drop.dropout_apply(x, 0.5, drop.dropout_key(0, 8, 10)),
+            drop.dropout_apply(x, 0.5, drop.dropout_key(0, 7, 11)),
+        ]
+        print(f"[{card}] dropout ({BATCH},1,1,4096) {str(dtype)[6:]}: max_abs_err {err}, "
+              f"keep fraction {frac} (0.5 +- {4 * sigma})")
+        if not torch.equal(got, want):
+            raise AssertionError(f"dropout {dtype} is not array-equal to its plain version")
+        if not (torch.equal(y != 0, keep) and torch.equal(gx != 0, keep)):
+            raise AssertionError("dropout's backward mask differs from its forward mask")
+        if abs(frac - 0.5) > 4 * sigma:
+            raise AssertionError(f"keep fraction {frac} is more than 4 sigma from 0.5")
+        if any(torch.equal(o != 0, keep) for o in other):
+            raise AssertionError("another step or layer drew the same mask")
+    return worst
+
+
+def check_conv_grad(dev, gen, card):
+    """An f32 conv's input and weight gradients at conv2's shape (B=16,
+    27x27x96 -> 256, k5 p2) against float64: rtol 1e-5, atol 1e-5 of the
+    largest gradient. Autograd through cuDNN's default (TF32 on) is shown
+    for contrast and not checked."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_tpu_torch.ops.conv import conv2d
+
+    x = torch.randn((16, 27, 27, 96), generator=gen, device=dev)
+    w = 0.05 * torch.randn((5, 5, 96, 256), generator=gen, device=dev)
+    gy = torch.randn((16, 27, 27, 256), generator=gen, device=dev)
+
+    def grads(dt):
+        xx, ww = x.to(dt).requires_grad_(), w.to(dt).requires_grad_()
+        return torch.autograd.grad(conv2d(xx, ww, 1, 2), (xx, ww), gy.to(dt))
+
+    got, want = grads(torch.float32), grads(torch.float64)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        xt = x.permute(0, 3, 1, 2).requires_grad_()
+        wt = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
+        tf_dx, tf_dw = torch.autograd.grad(F.conv2d(xt, wt, padding=2), (xt, wt),
+                                           gy.permute(0, 3, 1, 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32 = (tf_dx.permute(0, 2, 3, 1), tf_dw.permute(2, 3, 1, 0))
+    worst = 0.0
+    for name, g, ref, t in zip(("input", "weight"), got, want, tf32):
+        scale = ref.abs().max().item()
+        err = (g.double() - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"[{card}] f32 conv grad wrt {name} {tuple(g.shape)}: max_abs_err {err} "
+              f"({err / scale} of the largest) vs float64; cuDNN TF32 default: "
+              f"{(t.double() - ref).abs().max().item() / scale} of the largest")
+        torch.testing.assert_close(g.double(), ref, rtol=1e-5, atol=1e-5 * scale)
+    return worst
+
+
+def plain_logits(graph, params, x, dropout_seed=None):
+    """AlexNet's logits composed directly from the plain versions of the
+    kernels (and the same cuDNN/cuBLAS/ATen ops), not through apply_fn;
+    differentiable by autograd. x: the S2DInput of conv1. dropout_seed =
+    (seed, step) applies fc6's and fc7's dropout with the masks apply_fn
+    draws (keyed by the layer's index among the non-input layers)."""
+    import torch
+
+    from convnet_tpu_torch.ops.conv import conv2d, fc
+    from convnet_tpu_torch.ops.dropout import dropout_key, dropout_reference
     from convnet_tpu_torch.ops.lrn import response_norm_reference
     from convnet_tpu_torch.ops.pool import maxpool2d
-    from convnet_tpu_torch.ops.s2d_relayout import relayout_geometry, s2d_prologue_reference
 
     bf = torch.bfloat16
+    layer_index = [n for n in graph.topo_layer_order() if not graph.layer(n).is_input]
 
     def inc(layer):
         (e,) = graph.incoming(layer)
         return e
 
-    b, h, w, _ = x_u8.shape
-    c1 = inc("conv1")
-    cy, cx = center_offsets(h, w, spec.image_size)
-    oy = torch.full((b,), cy, dtype=torch.int32, device=x_u8.device)
-    ox = torch.full((b,), cx, dtype=torch.int32, device=x_u8.device)
-    xs = s2d_prologue_reference(
-        x_u8, oy, ox, None, crop=spec.image_size, stride=c1.stride,
-        p=relayout_geometry(spec.image_size, c1.kernel_size, c1.stride),
-        scale=spec.scale, mean=mean_t,
-    )
-    x = S2DInput(xs, c1.stride)
     for conv, norm, pool in (("conv1", "rnorm1", "pool1"), ("conv2", "rnorm2", "pool2")):
         ce, ne, pe = inc(conv), inc(norm), inc(pool)
         z = conv2d(x, params[ce.name]["w"], ce.stride, ce.padding, bf)
@@ -204,13 +455,78 @@ def plain_alexnet(graph, params, x_u8, spec, mean_t):
         fe = inc(layer)
         x = torch.relu(fc(x, params[fe.name]["w"], bf) + params[fe.name]["b"].to(bf))
         x = x[:, None, None, :]
+        rate = graph.layer(layer).dropprob
+        if dropout_seed is not None and rate > 0.0:
+            key = dropout_key(*dropout_seed, layer_index.index(layer))
+            x = dropout_reference(x, rate, key)
     fe = inc("output")
     return (fc(x, params[fe.name]["w"], bf) + params[fe.name]["b"].to(bf)).float()
 
 
+def plain_prologue(graph, x_u8, spec, mean_t, oy, ox, flips):
+    """conv1's S2DInput from the prologue kernel's plain version."""
+    from convnet_tpu_torch.ops.conv import S2DInput
+    from convnet_tpu_torch.ops.s2d_relayout import relayout_geometry, s2d_prologue_reference
+
+    (c1,) = graph.incoming("conv1")
+    xs = s2d_prologue_reference(
+        x_u8, oy, ox, flips, crop=spec.image_size, stride=c1.stride,
+        p=relayout_geometry(spec.image_size, c1.kernel_size, c1.stride),
+        scale=spec.scale, mean=mean_t,
+    )
+    return S2DInput(xs, c1.stride)
+
+
+def plain_alexnet(graph, params, x_u8, spec, mean_t):
+    """AlexNet's eval logits from the plain versions: center crop."""
+    import torch
+
+    from convnet_tpu_torch.data.jitter import center_offsets
+
+    b, h, w, _ = x_u8.shape
+    cy, cx = center_offsets(h, w, spec.image_size)
+    oy = torch.full((b,), cy, dtype=torch.int32, device=x_u8.device)
+    ox = torch.full((b,), cx, dtype=torch.int32, device=x_u8.device)
+    return plain_logits(graph, params, plain_prologue(graph, x_u8, spec, mean_t, oy, ox, None))
+
+
+def plain_train_step(graph, state, batch, spec, mean_t):
+    """One AlexNet train step composed from the plain versions: the same
+    crops, flips and dropout masks as the port's step (drawn from the
+    same keys), autograd for the backward, the port's optimizer."""
+    import torch
+
+    from convnet_tpu_torch import optim
+    from convnet_tpu_torch.data.jitter import sample_crop_flip
+    from convnet_tpu_torch.ops.losses import softmax_cross_entropy
+    from convnet_tpu_torch.trainer import field_generator
+
+    seed, step = state["seed"], state["step"]
+    x = batch["input"]
+    b, h, w, _ = x.shape
+    gen = field_generator(seed, step, "input", x.device)
+    oy, ox, flips = sample_crop_flip(gen, b, h, w, spec.image_size, spec.can_translate,
+                                     spec.can_flip)
+    xs = plain_prologue(graph, x, spec, mean_t, oy, ox, flips)
+    params = state["params"]
+    keys = [(n, k) for n in params for k in ("w", "b")]
+    with torch.enable_grad():
+        leaves = [params[n][k].requires_grad_() for n, k in keys]
+        logits = plain_logits(graph, params, xs, dropout_seed=(seed, step))
+        loss = softmax_cross_entropy(logits, batch["labels"].reshape(-1)) / b
+        flat = torch.autograd.grad(loss, leaves)
+    grads = {n: {} for n in params}
+    for (n, k), g in zip(keys, flat):
+        grads[n][k] = g
+    optim.apply_updates(graph, params, state["moms"], grads, step)
+    state["step"] = step + 1
+    return loss.detach()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile-dir", type=Path, help="trace the forward pass into this directory")
+    ap.add_argument("--profile-dir", type=Path,
+                    help="trace the forward pass and five train steps into this directory")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -227,6 +543,7 @@ def main(argv=None) -> int:
     from convnet_tpu_torch.data.jitter import JitterSpec
     from convnet_tpu_torch.model import init_params
     from convnet_tpu_torch.ops import _build
+    from convnet_tpu_torch.ops import dropout as drop
     from convnet_tpu_torch.ops import lrn
     from convnet_tpu_torch.ops import s2d_relayout as s2d
     from convnet_tpu_torch.predictor import Predictor
@@ -251,25 +568,28 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     s2d_err = check_prologue(dev, gen, card)
     lrn_err = check_lrn(dev, gen, card)
+    lrn_bwd_err = check_lrn_bwd(dev, gen, card)
+    drop_err = check_dropout(dev, gen, card)
+    check_conv_grad(dev, gen, card)
 
     # -- 3. serving ----------------------------------------------------------
     graph = build_graph(read_model(str(ALEXNET)))
     params = init_params(graph, seed=0, device=dev)
     spec = JitterSpec(image_size=CROP, scale=1 / 255)
-    mean = np.full((3,), 0.45, np.float32)
+    mean = np.full((3,), MEAN, np.float32)
     jitter = {"input": (spec, mean, None)}
     pred = Predictor(graph, params, batch_size=BATCH, jitter=jitter, raw_size=RAW,
                      input_dtype=np.uint8, device=dev)
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, 256, (n, RAW, RAW, 3), dtype=np.uint8) for n in REQUESTS]
 
-    lrn.LAUNCHES = 0
-    s2d.LAUNCHES = 0
+    reset_launches()
     outs = [pred({"input": r}) for r in requests]
-    launches = {"lrn_fwd": lrn.LAUNCHES, "s2d_prologue": s2d.LAUNCHES}
-    print(f"[{card}] launches during {len(REQUESTS)} requests: {launches}")
-    if launches != {"lrn_fwd": 2 * len(REQUESTS), "s2d_prologue": len(REQUESTS)}:
-        raise AssertionError(f"the requests did not go through the kernels: {launches}")
+    serve_launches = read_launches()
+    print(f"[{card}] launches during {len(REQUESTS)} requests: {serve_launches}")
+    if serve_launches != {"lrn_fwd": 2 * len(REQUESTS), "lrn_bwd": 0, "dropout": 0,
+                          "s2d_prologue": len(REQUESTS)}:
+        raise AssertionError(f"the requests did not go through the kernels: {serve_launches}")
 
     mean_t = torch.as_tensor(mean, device=dev)
     for req, out in zip(requests, outs):
@@ -299,7 +619,44 @@ def main(argv=None) -> int:
         if err > tol or not agree[decided].all():
             raise AssertionError("the served logits disagree with the plain-composed forward")
 
-    # -- 4. timing -----------------------------------------------------------
+    # -- 4. training -----------------------------------------------------------
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.trainer import Trainer, make_train_step
+
+    train_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
+    val_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, False))
+    train_spec = train_data.jitter_specs()["input"][0]
+    train_jitter = {"input": (train_spec, mean, None)}  # no HDF5 mean file on the card
+    trainer = Trainer(graph, train_data, val_data, device=dev, jitter=train_jitter)
+    p_init = clone_state(trainer.state)["params"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(max_iter=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    per_step = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}
+    print(f"[{card}] launches during {TRAIN_STEPS} train steps ({train_s:.3f} s): {train_launches}")
+    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"the train steps did not go through the kernels: {train_launches}")
+    moved = 0
+    for name, p in trainer.state["params"].items():
+        for k, v in p.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{name}/{k} is not finite after training")
+            moved += int(not torch.equal(v, p_init[name][k]))
+    print(f"[{card}] after {TRAIN_STEPS} steps {moved}/{2 * len(p_init)} parameter tensors moved")
+    if moved != 2 * len(p_init):
+        raise AssertionError("some parameters did not move")
+    del p_init
+    verr, vloss = trainer.validate()
+    print(f"[{card}] validation over {val_data.num_batches} batches: loss {vloss}, error {verr}")
+    if not (np.isfinite(vloss) and 0.0 <= verr <= 1.0):
+        raise AssertionError(f"validation loss {vloss}, error {verr}")
+    batches = [trainer.device_batch(train_data.get_batch()) for _ in range(PARITY_STEPS)]
+    check_train_parity(graph, trainer.state, train_jitter, batches, train_spec, mean_t, card)
+
+    # -- 5. timing -----------------------------------------------------------
     torch.cuda.synchronize()
     times = {}
     for shape_name, (m, c) in LRN_SHAPES.items():
@@ -317,6 +674,21 @@ def main(argv=None) -> int:
     times["s2d_prologue"] = (
         cuda_ms(lambda: s2d.s2d_prologue(x, off, off, None, **kw)),
         cuda_ms(lambda: s2d.s2d_prologue_reference(x, off, off, None, **kw)),
+    )
+    for shape_name, (m, c) in LRN_SHAPES.items():
+        z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
+        g = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        alpha = 1e-4 / 5
+        times[f"lrn_bwd {shape_name}"] = (
+            cuda_ms(lambda: lrn.lrn_bwd(g, z, 5, alpha, 0.75, bias=b, relu=True)),
+            cuda_ms(lambda: lrn._bwd_math(g, z, 5, alpha, 0.75, b, True)),
+        )
+    xd = torch.randn((BATCH, 1, 1, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    key = drop.dropout_key(0, 0, 10)
+    times["dropout"] = (
+        cuda_ms(lambda: drop.dropout_apply(xd, 0.5, key)),
+        cuda_ms(lambda: drop.dropout_reference(xd, 0.5, key)),
     )
     for name, (k_ms, p_ms) in times.items():
         print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
@@ -338,6 +710,33 @@ def main(argv=None) -> int:
     print(f"[{card}] Predictor, batch {BATCH}: {req_ms:.4f} ms per request, "
           f"{BATCH / req_ms * 1e3:.1f} img/s (host clock, uint8 in, numpy out)")
 
+    step = make_train_step(graph, train_jitter)
+    step_state = clone_state(trainer.state)
+    step_batch = batches[0]
+    step_ms = cuda_ms(lambda: step(step_state, step_batch))
+    step_dev_ms = queued_ms(lambda: step(step_state, step_batch))
+    host = []
+    for i in range(WARMUP + ITERS):
+        t0 = time.perf_counter()
+        step(step_state, step_batch)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            host.append((time.perf_counter() - t0) * 1e3)
+    step_host_ms = statistics.median(host)
+    t0 = time.perf_counter()
+    trainer.train(max_iter=trainer.state["step"] + TRAINER_STEPS)
+    torch.cuda.synchronize()
+    trainer_ips = TRAINER_STEPS * BATCH / (time.perf_counter() - t0)
+    train_data.close()
+    val_data.close()
+    print(f"[{card}] AlexNet train step, batch {BATCH}, on a staged batch: events "
+          f"{step_ms:.4f} ms ({BATCH / step_ms * 1e3:.1f} img/s); host clock with synchronize "
+          f"{step_host_ms:.4f} ms ({BATCH / step_host_ms * 1e3:.1f} img/s); device time with the "
+          f"launches hidden {step_dev_ms:.4f} ms ({BATCH / step_dev_ms * 1e3:.1f} img/s), so the "
+          f"card idles {1 - step_dev_ms / step_host_ms:.3f} of a host-clocked step")
+    print(f"[{card}] Trainer, batch {BATCH}, {TRAINER_STEPS} steps over DUMMY data: "
+          f"{trainer_ips:.1f} img/s (host clock, data staging included)")
+
     if args.profile_dir is not None:
         from torch.profiler import ProfilerActivity, profile
 
@@ -351,31 +750,39 @@ def main(argv=None) -> int:
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
         (args.profile_dir / "forward_profile.txt").write_text(f"{card}\n{table}\n")
         prof.export_chrome_trace(str(args.profile_dir / "forward_trace.json"))
-        print(table)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step(step_state, step_batch)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        (args.profile_dir / "train_profile.txt").write_text(f"{card}\n{table}\n")
+        prof.export_chrome_trace(str(args.profile_dir / "train_trace.json"))
+        print(f"[{card}] profiles of the forward and of 5 train steps -> {args.profile_dir}")
+
+    def kernel(name, source, replaces, also, err, parts):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"convnet_tpu_torch/csrc/{source}",
+            "replaces": f"convnet_tpu/ops/{replaces}",
+            "also_replaces": [f"convnet_tpu/ops/{r}" for r in also],
+            # the train path's count; the serving path's beside it
+            "launches": train_launches[name],
+            "launches_by_path": {"serving": serve_launches[name], "train": train_launches[name]},
+            "max_abs_err": err,
+            # a step launches the LRN kernels at both shapes: the sum of both
+            "ms": sum(times[t][0] for t in parts),
+            "plain_ms": sum(times[t][1] for t in parts),
+        }
 
     kernels = [
-        {
-            "name": "lrn_fwd",
-            "route": "cuda",
-            "source": "convnet_tpu_torch/csrc/lrn_fwd.cu",
-            "replaces": "convnet_tpu/ops/lrn.py:212",
-            "also_replaces": "convnet_tpu/ops/lrn.py:535",
-            "launches": launches["lrn_fwd"],
-            "max_abs_err": lrn_err,
-            # one forward pass launches it at both shapes
-            "ms": times["lrn_fwd rnorm1"][0] + times["lrn_fwd rnorm2"][0],
-            "plain_ms": times["lrn_fwd rnorm1"][1] + times["lrn_fwd rnorm2"][1],
-        },
-        {
-            "name": "s2d_prologue",
-            "route": "cuda",
-            "source": "convnet_tpu_torch/csrc/s2d_prologue.cu",
-            "replaces": "convnet_tpu/ops/s2d_relayout.py:200",
-            "launches": launches["s2d_prologue"],
-            "max_abs_err": s2d_err,
-            "ms": times["s2d_prologue"][0],
-            "plain_ms": times["s2d_prologue"][1],
-        },
+        kernel("lrn_fwd", "lrn_fwd.cu", "lrn.py:212", ["lrn.py:535", "lrn.py:447"], lrn_err,
+               ["lrn_fwd rnorm1", "lrn_fwd rnorm2"]),
+        kernel("lrn_bwd", "lrn_bwd.cu", "lrn.py:230", ["lrn.py:558", "lrn.py:455"], lrn_bwd_err,
+               ["lrn_bwd rnorm1", "lrn_bwd rnorm2"]),
+        kernel("dropout", "dropout.cu", "dropout.py:58", [], drop_err, ["dropout"]),
+        kernel("s2d_prologue", "s2d_prologue.cu", "s2d_relayout.py:200", [], s2d_err,
+               ["s2d_prologue"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,21 @@
 """convnet_tpu_torch — the PyTorch/CUDA port of convnet_tpu for an NVIDIA H100.
 
 The JAX package `convnet_tpu` stays the reference; this package runs the
-same `.pbtxt` models through PyTorch. Its first slice is the serving
-path: `Predictor` (predictor.py) over the eval forward (trainer.py,
-model.py). Convolutions, pooling and GEMMs go to cuDNN, cuBLAS and
-ATen through `torch.nn.functional`, as the JAX package left them to
-XLA; the two Pallas kernels of that path are hand-written CUDA kernels
-here (`csrc/`, bound in `ops/_build.py`):
+same `.pbtxt` models through PyTorch. Two slices are ported: serving,
+`Predictor` (predictor.py) over the eval forward, and training, `Trainer`
+(trainer.py) over a `DataHandler` (data/datahandler.py) with the
+reference's per-edge SGD (optim.py). Convolutions, pooling and GEMMs and
+their gradients go to cuDNN, cuBLAS and ATen through `torch.nn.functional`
+and autograd, as the JAX package left them to XLA; the Pallas kernels of
+those paths are hand-written CUDA kernels here (`csrc/`, bound in
+`ops/_build.py`):
 
-- `ops/lrn.py`: response norm forward with the conv bias and ReLU fused;
-- `ops/s2d_relayout.py`: the uint8 -> space-to-depth input prologue.
+- `ops/lrn.py`: response norm forward with the conv bias and ReLU fused,
+  and its backward with the bias gradient;
+- `ops/dropout.py`: inverted dropout with a Philox mask redrawn in the
+  backward;
+- `ops/s2d_relayout.py`: the uint8 -> space-to-depth input prologue,
+  with per-image crops and flips.
 
 Each kernel has a plain PyTorch version beside it, which its wrapper
 takes for CPU tensors. The package never imports JAX; it reuses the JAX

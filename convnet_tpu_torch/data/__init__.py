@@ -1,1 +1,2 @@
-"""Data side of the port: the jitter spec and the eval crop."""
+"""Data side of the port: the jitter spec, crops and flips, and the
+host-side DataHandler."""

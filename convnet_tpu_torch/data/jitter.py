@@ -1,10 +1,12 @@
-"""Jitter spec and the eval crop (counterpart of `convnet_tpu/data/jitter.py`).
+"""Jitter spec, crop sampling and the crop for inputs the space-to-depth
+prologue does not take (counterpart of `convnet_tpu/data/jitter.py`).
 
 The JAX package's `JitterSpec` cannot be imported without JAX (its module
-imports jax), so the port has its own, with the same fields. Only the eval
-branch of `jitter_batch` is ported: a center crop and the scale/mean/std
-affine, for inputs the space-to-depth prologue does not take. Random
-crops and flips come with the train step.
+imports jax), so the port has its own, with the same fields. Random crop
+origins and flips come from a `torch.Generator` the caller seeds; the
+draws are not the JAX package's (threefry), so parity tests inject them.
+The TPU's one-hot crop contractions are not ported: an index gather
+selects the same pixels.
 """
 
 from __future__ import annotations
@@ -35,18 +37,54 @@ def center_offsets(h: int, w: int, crop: int):
     return (h - crop) // 2, (w - crop) // 2
 
 
+def sample_crop_flip(
+    gen: torch.Generator, b: int, h: int, w: int, s: int, can_translate: bool, can_flip: bool
+):
+    """Per-image crop origins and flips drawn from `gen`, on its device:
+    (oy, ox, flips), int32 (B,), int32 (B,), bool (B,), each None when
+    not drawn (no translation possible or wanted; no flips)."""
+    dev = gen.device
+    flips = None
+    if can_flip:
+        flips = torch.rand((b,), generator=gen, device=dev) < 0.5
+    oy = ox = None
+    if can_translate and (h > s or w > s):
+        oy = torch.randint(0, h - s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        ox = torch.randint(0, w - s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    return oy, ox, flips
+
+
+def crop_flip(x: torch.Tensor, s: int, oy: torch.Tensor, ox: torch.Tensor, flips) -> torch.Tensor:
+    """Per-image s x s crops at (oy, ox), mirrored where flips: the same
+    pixels as the reference's one-hot contractions select."""
+    b = x.shape[0]
+    ii = torch.arange(s, device=x.device)
+    rows = oy.long()[:, None] + ii  # (B, S)
+    cols = ii.expand(b, s)
+    if flips is not None:
+        cols = torch.where(flips.bool()[:, None], s - 1 - cols, cols)
+    cols = ox.long()[:, None] + cols
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    return x[bi, rows[:, :, None], cols[:, None, :]]
+
+
 def jitter_batch(
     x: torch.Tensor,
     spec: JitterSpec,
     mean: Optional[torch.Tensor] = None,
     std: Optional[torch.Tensor] = None,
+    *,
+    train: bool = False,
+    gen: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Eval jitter: x (B, H, W, C) uint8 or float -> f32 (B, S, S, C),
-    S = spec.image_size, center-cropped, then x*scale, -mean, /std.
+    """x (B, H, W, C) uint8 or float -> f32 (B, S, S, C), S =
+    spec.image_size, cropped, then x*scale, -mean, /std.
 
-    mean/std broadcast against the crop (scalar, (C,) or (S, S, C)); a
-    raw-size (H, W, C) mean or std applies before the crop, as in the
-    reference."""
+    Eval: the center crop. Train: a random crop origin (can_translate)
+    and a random horizontal flip (can_flip) per image, drawn from `gen`
+    (on x's device) by `sample_crop_flip`. mean/std broadcast against the crop (scalar,
+    (C,) or (S, S, C)); a raw-size (H, W, C) mean or std applies before
+    the crop, as in the reference."""
     b, h, w, c = x.shape
     s = spec.image_size
     if h < s or w < s:
@@ -63,7 +101,20 @@ def jitter_batch(
         if mean is None and raw_std:
             x = x / std.float()
             std = None
-    if h > s or w > s:
+    if train and (spec.can_flip or spec.can_translate) and gen is None:
+        raise ValueError("train jitter needs a generator")
+    oy, ox, flips = (
+        sample_crop_flip(gen, b, h, w, s, spec.can_translate, spec.can_flip)
+        if train
+        else (None, None, None)
+    )
+    if oy is None and flips is not None:
+        cy, cx = center_offsets(h, w, s)
+        oy = torch.full((b,), cy, dtype=torch.int32, device=x.device)
+        ox = torch.full((b,), cx, dtype=torch.int32, device=x.device)
+    if oy is not None:
+        x = crop_flip(x, s, oy, ox, flips)
+    elif h > s or w > s:
         cy, cx = center_offsets(h, w, s)
         x = x[:, cy : cy + s, cx : cx + s, :]
     x = x.float()

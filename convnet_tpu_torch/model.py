@@ -1,4 +1,4 @@
-"""Model builder: Graph IR -> the eval forward (counterpart of
+"""The model: Graph IR -> the forward and the loss (counterpart of
 `convnet_tpu/model.py`).
 
 Params are `{edge_name: {"w": tensor, "b": tensor}}` for weighted edges,
@@ -16,7 +16,9 @@ The forward keeps the reference's fusion plan and cast points:
   activation dtype (model.py:433) and output pre-activations are promoted
   to f32 (model.py:404-409).
 PyTorch runs eagerly, so activations that only the fused LRN would have
-replaced (dead code that XLA drops) are never computed.
+replaced (dead code that XLA drops) are never computed. In training,
+autograd differentiates the same forward: the LRN and dropout through
+their kernels' autograd Functions, the rest through ATen's and cuDNN's.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from convnet_tpu.graph import ACT, ET, INIT, EdgeSpec, Graph
+from convnet_tpu.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
+from convnet_tpu_torch.ops import losses as losses_ops
 from convnet_tpu_torch.ops.activations import apply_activation
 from convnet_tpu_torch.ops.conv import S2DInput, conv2d, fc
+from convnet_tpu_torch.ops.dropout import dropout
 from convnet_tpu_torch.ops.lrn import (
     response_norm_cross_map,
     response_norm_cross_map_bias,
@@ -185,11 +189,20 @@ def apply_fn(
     params: Params,
     batch: Dict[str, torch.Tensor],
     return_layers: Optional[List[str]] = None,
+    *,
+    train: bool = False,
+    dropout_seed: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Eval fprop. `batch` maps each input layer's data_field to a
-    (B, H, W, C) tensor or an S2DInput. Returns {layer: activation} for
-    `return_layers` (default: all layers) plus "<name>:preact" (B, units)
-    f32 for every output layer."""
+    """Fprop. `batch` maps each input layer's data_field to a (B, H, W, C)
+    tensor or an S2DInput. Returns {layer: activation} for `return_layers`
+    (default: all layers) plus "<name>:preact" (B, units) f32 for every
+    output layer. train=True applies each layer's dropout after its
+    activation, the mask drawn from dropout_seed = (seed, step) and the
+    layer's index among the non-input layers (model.py:306, 426-432)."""
+    if train and graph.remat:
+        raise NotImplementedError(
+            "graph.remat (recompute activations in the backward) is not ported yet"
+        )
     cdt = torch.bfloat16 if graph.compute_dtype == "bfloat16" else None
     adt = torch.bfloat16 if graph.activation_dtype == "bfloat16" else None
     store_dt = adt if adt is not None else (torch.float32 if cdt is not None else None)
@@ -211,9 +224,11 @@ def apply_fn(
 
     defer_bias = _bias_deferral_plan(graph)
     pending_bias: Dict[str, torch.Tensor] = {}
+    drop_i = -1  # the layer counter the dropout masks are keyed by
     for name in graph.topo_layer_order():
         l = graph.layer(name)
         if not l.is_input:
+            drop_i += 1
             z = None
             for e in graph.incoming(name):
                 p = params.get(e.name)
@@ -252,7 +267,47 @@ def apply_fn(
                 if name in pending_bias:
                     z = z + pending_bias[name].to(z.dtype)
                 a = apply_activation(z, l.activation)
+                if train and l.dropprob > 0.0:
+                    if dropout_seed is None:
+                        raise ValueError("train=True with dropout needs dropout_seed")
+                    a = dropout(a, l.dropprob, *dropout_seed, layer=drop_i)
                 acts[name] = a.to(store_dt) if store_dt is not None else a
         if (want is None or name in want) and name in acts:
             out[name] = acts[name]
     return out
+
+
+def loss_fn(
+    graph: Graph,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    train: bool = True,
+    dropout_seed: Optional[Tuple[int, int]] = None,
+):
+    """Mean loss over the batch and metrics (device tensors): "loss" and
+    "<output>/errors" for each cross-entropy output. Targets live in
+    `batch` under each output layer's data_field."""
+    outs = apply_fn(graph, params, batch, return_layers=[], train=train, dropout_seed=dropout_seed)
+    total = 0.0
+    metrics: Dict[str, torch.Tensor] = {}
+    batch_size = None
+    for l in graph.output_layers:
+        logits = outs[f"{l.name}:preact"]
+        batch_size = logits.shape[0]
+        if l.data_field not in batch:
+            raise ValueError(
+                f"output layer {l.name!r} expects target field {l.data_field!r} "
+                f"but the batch has {sorted(batch)}"
+            )
+        target = batch[l.data_field]
+        if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
+            target = target.reshape(-1)
+        else:
+            target = target.reshape(target.shape[0], -1)
+        total = total + losses_ops.compute_loss(l.loss_function, logits, target)
+        if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
+            metrics[f"{l.name}/errors"] = losses_ops.classification_errors(logits, target)
+    loss = total / batch_size
+    metrics["loss"] = loss
+    return loss, metrics

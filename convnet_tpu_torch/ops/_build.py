@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and bind them through ctypes.
 
 Every `*.cu` file under `convnet_tpu_torch/csrc/` is compiled by nvcc for
-`sm_90a` into one shared library with a plain C interface (no PyTorch
-headers, so the build takes seconds). The library is keyed by a hash of
+`sm_90a`, one nvcc process per source, all started together, and the
+objects are linked into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds). The library is keyed by a hash of
 the sources and the flags and lives under `<checkout>/build/
 convnet_tpu_torch/`; the first call in a checkout builds it, later calls
 and processes load the file. Nothing here runs at import time: a machine
@@ -25,15 +26,21 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "convnet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_u32, _u64 = ctypes.c_uint32, ctypes.c_uint64
 # C entry points and their argument types: every pointer and the stream
 # are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     # z, bias, y, m, c, is_bf16, relu, blocked, n, alpha, beta, q, stream
     "cn_lrn_fwd": [_p, _p, _p, _i64, _i, _i, _i, _i, _i, _f, _f, _i, _p],
+    # g, z, bias, dx, db, partial, max_blocks, m, c, is_bf16, relu, blocked, n,
+    # alpha, beta, coef, q, stream
+    "cn_lrn_bwd": [_p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _f, _f, _f, _i, _p],
+    # x, y, n, is_bf16, threshold, scale, k0, k1, group0, stream
+    "cn_dropout": [_p, _p, _i64, _i, _u32, _f, _u32, _u32, _u64, _p],
     # x, oy, ox, flip, mean, std, out, b, h, w, c, crop, s, p, scale, stream
     "cn_s2d_prologue": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
 }
@@ -63,25 +70,36 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run(cmds) -> None:
+    """Run the commands in parallel; raise with every failure's stderr."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(out: Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent builder or an
-    # interrupted build never leaves a half-written library at `out`
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    # build in a temporary directory, then rename: a concurrent build or
+    # an interrupted build never leaves a half-written library at `out`
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        _run([
+            [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            for src, obj in zip(_sources(), objs)
+        ])
+        lib = os.path.join(tmp, out.name)
+        _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 

@@ -1,6 +1,9 @@
-"""Layer nonlinearities, forward (counterpart of
-`convnet_tpu/ops/activations.py`). Softmax runs over the channel (last)
-axis in the tensor's dtype; output layers reach it in f32."""
+"""Layer nonlinearities (counterpart of `convnet_tpu/ops/activations.py`).
+Softmax runs over the channel (last) axis in the tensor's dtype; output
+layers reach it in f32. The gradients are autograd's, which already
+differentiate ReLU (masked by y > 0, so 0 at the kink), sigmoid and tanh
+through their outputs, as the reference's custom VJPs do
+(activations.py:25-77)."""
 
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ channels_last tensors, so cuDNN reads and writes the NHWC bytes in place.
 Weights are HWIO.
 
 Precision: in bf16 mode the operands are bf16, accumulation is f32 and the
-output is bf16 (`conv.py:345-352`). In f32 mode TF32 is turned off for
-the call, as the JAX package runs f32 at Precision.HIGHEST.
+output is bf16 (`conv.py:345-352`). In f32 mode cuDNN's TF32 is turned
+off for the forward and for both gradients (`_ExactF32Conv`), as the JAX
+package runs f32 at Precision.HIGHEST in both directions. The gradients
+otherwise come from autograd, as the JAX package left them to XLA.
 """
 
 from __future__ import annotations
@@ -60,17 +62,42 @@ def s2d_regroup_weight(w: torch.Tensor, s: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _exact_f32(enabled: bool):
+def _exact_f32():
     """Turn cuDNN's TF32 off for an f32 conv (the reference's HIGHEST)."""
-    if not enabled:
-        yield
-        return
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class _ExactF32Conv(torch.autograd.Function):
+    """An f32 conv whose forward and both gradients run with TF32 off:
+    autograd would run dgrad and wgrad after `_exact_f32` has restored
+    cuDNN's default (TF32 on)."""
+
+    @staticmethod
+    def forward(ctx, xt, wt, stride, padding, groups):
+        ctx.save_for_backward(xt, wt)
+        ctx.conf = (stride, padding, groups)
+        with _exact_f32():
+            return F.conv2d(xt, wt, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xt, wt = ctx.saved_tensors
+        stride, padding, groups = ctx.conf
+        with _exact_f32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gy, xt, wt, None, _pair(stride), _pair(padding), (1, 1), False, (0, 0),
+                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False],
+            )
+        return dx, dw, None, None, None
 
 
 def _cast(x: torch.Tensor, w: torch.Tensor, compute_dtype):
@@ -124,7 +151,9 @@ def conv2d(
     else:
         xt = F.pad(xt, (plo_w, phi_w, plo_h, phi_h))
         pad_arg = 0
-    with _exact_f32(x.dtype == torch.float32):
+    if x.dtype == torch.float32:
+        y = _ExactF32Conv.apply(xt, wt, stride, pad_arg, groups)
+    else:
         y = F.conv2d(xt, wt, stride=stride, padding=pad_arg, groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 

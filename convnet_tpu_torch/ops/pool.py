@@ -1,8 +1,10 @@
-"""Max pooling (counterpart of `convnet_tpu/ops/pool.py`'s XLA forward).
+"""Max pooling (counterpart of `convnet_tpu/ops/pool.py`'s XLA path).
 
 Ceil-mode output size with -inf padding, written as an explicit pad and
 a plain `F.max_pool2d` rather than torch's own `ceil_mode`, whose rule for
 the last window is not cuda-convnet's (`convnet_tpu.graph.conv_out_size`).
+The gradient is ATen's max-pool backward through the pad, one winner per
+window, as XLA's select-and-scatter credits one (pool.py:17-21).
 """
 
 from __future__ import annotations

@@ -1,54 +1,122 @@
-"""The eval forward of the port: input prologue + model (counterpart of
-`convnet_tpu/trainer.py` `_preprocess`'s eval branch and `make_forward`).
-The train step is not ported yet."""
+"""Training and eval on one device: the input prologue, the train and eval
+steps, and the step loop (counterpart of `convnet_tpu/trainer.py`).
+
+A train step runs the jitter prologue, the forward, `torch.autograd`'s
+backward and the per-edge SGD update, eagerly; the update is in place.
+Randomness is keyed by (seed, step): each input field's crop generator by
+(seed, step, crc32(field)) and each dropout mask by (seed, step, layer),
+so a run started again from the same state replays the same stream. The
+draws are not the JAX package's (threefry).
+
+Not ported yet, and raising NotImplementedError rather than skipped:
+checkpoint save and resume (they need `checkpoint.py` and h5py, ROADMAP
+Queue A1), several steps per launch, and the profiler trace.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import os
+import time
+import warnings
+import zlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from convnet_tpu.graph import Graph
 from convnet_tpu_torch import model as model_lib
-from convnet_tpu_torch.data.jitter import JitterSpec, center_offsets, jitter_batch
+from convnet_tpu_torch import optim
+from convnet_tpu_torch.data.datahandler import DataHandler
+from convnet_tpu_torch.data.jitter import (
+    JitterSpec,
+    center_offsets,
+    jitter_batch,
+    sample_crop_flip,
+)
+from convnet_tpu_torch.ops.dropout import derive_key
 from convnet_tpu_torch.ops.s2d_relayout import jitter_s2d, prologue_plan
 
 #: {data_field: (JitterSpec, mean, std)}, mean/std numpy arrays or None.
 JitterMap = Dict[str, Tuple[JitterSpec, Optional[np.ndarray], Optional[np.ndarray]]]
+#: {"params", "moms", "step": host int, "seed": host int}
+TrainState = Dict[str, Any]
 
 
 def _as_tensor(v, device):
-    return None if v is None else torch.as_tensor(np.array(v, np.float32), device=device)
+    """A numpy mean or std as an f32 tensor on `device`. To a card it goes
+    through pinned memory: a copy from pageable memory would make the
+    host wait for all the work queued before it, every step."""
+    if v is None:
+        return None
+    t = torch.from_numpy(np.array(v, np.float32))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
-def preprocess(graph: Graph, jitter: Optional[JitterMap], batch: Dict[str, torch.Tensor]):
-    """Eval prologue for image inputs. A uint8 batch whose input layer
-    feeds a conv that `prologue_plan` accepts, with a scalar or
+def init_state(graph: Graph, seed: Optional[int] = None, device="cpu") -> TrainState:
+    """Params from the pbtxt's init modes, zero momenta, step 0."""
+    seed = graph.seed if seed is None else seed
+    params = model_lib.init_params(graph, seed, device)
+    return {"params": params, "moms": optim.init_momentum(params), "step": 0, "seed": seed}
+
+
+def field_generator(seed: int, step: int, field: str, device) -> torch.Generator:
+    """The crop/flip generator of one input field at one step, on
+    `device`, seeded from (seed, step, crc32(field)); crc32 rather than
+    hash() so every process draws the same stream."""
+    k0, k1 = derive_key(seed, step, step >> 32, zlib.crc32(field.encode()), 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((k1 << 32) | k0)
+    return gen
+
+
+def preprocess(
+    graph: Graph,
+    jitter: Optional[JitterMap],
+    batch: Dict[str, torch.Tensor],
+    train: bool = False,
+    rng: Optional[Tuple[int, int]] = None,
+):
+    """The jitter prologue for image inputs. A uint8 batch whose input
+    layer feeds a conv that `prologue_plan` accepts, with a scalar or
     per-channel mean/std, goes through the one-pass space-to-depth
-    prologue (center crop); other inputs get `jitter_batch`'s center crop.
-    With no jitter map, uint8 inputs are widened to f32."""
+    prologue; other inputs through `jitter_batch`. Eval takes the center
+    crop; train (rng = (seed, step)) draws per-image crop origins and
+    flips from each field's `field_generator`. With no jitter map, uint8
+    inputs are widened to f32."""
     if not jitter:
         return {k: v.float() if v.dtype == torch.uint8 else v for k, v in batch.items()}
     out = dict(batch)
     for field, (spec, mean, std) in jitter.items():
         x = out[field]
         dev = x.device
+        gen = None
+        if train and (spec.can_translate or spec.can_flip):
+            if rng is None:
+                raise ValueError("train jitter needs rng = (seed, step)")
+            gen = field_generator(*rng, field, dev)
         if x.dim() == 4 and x.dtype == torch.uint8 and np.ndim(mean) <= 1 and np.ndim(std) <= 1:
             layer = next((l for l in graph.input_layers if l.data_field == field), None)
             edge = prologue_plan(graph, layer.name) if layer is not None else None
             if edge is not None:
                 b, h, w, c = x.shape
-                cy, cx = center_offsets(h, w, spec.image_size)
+                oy = ox = flips = None
+                if gen is not None:
+                    oy, ox, flips = sample_crop_flip(
+                        gen, b, h, w, spec.image_size, spec.can_translate, spec.can_flip
+                    )
+                if oy is None:
+                    cy, cx = center_offsets(h, w, spec.image_size)
+                    oy = torch.full((b,), cy, dtype=torch.int32, device=dev)
+                    ox = torch.full((b,), cx, dtype=torch.int32, device=dev)
                 per_channel = [
                     None if v is None else _as_tensor(np.broadcast_to(v, (c,)), dev)
                     for v in (mean, std)
                 ]
                 out[field] = jitter_s2d(
-                    x,
-                    torch.full((b,), cy, dtype=torch.int32, device=dev),
-                    torch.full((b,), cx, dtype=torch.int32, device=dev),
-                    None,
+                    x, oy, ox, flips,
                     crop=spec.image_size,
                     kernel=edge.kernel_size,
                     stride=edge.stride,
@@ -57,7 +125,9 @@ def preprocess(graph: Graph, jitter: Optional[JitterMap], batch: Dict[str, torch
                     std=per_channel[1],
                 )
                 continue
-        out[field] = jitter_batch(x, spec, _as_tensor(mean, dev), _as_tensor(std, dev))
+        out[field] = jitter_batch(
+            x, spec, _as_tensor(mean, dev), _as_tensor(std, dev), train=gen is not None, gen=gen
+        )
     return out
 
 
@@ -71,3 +141,211 @@ def make_forward(graph: Graph, layers: List[str], jitter: Optional[JitterMap] = 
         )
 
     return fwd
+
+
+def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: int = 1):
+    """(state, batch) -> metrics. One step: the train prologue, forward,
+    backward, and `optim.apply_updates`, which updates state["params"]
+    and state["moms"] in place; state["step"] advances by one. The
+    metrics ("loss", "<output>/errors") stay device tensors until the
+    caller reads them."""
+    if unroll != 1:
+        raise NotImplementedError("several steps per launch (unroll > 1) are not ported yet")
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+        seed, step = state["seed"], state["step"]
+        params = state["params"]
+        keys = [(name, k) for name in params for k in params[name]]
+        # a caller's inference_mode or no_grad would leave nothing to differentiate
+        with torch.inference_mode(False), torch.enable_grad():
+            for name, k in keys:
+                params[name][k].requires_grad_(True)
+            proc = preprocess(graph, jitter, batch, train=True, rng=(seed, step))
+            loss, metrics = model_lib.loss_fn(
+                graph, params, proc, train=True, dropout_seed=(seed, step)
+            )
+            flat = torch.autograd.grad(loss, [params[name][k] for name, k in keys])
+        grads: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in params}
+        for (name, k), g in zip(keys, flat):
+            grads[name][k] = g
+        optim.apply_updates(graph, params, state["moms"], grads, step)
+        state["step"] = step + 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn
+
+
+def make_eval_step(graph: Graph, jitter: Optional[JitterMap] = None):
+    """(params, batch) -> metrics; center crop, no dropout."""
+
+    def eval_fn(params, batch):
+        with torch.no_grad():
+            _, metrics = model_lib.loss_fn(
+                graph, params, preprocess(graph, jitter, batch), train=False
+            )
+        return metrics
+
+    return eval_fn
+
+
+def _clamp_parallel(graph: Graph) -> None:
+    """The port runs on one device: a `parallel {}` block asking for more
+    is clamped, with the warning `parallel/mesh.py:59-82` gives."""
+    data, model = graph.parallel_data, graph.parallel_model
+    if data * model > 1:
+        warnings.warn(
+            f"model requests a {data}x{model} mesh but the port runs on one device — "
+            "clamped to 1x1",
+            stacklevel=3,
+        )
+
+
+class Trainer:
+    """Owns the state, the data handlers and the step loop: display every
+    `display_after` steps, validation every `validate_after`, the train log
+    `<checkpoint_dir>/<model>_train_log.txt` when a checkpoint directory
+    is set.
+
+    jitter: {field: (JitterSpec, mean, std)} to use instead of the data
+    handlers' `jitter_specs()` (for example a mean given without an HDF5
+    mean file)."""
+
+    def __init__(
+        self,
+        graph: Graph,
+        train_data: DataHandler,
+        val_data: Optional[DataHandler] = None,
+        checkpoint_dir: Optional[str] = None,
+        log_fn=print,
+        steps_per_launch: int = 1,
+        device="cuda",
+        jitter: Optional[JitterMap] = None,
+    ):
+        if steps_per_launch != 1:
+            raise NotImplementedError("steps_per_launch > 1 is not ported yet")
+        _clamp_parallel(graph)
+        self.graph = graph
+        self.train_data = train_data
+        self.val_data = val_data
+        self.device = torch.device(device)
+        self.checkpoint_dir = checkpoint_dir or graph.checkpoint_dir or "."
+        self._log_fn = log_fn
+        self._log_path = None
+        if checkpoint_dir or graph.checkpoint_dir:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            self._log_path = os.path.join(self.checkpoint_dir, f"{graph.name}_train_log.txt")
+        need = {l.data_field for l in graph.input_layers} | {
+            l.data_field for l in graph.output_layers
+        }
+        have = set(train_data.streams)
+        if not need <= have:
+            raise ValueError(
+                f"data config provides streams {sorted(have)} but the model needs fields "
+                f"{sorted(need)} (missing: {sorted(need - have)})"
+            )
+        train_jitter = jitter if jitter is not None else train_data.jitter_specs()
+        eval_jitter = jitter if jitter is not None else (
+            val_data.jitter_specs() if val_data is not None else train_jitter
+        )
+        self._train_step = make_train_step(graph, train_jitter)
+        self._eval_step = make_eval_step(graph, eval_jitter)
+        self.state = init_state(graph, device=self.device)
+        self._resume()
+
+    def log(self, msg: str):
+        self._log_fn(msg)
+        if self._log_path:
+            with open(self._log_path, "a") as f:
+                f.write(msg + "\n")
+
+    # -- checkpointing: not ported yet --------------------------------------
+
+    def _resume(self):
+        prefix = f"{self.graph.name}_"
+        if os.path.isdir(self.checkpoint_dir) and any(
+            f.startswith(prefix) and f.endswith(".h5") for f in os.listdir(self.checkpoint_dir)
+        ):
+            raise NotImplementedError(
+                f"{self.checkpoint_dir} holds a checkpoint of {self.graph.name}: resuming needs "
+                "checkpoint.py (h5py), not ported yet (ROADMAP Queue A1)"
+            )
+
+    def save(self):
+        raise NotImplementedError(
+            "checkpoint save needs checkpoint.py (h5py), not ported yet (ROADMAP Queue A1)"
+        )
+
+    # -- loops --------------------------------------------------------------
+
+    def device_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A DataHandler batch as tensors on the Trainer's device."""
+        out = {}
+        for k, v in host_batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                # pinned, so the copy does not wait for the step in flight
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t.to(self.device)
+        return out
+
+    def train(self, max_iter: Optional[int] = None, profile_dir: Optional[str] = None):
+        """The step loop up to `max_iter` steps (default: the pbtxt's)."""
+        if profile_dir is not None:
+            raise NotImplementedError("profile_dir is not ported yet")
+        g = self.graph
+        total = max_iter if max_iter is not None else g.max_iter
+        it = self.state["step"]
+        if g.checkpoint_after and total // g.checkpoint_after > it // g.checkpoint_after:
+            self.save()  # fails before the first step rather than at the checkpoint
+        window: List[Dict[str, torch.Tensor]] = []
+        t0 = time.time()
+        next_batch = self.device_batch(self.train_data.get_batch()) if it < total else None
+        while it < total:
+            metrics = self._train_step(self.state, next_batch)
+            prev, it = it, it + 1
+            # stage the next batch while this step runs on the device
+            if it < total:
+                next_batch = self.device_batch(self.train_data.get_batch())
+            window.append(metrics)
+            if g.display_after and it // g.display_after > prev // g.display_after:
+                loss = torch.stack([m["loss"].float() for m in window]).mean().item()
+                errs = sum(
+                    torch.stack([m[k] for m in window]).sum().item()
+                    for k in window[0] if k.endswith("/errors")
+                )
+                seen = len(window) * self.train_data.batch_size
+                dt = time.time() - t0
+                ips = seen / dt if dt > 0 else 0.0
+                self.log(
+                    f"step {it} loss {loss:.4f} train_err {errs / max(1, seen):.4f} "
+                    f"({ips:.1f} img/s)"
+                )
+                window = []
+                t0 = time.time()
+            if (
+                g.validate_after
+                and self.val_data
+                and it // g.validate_after > prev // g.validate_after
+            ):
+                verr, vloss = self.validate()
+                self.log(f"step {it} VALIDATION loss {vloss:.4f} err {verr:.4f}")
+                t0 = time.time()
+        return self.state
+
+    def validate(self, num_batches: Optional[int] = None) -> Tuple[float, float]:
+        """(error rate, mean loss) over num_batches validation batches
+        (default: validate_batches, else the whole set)."""
+        if self.val_data is None:
+            raise ValueError("validate() needs val_data")
+        n = num_batches or self.graph.validate_batches or self.val_data.num_batches
+        n = max(1, min(n, self.val_data.num_batches))
+        bs = self.val_data.batch_size
+        tot_err = tot_loss = seen = 0.0
+        for _ in range(n):
+            m = self._eval_step(
+                self.state["params"], self.device_batch(self.val_data.get_batch())
+            )
+            tot_loss += float(m["loss"]) * bs
+            tot_err += sum(float(m[k]) for k in m if k.endswith("/errors"))
+            seen += bs
+        return tot_err / seen, tot_loss / seen

@@ -6,7 +6,7 @@ JAX (the repository's conftest imports JAX, hence `--noconftest`):
     python -m pytest --noconftest tests/test_torch_port_kernels.py -q
 
 Tests that need a card skip without one; chip_smoke.py makes the same
-comparisons at the serving path's full shapes.
+comparisons at the serving and train paths' full shapes.
 """
 
 import numpy as np
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from convnet_tpu_torch.ops import _build
+from convnet_tpu_torch.ops import conv
+from convnet_tpu_torch.ops import dropout as drop
 from convnet_tpu_torch.ops import lrn
 from convnet_tpu_torch.ops import s2d_relayout as s2d
 
@@ -79,7 +81,8 @@ def test_library_is_keyed_by_the_sources():
     assert path == _build._library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
-    assert names == {"lrn_fwd.cu", "s2d_prologue.cu"}
+    assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu"}
+    assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_s2d_prologue"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -88,6 +91,33 @@ def test_quarter_power(beta, q):
     assert lrn.quarter_power(beta) == q
     d = torch.linspace(1.0, 9.0, 17)
     torch.testing.assert_close(lrn._neg_pow(d, beta), d ** -beta, rtol=1e-6, atol=0)
+
+
+def test_lrn_bwd_wrapper_takes_the_plain_version_on_cpu():
+    rng = np.random.default_rng(2)
+    z = torch.from_numpy(rng.standard_normal((40, 96)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((40, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(96).astype(np.float32))
+    before = lrn.BWD_LAUNCHES
+    dx, db = lrn.lrn_bwd(g, z, 5, 1e-4 / 5, 0.75, bias=b, relu=True)
+    want_dx, want_db = lrn._bwd_math(g, z, 5, 1e-4 / 5, 0.75, b, True)
+    assert torch.equal(dx, want_dx) and torch.equal(db, want_db)
+    assert lrn.lrn_bwd(g, z, 5, 1e-4 / 5, 0.75)[1] is None  # no bias, no db
+    assert lrn.BWD_LAUNCHES == before
+    with pytest.raises(ValueError, match="g shape"):
+        lrn.lrn_bwd(g[:10], z, 5, 1e-4, 0.75)
+
+
+def test_dropout_wrapper_takes_the_plain_version_on_cpu():
+    x = torch.randn(8, 1, 1, 64)
+    key = drop.dropout_key(1, 2, 3)
+    before = drop.LAUNCHES
+    assert torch.equal(drop.dropout_apply(x, 0.5, key), drop.dropout_reference(x, 0.5, key))
+    assert drop.LAUNCHES == before
+    with pytest.raises(ValueError, match="rate"):
+        drop.dropout_apply(x, 1.0, key)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        drop.dropout_apply(x, 0.5, key, offset=2)
 
 
 # ---------------------------------------------------------------------------
@@ -148,3 +178,97 @@ def test_s2d_kernel_marks_crops_outside_the_image(cuda):
     out = s2d.s2d_prologue(x, off, off, None, crop=9, stride=4, p=s2d.relayout_geometry(9, 5, 4))
     assert not torch.isnan(out[0].float()).any()
     assert torch.isnan(out[1].float()).any()
+
+
+def _lrn_bwd_inputs(cuda, c, dtype, seed, m=3000):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    z = (2.0 * torch.randn((m, c), generator=gen, device=cuda)).to(dtype)
+    g = torch.randn((m, c), generator=gen, device=cuda).to(dtype)
+    b = 0.5 * torch.randn((c,), generator=gen, device=cuda)
+    return g, z, b
+
+
+@pytest.mark.parametrize("c", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias,relu,blocked", [(True, True, False), (False, False, False),
+                                               (False, True, False), (True, True, True)])
+def test_lrn_bwd_kernel_matches_plain(cuda, c, dtype, bias, relu, blocked):
+    g, z, b = _lrn_bwd_inputs(cuda, c, dtype, c + 1)
+    b = b if bias else None
+    alpha = 1e-4 / 5  # AlexNet's: no cancellation in dx, so bf16 holds 1 ulp
+    before = lrn.BWD_LAUNCHES
+    dx, db = lrn.lrn_bwd(g, z, 5, alpha, 0.75, bias=b, relu=relu, blocked=blocked)
+    assert lrn.BWD_LAUNCHES == before + 1
+    want_dx, want_db = lrn._bwd_math(g, z, 5, alpha, 0.75, b, relu, blocked)
+    assert dx.dtype == dtype and dx.shape == z.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=3e-5 * want_dx.abs().max().item())
+    else:
+        assert bf16_ulps(dx, want_dx) <= 1
+    if bias:
+        # the kernel sums the f32 dx: against a float64 sum of the plain f32 dx
+        ref = lrn._bwd_math(g.float(), z.float(), 5, alpha, 0.75, b, relu, blocked)[0].double()
+        torch.testing.assert_close(db.double(), ref.sum(0), rtol=1e-4,
+                                   atol=1e-5 * ref.abs().sum(0).max().item())
+        again = lrn.lrn_bwd(g, z, 5, alpha, 0.75, bias=b, relu=relu, blocked=blocked)[1]
+        assert torch.equal(db, again)  # no atomics: the same sums every run
+    else:
+        assert db is None
+
+
+def test_lrn_bwd_kernel_f32_large_alpha(cuda):
+    g, z, b = _lrn_bwd_inputs(cuda, 96, torch.float32, 9)
+    dx, db = lrn.lrn_bwd(g, z, 5, 1.0 / 5, 0.75, bias=b, relu=True)
+    want_dx, want_db = lrn._bwd_math(g, z, 5, 1.0 / 5, 0.75, b, True)
+    torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=3e-5 * want_dx.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4, atol=1e-5 * want_dx.abs().sum(0).max().item())
+
+
+def test_lrn_autograd_runs_both_kernels(cuda):
+    g, z, b = _lrn_bwd_inputs(cuda, 256, torch.bfloat16, 4, m=2 * 27 * 27)
+    x = z.view(2, 27, 27, 256).clone().requires_grad_()
+    bb = b.clone().requires_grad_()
+    before = (lrn.LAUNCHES, lrn.BWD_LAUNCHES)
+    y = lrn.response_norm_cross_map_bias(x, bb, 1e-4, 0.75, 5 / 256, False, True)
+    dx, db = torch.autograd.grad(y, (x, bb), g.view(2, 27, 27, 256))
+    assert (lrn.LAUNCHES, lrn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want_dx, want_db = lrn._bwd_math(g, z, 5, 1e-4 / 5, 0.75, b, True)
+    assert bf16_ulps(dx.reshape(-1, 256), want_dx) <= 1
+    assert db.dtype == torch.float32
+    torch.testing.assert_close(db, want_db, rtol=1e-4, atol=1e-5 * want_dx.abs().sum(0).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [((128, 4096), 0), ((7, 33), 8)])
+def test_dropout_kernel_bit_equal_to_plain(cuda, dtype, shape, offset):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    key = drop.dropout_key(11, 5, 13)
+    before = drop.LAUNCHES
+    y = drop.dropout_apply(x, 0.5, key, offset)
+    assert drop.LAUNCHES == before + 1
+    assert torch.equal(y, drop.dropout_reference(x, 0.5, key, offset))
+
+
+def test_dropout_kernel_masks_agree_fwd_bwd(cuda):
+    x = torch.randn((128, 1, 1, 4096), device=cuda, dtype=torch.bfloat16).requires_grad_()
+    y = drop.dropout(x, 0.5, seed=4, step=9, layer=12)
+    (gx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert torch.equal(y != 0, gx != 0)
+    assert torch.equal(gx[gx != 0], torch.full_like(gx[gx != 0], 2.0))
+
+
+def test_f32_conv_gradients_exact(cuda):
+    """conv2's shape in f32: with TF32 left on for dgrad/wgrad the
+    gradients would miss a float64 computation by about 1e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((16, 27, 27, 96), generator=gen, device=cuda)
+    w = 0.05 * torch.randn((5, 5, 96, 256), generator=gen, device=cuda)
+    gy = torch.randn((16, 27, 27, 256), generator=gen, device=cuda)
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        xx = x.to(dt).requires_grad_()
+        ww = w.to(dt).requires_grad_()
+        grads.append(torch.autograd.grad(conv.conv2d(xx, ww, 1, 2), (xx, ww), gy.to(dt)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5 * want.abs().max().item())

@@ -314,7 +314,7 @@ def test_eval_jitter_batch_matches_jax(mean_kind):
 
 
 # ---------------------------------------------------------------------------
-# The port imports no JAX and no h5py
+# The port imports no JAX and no h5py (the serving and train slices)
 # ---------------------------------------------------------------------------
 
 
@@ -323,7 +323,10 @@ def test_port_imports_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import convnet_tpu_torch.predictor, convnet_tpu_torch.ops._build\n"
-        "assert 'h5py' not in sys.modules, 'the slice must not import h5py'\n"
+        "import convnet_tpu_torch.trainer, convnet_tpu_torch.optim\n"
+        "import convnet_tpu_torch.ops.dropout, convnet_tpu_torch.ops.losses\n"
+        "import convnet_tpu_torch.data.datahandler\n"
+        "assert 'h5py' not in sys.modules, 'the slices must not import h5py'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
