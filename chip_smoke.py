@@ -14,8 +14,15 @@ any failure raises and the script exits non-zero:
    1e-5 in f32; its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
    1e-4 of a float64 column sum; dropout array-equal, with the backward's
-   mask equal to the forward's. An f32 conv's gradients at conv2's shape
-   must match float64 within rtol 1e-5 (no TF32 in dgrad or wgrad).
+   mask equal to the forward's. The max pool at pool1, pool2 and pool5
+   array-equal; the fused LRN -> max pool forward at rnorm1/pool1 and
+   rnorm2/pool2, with bias and ReLU, array-equal to the max pool of the
+   LRN kernel's output; its backward within 1 bf16 ulp of the plain chain
+   fed with that same y (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
+   db within rtol 1e-4 of a float64 sum and the same in two runs; inputs
+   on a grid of halves, so window maxima tie (the count is printed). An
+   f32 conv's gradients at conv2's shape must match float64 within rtol
+   1e-5 (no TF32 in dgrad or wgrad).
 3. Serving: a Predictor on full-width AlexNet (examples/imagenet/
    alexnet.pbtxt, bf16, crop 224 from 256, uint8 wire, batch 128, random
    weights from the port's seeded init, mean 0.45, scale 1/255) answers
@@ -31,21 +38,34 @@ any failure raises and the script exits non-zero:
    each step launch lrn_fwd 2, lrn_bwd 2, dropout 4 and s2d_prologue 1
    times, and three steps from one state must agree with a train step
    composed from the plain versions with autograd (tolerance printed).
-5. Timing with CUDA events (median of 20 runs after warm-up): each kernel
-   and its plain version, the forward pass, the Predictor's milliseconds
-   per batch and images per second, the train step (device time and host
-   clock) and the Trainer's images per second over 50 steps.
+5. Training with the reference's pool gradient: the same Trainer takes 20
+   more steps with CONVNET_POOL_LRN_FUSED=1 and CONVNET_POOL_BACKEND=pallas
+   set (and restored after). Each step must launch pool_lrn_fwd 2,
+   pool_lrn_bwd 2, maxpool_fwd 1, lrn_fwd 0, lrn_bwd 0, dropout 4 and
+   s2d_prologue 1 times; the parameters stay finite; three steps from one
+   state must agree with a step composed from the plain versions with
+   autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
+   gradient.
+6. Timing with CUDA events (median of 20 runs after warm-up): each kernel,
+   its plain version, its bound (the larger of its bytes over 3.35 TB/s
+   and its operations over 67 TFLOP/s) and, where one PyTorch call
+   computes the same function, that call; the forward pass, the
+   Predictor's milliseconds per batch and images per second, the train
+   step on both paths (device time and host clock) and the Trainer's
+   images per second over 50 steps.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
-the forward pass and five train steps are also traced with torch.profiler
-into that directory.
+the forward pass and five train steps of each path are also traced with
+torch.profiler into that directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -63,6 +83,13 @@ MEAN = 0.45
 # bf16 train steps: each parameter's update within this share of its
 # largest update from the plain-composed step (see check_train_parity)
 UPDATE_TOL = 6e-2
+# the switches of the reference-gradient train path (the JAX package's)
+POOL_SWITCHES = {"CONVNET_POOL_LRN_FUSED": "1", "CONVNET_POOL_BACKEND": "pallas"}
+# the bound of a kernel: the larger of its bytes over the card's memory
+# rate and its operations over the card's f32 rate outside the tensor
+# cores (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -126,23 +153,55 @@ def bf16_ulps(a, b) -> int:
 
 
 def reset_launches():
-    from convnet_tpu_torch.ops import dropout, lrn, s2d_relayout
+    from convnet_tpu_torch.ops import dropout, fused_pool_lrn, lrn, pool, s2d_relayout
 
     lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
+    pool.LAUNCHES = fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
 
 
 def read_launches():
-    from convnet_tpu_torch.ops import dropout, lrn, s2d_relayout
+    from convnet_tpu_torch.ops import dropout, fused_pool_lrn, lrn, pool, s2d_relayout
 
     return {"lrn_fwd": lrn.LAUNCHES, "lrn_bwd": lrn.BWD_LAUNCHES, "dropout": dropout.LAUNCHES,
-            "s2d_prologue": s2d_relayout.LAUNCHES}
+            "s2d_prologue": s2d_relayout.LAUNCHES, "maxpool_fwd": pool.LAUNCHES,
+            "pool_lrn_fwd": fused_pool_lrn.LAUNCHES, "pool_lrn_bwd": fused_pool_lrn.BWD_LAUNCHES}
+
+
+def expect_launches(what, got, per_call, calls):
+    """Raise unless every kernel launched per_call[k] * calls times (0 for
+    a kernel not named)."""
+    want = {k: per_call.get(k, 0) * calls for k in got}
+    if got != want:
+        raise AssertionError(f"{what} did not go through the kernels: {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def pool_switches():
+    """The reference-gradient path's switches, set for the block and
+    restored after it."""
+    saved = {k: os.environ.get(k) for k in POOL_SWITCHES}
+    os.environ.update(POOL_SWITCHES)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bound(nbytes: float, ops: float):
+    """(the least milliseconds the card could take, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def dummy_imagenet(batch: int, rows: int, randomize: bool):
     """A DUMMY DatasetConfig shaped like ImageNet's train data: uint8
     256x256x3 images cropped to 224 with random translations and flips,
     scale 1/255, 1000 classes. Nothing is read from or written to disk."""
-    from convnet_tpu.config import parse_dataset_config
+    from convnet_tpu_torch.config import parse_dataset_config
 
     return parse_dataset_config(f"""
         name: "dummy_imagenet" batch_size: {batch} randomize_cpu: {str(randomize).lower()}
@@ -162,9 +221,10 @@ def clone_state(state):
             "step": state["step"], "seed": state["seed"]}
 
 
-def check_train_parity(graph, state, jitter, batches, spec, mean_t, card):
+def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=False):
     """PARITY_STEPS steps of the port's train step and of the plain-
-    composed one from the same state, keys and batches. Each momentum
+    composed one from the same state, keys and batches (fused: the
+    reference-gradient path, under pool_switches()). Each momentum
     buffer (the sum of the steps' updates) must agree within UPDATE_TOL of
     its largest element, and each parameter within UPDATE_TOL of its
     largest update plus 2 ulps of its largest element (an update below
@@ -182,7 +242,7 @@ def check_train_parity(graph, state, jitter, batches, spec, mean_t, card):
     losses, plain_losses = [], []
     for b in batches:
         losses.append(step(port, b)["loss"].item())
-        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t).item())
+        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t, fused).item())
     print(f"[{card}] {PARITY_STEPS} train steps: port losses {losses}, plain-composed {plain_losses}")
     for name in start["params"]:
         for k in ("w", "b"):
@@ -376,6 +436,115 @@ def check_dropout(dev, gen, card):
     return worst
 
 
+# AlexNet's max pools (k3 s2) and its LRN -> pool chains at batch 128
+POOL_SHAPES = {"pool1": (BATCH, 55, 55, 96), "pool2": (BATCH, 27, 27, 256),
+               "pool5": (BATCH, 13, 13, 256)}
+CHAINS = {"rnorm1": (BATCH, 55, 55, 96), "rnorm2": (BATCH, 27, 27, 256)}
+LRN_N, LRN_ALPHA = 5, 1e-4 / 5  # AlexNet's size-5 window, add_scale 1e-4
+
+
+def halves(gen, shape, dev, dtype):
+    """Normal values rounded to halves: window maxima tie often, as they do
+    on post-ReLU zeros and quantized activations."""
+    import torch
+
+    return (torch.round(2.0 * torch.randn(shape, generator=gen, device=dev)) / 2).to(dtype)
+
+
+def tied_windows(y, m, k, s) -> int:
+    """How many windows of a k/s pool (exact cover) hold its max more than once."""
+    import torch
+
+    oh, ow = m.shape[1], m.shape[2]
+    count = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    for i in range(k):
+        for j in range(k):
+            count += y[:, i: i + s * (oh - 1) + 1: s, j: j + s * (ow - 1) + 1: s] == m
+    return int((count > 1).sum().item())
+
+
+def check_maxpool(dev, gen, card):
+    """The max pool kernel vs its plain version at pool1, pool2 and pool5,
+    tie-heavy inputs: array-equal. Returns max |err| (0)."""
+    import torch
+
+    from convnet_tpu_torch.ops import pool
+
+    worst = 0.0
+    for name, shape in POOL_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = halves(gen, shape, dev, dtype)
+            got = pool.maxpool_fwd(x, 3, 2)
+            want = pool.maxpool_reference(x, 3, 2)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            print(f"[{card}] maxpool_fwd {name} {shape} {str(dtype)[6:]}: max_abs_err {err}, "
+                  f"{tied_windows(x, got, 3, 2)} of {got.numel()} window maxima tied")
+            if not torch.equal(got, want):
+                raise AssertionError(f"maxpool_fwd {name} {dtype} is not array-equal to its plain version")
+    return worst
+
+
+def check_pool_lrn(dev, gen, card):
+    """The fused LRN -> max pool kernels at both AlexNet chains, with bias
+    and ReLU, tie-heavy inputs. Forward: array-equal to the plain max pool
+    of the LRN kernel's output. Backward: within 1 bf16 ulp of the plain
+    chain (all-ties pool-undo in f32, plain LRN backward) fed with that
+    same y; f32 dz within rtol 1e-4 and atol 3e-5 of the largest |dz|; db
+    within rtol 1e-4 of a float64 sum and the same in two runs. Returns
+    (max |m err|, max |dz err|)."""
+    import torch
+
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
+    from convnet_tpu_torch.ops import lrn, pool
+
+    worst_m = worst_dz = 0.0
+    for name, shape in CHAINS.items():
+        c = shape[-1]
+        z32 = halves(gen, shape, dev, torch.float32)
+        bias = torch.round(0.5 * torch.randn((c,), generator=gen, device=dev))
+        for dtype in (torch.bfloat16, torch.float32):
+            z = z32.to(dtype)
+            kw = dict(bias=bias, relu=True)
+            tag = f"{name} {shape} {str(dtype)[6:]} bias+relu"
+            m = plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)
+            y = lrn.lrn_fwd(z.view(-1, c), LRN_N, LRN_ALPHA, 0.75, **kw).view(shape)
+            want_m = pool.maxpool_reference(y, 3, 2)
+            torch.cuda.synchronize()
+            err = (m.float() - want_m.float()).abs().max().item()
+            worst_m = max(worst_m, err)
+            print(f"[{card}] pool_lrn_fwd {tag}: max_abs_err {err} vs maxpool(lrn_fwd); "
+                  f"{tied_windows(y, m, 3, 2)} of {m.numel()} window maxima tied")
+            if not torch.equal(m, want_m):
+                raise AssertionError(f"pool_lrn_fwd {tag} is not array-equal to maxpool(lrn_fwd)")
+            g = torch.randn(m.shape, generator=gen, device=dev).to(dtype)
+            dz, db = plrn.pool_lrn_bwd(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)
+            want_dz, _ = plrn._bwd_reference(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, y=y, **kw)
+            torch.cuda.synchronize()
+            err = (dz.float() - want_dz.float()).abs().max().item()
+            worst_dz = max(worst_dz, err)
+            if dtype == torch.bfloat16:
+                ulps = bf16_ulps(dz, want_dz)
+                msg = f"max_abs_err {err} bf16_ulps {ulps}"
+                if ulps > 1:
+                    raise AssertionError(f"pool_lrn_bwd {tag}: {ulps} bf16 ulps from the plain chain")
+            else:
+                msg = f"max_abs_err {err}"
+                torch.testing.assert_close(dz, want_dz, rtol=1e-4,
+                                           atol=3e-5 * want_dz.abs().max().item())
+            ref = plrn._bwd_reference(g.float(), m.float(), z.float(), LRN_N, LRN_ALPHA, 0.75, 3, 2,
+                                      y=y.float(), **kw)[0].double().reshape(-1, c)
+            db_rel = ((db.double() - ref.sum(0)).abs() / ref.sum(0).abs()).max().item()
+            print(f"[{card}] pool_lrn_bwd {tag}: {msg}; db max_rel_err {db_rel}")
+            torch.testing.assert_close(db.double(), ref.sum(0), rtol=1e-4,
+                                       atol=1e-5 * ref.abs().sum(0).max().item())
+            again = plrn.pool_lrn_bwd(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)[1]
+            if not torch.equal(db, again):
+                raise AssertionError(f"pool_lrn_bwd {tag}: db differs between two runs")
+    return worst_m, worst_dz
+
+
 def check_conv_grad(dev, gen, card):
     """An f32 conv's input and weight gradients at conv2's shape (B=16,
     27x27x96 -> 256, k5 p2) against float64: rtol 1e-5, atol 1e-5 of the
@@ -417,18 +586,44 @@ def check_conv_grad(dev, gen, card):
     return worst
 
 
-def plain_logits(graph, params, x, dropout_seed=None):
+def plain_lrn_maxpool(z, b, conf):
+    """lrn_maxpool from the plain versions, for autograd: the plain LRN and
+    max pool forward; backward, the plain all-ties pool-undo and the plain
+    LRN backward. conf = (n, alpha, beta, k, s, relu, blocked)."""
+    import torch
+
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
+
+    n, alpha, beta, k, s, relu, blocked = conf
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z, b):
+            m = plrn._fwd_reference(z, n, alpha, beta, k, s, b, relu, blocked)
+            ctx.save_for_backward(z, b, m)
+            return m
+
+        @staticmethod
+        def backward(ctx, g):
+            z, b, m = ctx.saved_tensors
+            return plrn._bwd_reference(g.to(z.dtype), m, z, n, alpha, beta, k, s, b, relu, blocked)
+
+    return Plain.apply(z, b)
+
+
+def plain_logits(graph, params, x, dropout_seed=None, fused=False):
     """AlexNet's logits composed directly from the plain versions of the
     kernels (and the same cuDNN/cuBLAS/ATen ops), not through apply_fn;
     differentiable by autograd. x: the S2DInput of conv1. dropout_seed =
     (seed, step) applies fc6's and fc7's dropout with the masks apply_fn
-    draws (keyed by the layer's index among the non-input layers)."""
+    draws (keyed by the layer's index among the non-input layers). fused:
+    the LRN -> pool chains as one op with the all-ties pool gradient."""
     import torch
 
     from convnet_tpu_torch.ops.conv import conv2d, fc
     from convnet_tpu_torch.ops.dropout import dropout_key, dropout_reference
-    from convnet_tpu_torch.ops.lrn import response_norm_reference
-    from convnet_tpu_torch.ops.pool import maxpool2d
+    from convnet_tpu_torch.ops.lrn import norm_window_size, response_norm_reference
+    from convnet_tpu_torch.ops.pool import maxpool_reference
 
     bf = torch.bfloat16
     layer_index = [n for n in graph.topo_layer_order() if not graph.layer(n).is_input]
@@ -440,17 +635,23 @@ def plain_logits(graph, params, x, dropout_seed=None):
     for conv, norm, pool in (("conv1", "rnorm1", "pool1"), ("conv2", "rnorm2", "pool2")):
         ce, ne, pe = inc(conv), inc(norm), inc(pool)
         z = conv2d(x, params[ce.name]["w"], ce.stride, ce.padding, bf)
+        if fused:
+            n = norm_window_size(z.shape[-1], ne.frac_of_filters_response_norm)
+            conf = (n, ne.add_scale / n, ne.pow_scale, pe.kernel_size, pe.stride, True,
+                    ne.response_norm_blocked)
+            x = plain_lrn_maxpool(z, params[ce.name]["b"], conf)
+            continue
         x = response_norm_reference(
             z, ne.add_scale, ne.pow_scale, ne.frac_of_filters_response_norm,
             ne.response_norm_blocked, bias=params[ce.name]["b"], relu=True,
         )
-        x = maxpool2d(x, pe.kernel_size, pe.stride, pe.padding)
+        x = maxpool_reference(x, pe.kernel_size, pe.stride, pe.padding)
     for conv in ("conv3", "conv4", "conv5"):
         ce = inc(conv)
         z = conv2d(x, params[ce.name]["w"], ce.stride, ce.padding, bf)
         x = torch.relu(z + params[ce.name]["b"].to(bf))
     pe = inc("pool5")
-    x = maxpool2d(x, pe.kernel_size, pe.stride, pe.padding)
+    x = maxpool_reference(x, pe.kernel_size, pe.stride, pe.padding)
     for layer in ("fc6", "fc7"):
         fe = inc(layer)
         x = torch.relu(fc(x, params[fe.name]["w"], bf) + params[fe.name]["b"].to(bf))
@@ -490,10 +691,11 @@ def plain_alexnet(graph, params, x_u8, spec, mean_t):
     return plain_logits(graph, params, plain_prologue(graph, x_u8, spec, mean_t, oy, ox, None))
 
 
-def plain_train_step(graph, state, batch, spec, mean_t):
+def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     """One AlexNet train step composed from the plain versions: the same
     crops, flips and dropout masks as the port's step (drawn from the
-    same keys), autograd for the backward, the port's optimizer."""
+    same keys), autograd for the backward, the port's optimizer. fused:
+    the reference-gradient path's LRN -> pool chains (plain_logits)."""
     import torch
 
     from convnet_tpu_torch import optim
@@ -512,7 +714,7 @@ def plain_train_step(graph, state, batch, spec, mean_t):
     keys = [(n, k) for n in params for k in ("w", "b")]
     with torch.enable_grad():
         leaves = [params[n][k].requires_grad_() for n, k in keys]
-        logits = plain_logits(graph, params, xs, dropout_seed=(seed, step))
+        logits = plain_logits(graph, params, xs, dropout_seed=(seed, step), fused=fused)
         loss = softmax_cross_entropy(logits, batch["labels"].reshape(-1)) / b
         flat = torch.autograd.grad(loss, leaves)
     grads = {n: {} for n in params}
@@ -538,8 +740,8 @@ def main(argv=None) -> int:
     if not (REPO / "convnet_tpu_torch").is_dir() or not ALEXNET.is_file():
         print("chip_smoke: run it from the root of a checkout of the repository", file=sys.stderr)
         return 1
-    from convnet_tpu.config import read_model
-    from convnet_tpu.graph import build_graph
+    from convnet_tpu_torch.config import read_model
+    from convnet_tpu_torch.graph import build_graph
     from convnet_tpu_torch.data.jitter import JitterSpec
     from convnet_tpu_torch.model import init_params
     from convnet_tpu_torch.ops import _build
@@ -570,6 +772,8 @@ def main(argv=None) -> int:
     lrn_err = check_lrn(dev, gen, card)
     lrn_bwd_err = check_lrn_bwd(dev, gen, card)
     drop_err = check_dropout(dev, gen, card)
+    pool_err = check_maxpool(dev, gen, card)
+    plrn_err, plrn_bwd_err = check_pool_lrn(dev, gen, card)
     check_conv_grad(dev, gen, card)
 
     # -- 3. serving ----------------------------------------------------------
@@ -587,9 +791,8 @@ def main(argv=None) -> int:
     outs = [pred({"input": r}) for r in requests]
     serve_launches = read_launches()
     print(f"[{card}] launches during {len(REQUESTS)} requests: {serve_launches}")
-    if serve_launches != {"lrn_fwd": 2 * len(REQUESTS), "lrn_bwd": 0, "dropout": 0,
-                          "s2d_prologue": len(REQUESTS)}:
-        raise AssertionError(f"the requests did not go through the kernels: {serve_launches}")
+    expect_launches("the requests", serve_launches, {"lrn_fwd": 2, "s2d_prologue": 1},
+                    len(REQUESTS))
 
     mean_t = torch.as_tensor(mean, device=dev)
     for req, out in zip(requests, outs):
@@ -635,10 +838,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
-    per_step = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}
     print(f"[{card}] launches during {TRAIN_STEPS} train steps ({train_s:.3f} s): {train_launches}")
-    if train_launches != {k: v * TRAIN_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"the train steps did not go through the kernels: {train_launches}")
+    expect_launches("the train steps", train_launches,
+                    {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}, TRAIN_STEPS)
     moved = 0
     for name, p in trainer.state["params"].items():
         for k, v in p.items():
@@ -656,9 +858,43 @@ def main(argv=None) -> int:
     batches = [trainer.device_batch(train_data.get_batch()) for _ in range(PARITY_STEPS)]
     check_train_parity(graph, trainer.state, train_jitter, batches, train_spec, mean_t, card)
 
-    # -- 5. timing -----------------------------------------------------------
+    # -- 5. training with the reference's pool gradient ------------------------
+    with pool_switches():
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.train(max_iter=trainer.state["step"] + TRAIN_STEPS)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_launches = read_launches()
+        print(f"[{card}] launches during {TRAIN_STEPS} train steps with {POOL_SWITCHES} "
+              f"({ref_s:.3f} s): {ref_launches}")
+        expect_launches("the reference-gradient train steps", ref_launches,
+                        {"pool_lrn_fwd": 2, "pool_lrn_bwd": 2, "maxpool_fwd": 1, "dropout": 4,
+                         "s2d_prologue": 1}, TRAIN_STEPS)
+        for name, p in trainer.state["params"].items():
+            for k, v in p.items():
+                if not torch.isfinite(v).all():
+                    raise AssertionError(f"{name}/{k} is not finite after the reference-gradient steps")
+        ref_batches = [trainer.device_batch(train_data.get_batch()) for _ in range(PARITY_STEPS)]
+        check_train_parity(graph, trainer.state, train_jitter, ref_batches, train_spec, mean_t,
+                           card, fused=True)
+
+    # -- 6. timing -----------------------------------------------------------
+    import torch.nn.functional as F
+
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
+    from convnet_tpu_torch.ops import pool
+
+    # per timed part: (kernel ms, plain ms), the library call's ms where one
+    # computes the function, and (bytes the function must move, its f32
+    # operations). Bytes: bf16 activations and f32 bias and db, each read
+    # or written once. Operations per element, counted from the kernels'
+    # arithmetic with AlexNet's n = 5: LRN forward 2n + 8, LRN backward
+    # 3n + 19, the fused backward both and the pool-undo (57), Philox
+    # dropout 27 (a 10-round Philox per 4 elements), the prologue 4 per
+    # output, a 3x3 max pool 9 compares per output.
     torch.cuda.synchronize()
-    times = {}
+    times, library, work = {}, {}, {}
     for shape_name, (m, c) in LRN_SHAPES.items():
         z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
         b = 0.5 * torch.randn((c,), generator=gen, device=dev)
@@ -667,6 +903,11 @@ def main(argv=None) -> int:
             cuda_ms(lambda: lrn.lrn_fwd(z, 5, alpha, 0.75, bias=b, relu=True)),
             cuda_ms(lambda: lrn._fwd_math(z, 5, alpha, 0.75, b, True)),
         )
+        # torch's own LRN on the same tensor (NCHW view), without bias or ReLU
+        zt = z.view(BATCH, -1, c).permute(0, 2, 1)[..., None]
+        library[f"lrn_fwd {shape_name}"] = cuda_ms(
+            lambda: F.local_response_norm(zt, 5, alpha=1e-4, beta=0.75, k=1.0))
+        work[f"lrn_fwd {shape_name}"] = (4 * m * c + 4 * c, 18 * m * c)
     x = torch.randint(0, 256, (BATCH, RAW, RAW, 3), generator=gen, device=dev, dtype=torch.uint8)
     off = torch.full((BATCH,), (RAW - CROP) // 2, dtype=torch.int32, device=dev)
     kw = dict(crop=CROP, stride=4, p=s2d.relayout_geometry(CROP, 11, 4), scale=1 / 255,
@@ -675,6 +916,8 @@ def main(argv=None) -> int:
         cuda_ms(lambda: s2d.s2d_prologue(x, off, off, None, **kw)),
         cuda_ms(lambda: s2d.s2d_prologue_reference(x, off, off, None, **kw)),
     )
+    s2d_out = BATCH * kw["p"] * kw["p"] * 48
+    work["s2d_prologue"] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
     for shape_name, (m, c) in LRN_SHAPES.items():
         z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
         g = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -684,14 +927,47 @@ def main(argv=None) -> int:
             cuda_ms(lambda: lrn.lrn_bwd(g, z, 5, alpha, 0.75, bias=b, relu=True)),
             cuda_ms(lambda: lrn._bwd_math(g, z, 5, alpha, 0.75, b, True)),
         )
+        work[f"lrn_bwd {shape_name}"] = (6 * m * c + 8 * c, 34 * m * c)
     xd = torch.randn((BATCH, 1, 1, 4096), generator=gen, device=dev).to(torch.bfloat16)
     key = drop.dropout_key(0, 0, 10)
     times["dropout"] = (
         cuda_ms(lambda: drop.dropout_apply(xd, 0.5, key)),
         cuda_ms(lambda: drop.dropout_reference(xd, 0.5, key)),
     )
+    library["dropout"] = cuda_ms(lambda: F.dropout(xd, 0.5, training=True))
+    work["dropout"] = (4 * xd.numel(), 27 * xd.numel())
+    x5 = torch.randn(POOL_SHAPES["pool5"], generator=gen, device=dev).to(torch.bfloat16)
+    times["maxpool_fwd pool5"] = (
+        cuda_ms(lambda: pool.maxpool_fwd(x5, 3, 2)),
+        cuda_ms(lambda: pool.maxpool_reference(x5, 3, 2)),
+    )
+    # exact cover at pool5 (13 -> 6): torch's floor-mode pool is the same function
+    library["maxpool_fwd pool5"] = cuda_ms(lambda: F.max_pool2d(x5.permute(0, 3, 1, 2), 3, 2))
+    p5_out = pool.maxpool_reference(x5, 3, 2).numel()
+    work["maxpool_fwd pool5"] = (2 * (x5.numel() + p5_out), 9 * p5_out)
+    for shape_name, shape in CHAINS.items():
+        c = shape[-1]
+        z = (2.0 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        kw = dict(bias=b, relu=True)
+        m = plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)
+        g = torch.randn(m.shape, generator=gen, device=dev).to(torch.bfloat16)
+        times[f"pool_lrn_fwd {shape_name}"] = (
+            cuda_ms(lambda: plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
+            cuda_ms(lambda: plrn._fwd_reference(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
+        )
+        times[f"pool_lrn_bwd {shape_name}"] = (
+            cuda_ms(lambda: plrn.pool_lrn_bwd(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
+            cuda_ms(lambda: plrn._bwd_reference(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
+        )
+        work[f"pool_lrn_fwd {shape_name}"] = (2 * (z.numel() + m.numel()) + 4 * c,
+                                              18 * z.numel() + 9 * m.numel())
+        work[f"pool_lrn_bwd {shape_name}"] = (4 * (z.numel() + m.numel()) + 8 * c, 57 * z.numel())
     for name, (k_ms, p_ms) in times.items():
-        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        lib = f", library {library[name]:.4f} ms" if name in library else ""
+        b_ms, b_by = bound(*work[name])
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
+              f"{b_ms:.4f} ms ({b_by}: {work[name][0]} bytes, {work[name][1]} operations)")
 
     fwd = make_forward(graph, pred.layers, jitter)
     staged = {"input": torch.from_numpy(requests[0]).to(dev)}
@@ -713,16 +989,24 @@ def main(argv=None) -> int:
     step = make_train_step(graph, train_jitter)
     step_state = clone_state(trainer.state)
     step_batch = batches[0]
-    step_ms = cuda_ms(lambda: step(step_state, step_batch))
-    step_dev_ms = queued_ms(lambda: step(step_state, step_batch))
-    host = []
-    for i in range(WARMUP + ITERS):
-        t0 = time.perf_counter()
-        step(step_state, step_batch)
-        torch.cuda.synchronize()
-        if i >= WARMUP:
-            host.append((time.perf_counter() - t0) * 1e3)
-    step_host_ms = statistics.median(host)
+
+    def step_times():
+        """(events, device time with the launches hidden, host clock with a
+        synchronize) of one train step on the staged batch, in ms."""
+        ev = cuda_ms(lambda: step(step_state, step_batch))
+        dev_ms = queued_ms(lambda: step(step_state, step_batch))
+        host = []
+        for i in range(WARMUP + ITERS):
+            t0 = time.perf_counter()
+            step(step_state, step_batch)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                host.append((time.perf_counter() - t0) * 1e3)
+        return ev, dev_ms, statistics.median(host)
+
+    step_ms, step_dev_ms, step_host_ms = step_times()
+    with pool_switches():
+        ref_ms, ref_dev_ms, ref_host_ms = step_times()
     t0 = time.perf_counter()
     trainer.train(max_iter=trainer.state["step"] + TRAINER_STEPS)
     torch.cuda.synchronize()
@@ -734,6 +1018,12 @@ def main(argv=None) -> int:
           f"{step_host_ms:.4f} ms ({BATCH / step_host_ms * 1e3:.1f} img/s); device time with the "
           f"launches hidden {step_dev_ms:.4f} ms ({BATCH / step_dev_ms * 1e3:.1f} img/s), so the "
           f"card idles {1 - step_dev_ms / step_host_ms:.3f} of a host-clocked step")
+    print(f"[{card}] AlexNet train step with the reference's pool gradient ({POOL_SWITCHES}): "
+          f"events {ref_ms:.4f} ms; host clock with synchronize {ref_host_ms:.4f} ms "
+          f"({BATCH / ref_host_ms * 1e3:.1f} img/s); device time with the launches hidden "
+          f"{ref_dev_ms:.4f} ms ({BATCH / ref_dev_ms * 1e3:.1f} img/s), idle "
+          f"{1 - ref_dev_ms / ref_host_ms:.3f}; default path beside it: device {step_dev_ms:.4f} "
+          f"ms, host {step_host_ms:.4f} ms")
     print(f"[{card}] Trainer, batch {BATCH}, {TRAINER_STEPS} steps over DUMMY data: "
           f"{trainer_ips:.1f} img/s (host clock, data staging included)")
 
@@ -757,32 +1047,55 @@ def main(argv=None) -> int:
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
         (args.profile_dir / "train_profile.txt").write_text(f"{card}\n{table}\n")
         prof.export_chrome_trace(str(args.profile_dir / "train_trace.json"))
-        print(f"[{card}] profiles of the forward and of 5 train steps -> {args.profile_dir}")
+        with pool_switches(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(5):
+                step(step_state, step_batch)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        (args.profile_dir / "train_ref_grad_profile.txt").write_text(f"{card}\n{table}\n")
+        print(f"[{card}] profiles of the forward and of 5 train steps of each path -> "
+              f"{args.profile_dir}")
 
-    def kernel(name, source, replaces, also, err, parts):
+    paths = {"serving": serve_launches, "train": train_launches,
+             "reference_gradient": ref_launches}
+
+    def kernel(name, source, replaces, also, err, parts, path):
+        b_ms, b_by = bound(sum(work[t][0] for t in parts), sum(work[t][1] for t in parts))
+        lib = [library[t] for t in parts if t in library]
         return {
             "name": name,
             "route": "cuda",
             "source": f"convnet_tpu_torch/csrc/{source}",
             "replaces": f"convnet_tpu/ops/{replaces}",
             "also_replaces": [f"convnet_tpu/ops/{r}" for r in also],
-            # the train path's count; the serving path's beside it
-            "launches": train_launches[name],
-            "launches_by_path": {"serving": serve_launches[name], "train": train_launches[name]},
+            # the count of the path that runs the kernel; every path's beside it
+            "launches": paths[path][name],
+            "launches_by_path": {p: v[name] for p, v in paths.items()},
             "max_abs_err": err,
-            # a step launches the LRN kernels at both shapes: the sum of both
+            # a step launches the LRN kernels at both shapes: the sums of both
             "ms": sum(times[t][0] for t in parts),
             "plain_ms": sum(times[t][1] for t in parts),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": sum(lib) if lib else None,
         }
 
     kernels = [
         kernel("lrn_fwd", "lrn_fwd.cu", "lrn.py:212", ["lrn.py:535", "lrn.py:447"], lrn_err,
-               ["lrn_fwd rnorm1", "lrn_fwd rnorm2"]),
+               ["lrn_fwd rnorm1", "lrn_fwd rnorm2"], "train"),
         kernel("lrn_bwd", "lrn_bwd.cu", "lrn.py:230", ["lrn.py:558", "lrn.py:455"], lrn_bwd_err,
-               ["lrn_bwd rnorm1", "lrn_bwd rnorm2"]),
-        kernel("dropout", "dropout.cu", "dropout.py:58", [], drop_err, ["dropout"]),
-        kernel("s2d_prologue", "s2d_prologue.cu", "s2d_relayout.py:200", [], s2d_err,
-               ["s2d_prologue"]),
+               ["lrn_bwd rnorm1", "lrn_bwd rnorm2"], "train"),
+        kernel("dropout", "dropout.cu", "dropout.py:58", [], drop_err, ["dropout"], "train"),
+        kernel("s2d_prologue", "s2d_prologue.cu", "s2d_relayout.py:200",
+               ["prologue.py:93", "jitter_gather.py:96"], s2d_err, ["s2d_prologue"], "train"),
+        kernel("maxpool_fwd", "maxpool_fwd.cu", "pool.py:87", [], pool_err, ["maxpool_fwd pool5"],
+               "reference_gradient"),
+        kernel("pool_lrn_fwd", "pool_lrn.cu", "fused_pool_lrn.py:388", [], plrn_err,
+               ["pool_lrn_fwd rnorm1", "pool_lrn_fwd rnorm2"], "reference_gradient"),
+        kernel("pool_lrn_bwd", "pool_lrn.cu", "fused_pool_lrn.py:134", [], plrn_bwd_err,
+               ["pool_lrn_bwd rnorm1", "pool_lrn_bwd rnorm2"], "reference_gradient"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -15,12 +15,17 @@ those paths are hand-written CUDA kernels here (`csrc/`, bound in
 - `ops/dropout.py`: inverted dropout with a Philox mask redrawn in the
   backward;
 - `ops/s2d_relayout.py`: the uint8 -> space-to-depth input prologue,
-  with per-image crops and flips.
+  with per-image crops and flips;
+- `ops/pool.py`: the max pool forward, under CONVNET_POOL_BACKEND=pallas;
+- `ops/fused_pool_lrn.py`: response norm then max pool, forward and
+  backward (the reference's all-ties pool gradient), for the LRN -> pool
+  chains of a train step under CONVNET_POOL_LRN_FUSED=1.
 
 Each kernel has a plain PyTorch version beside it, which its wrapper
-takes for CPU tensors. The package never imports JAX; it reuses the JAX
-package's protobuf config reader and graph IR (`convnet_tpu.config`,
-`convnet_tpu.graph`), which import no JAX either.
+takes for CPU tensors. The package imports nothing of JAX and nothing of
+the JAX package `convnet_tpu`: it has its own copy of the `.pbtxt` schema
+(`proto/`), of the config reader (`config.py`) and of the graph IR
+(`graph.py`).
 
 Layouts at public functions are the JAX package's: NHWC activations,
 HWIO conv weights, FC weights (H*W*C, units). An NHWC-contiguous tensor's

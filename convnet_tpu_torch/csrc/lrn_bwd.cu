@@ -21,7 +21,8 @@
 //   dx  = g * d^-beta - 2*alpha*beta * x * t, and 0 where z + b <= 0 if relu
 //   db  = column sums of the f32 dx, when a bias is given
 // d is recomputed from z, as the reference's custom VJP does, so the
-// forward stores no residual beyond z. Math is f32; dx has z's dtype.
+// forward stores no residual beyond z. Math is f32 (lrn_math.cuh); dx has
+// z's dtype.
 // d^-beta and d^-(beta+1) come from qr = sqrt(rsqrt(d)) raised by squaring
 // (lrn.py:128 _neg_pow_pair) for quarter-integer beta.
 //
@@ -35,10 +36,7 @@
 // writes one row of partial sums, and a second small kernel adds the rows
 // in a fixed tree order. No float atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "lrn_math.cuh"
 
 namespace {
 
@@ -46,40 +44,6 @@ constexpr int kThreads = 256;
 // f32 elements per staged tile: whole rows, at least one.
 constexpr int kTileElems = 2048;
 constexpr int kMaxSharedBytes = 48 * 1024;
-
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f32(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// qr^k by left-to-right binary powering: the same chain of products as the
-// reference's power(k) = power(k // 2)^2 (* qr if k is odd), power(1) = qr.
-__device__ __forceinline__ float quarter_pow(float qr, int k) {
-  float r = qr;
-  for (int bit = 30 - __clz(k); bit >= 0; --bit) {
-    r = r * r;
-    if ((k >> bit) & 1) r = r * qr;
-  }
-  return r;
-}
-
-// (d^-beta, d^-(beta+1)) for d > 0. q = 4*beta when beta is a
-// quarter-integer in (0, 4], else 0 (then powf and a divide).
-__device__ __forceinline__ void neg_pow_pair(float d, float beta, int q, float* pb,
-                                             float* dpow) {
-  if (q == 0) {
-    *pb = powf(d, -beta);
-    *dpow = *pb / d;
-    return;
-  }
-  const float qr = sqrtf(rsqrtf(d));
-  *pb = quarter_pow(qr, q);
-  *dpow = quarter_pow(qr, q + 4);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -98,9 +62,6 @@ lrn_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
   if (want_db) {
     for (int ch = threadIdx.x; ch < c; ch += blockDim.x) sacc[ch] = 0.0f;
   }
-  const int lo_off = n / 2;
-  const int hi_off = (n - 1) / 2;
-
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int64_t row0 = tile * rows_per_tile;
     const int rows = static_cast<int>(min(static_cast<int64_t>(rows_per_tile), m - row0));
@@ -108,30 +69,16 @@ lrn_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
     const int64_t base = row0 * c;
 
     for (int i = threadIdx.x; i < elems; i += blockDim.x) {
-      float v = load_f32(z, base + i);
-      if (bias) v += bias[i % c];
-      // a NaN passes, as jnp.maximum(x, 0) lets it
-      if (relu && v < 0.0f) v = 0.0f;
-      sx[i] = v;
+      sx[i] = lrn_input(load_f32(z, base + i), bias, i % c, relu);
     }
     __syncthreads();
 
     for (int i = threadIdx.x; i < elems; i += blockDim.x) {
       const int r = i / c;
       const int ch = i - r * c;
-      int lo, hi;
-      if (blocked) {
-        lo = (ch / n) * n;
-        hi = min(lo + n, c) - 1;
-      } else {
-        lo = max(ch - lo_off, 0);
-        hi = min(ch + hi_off, c - 1);
-      }
       const float* row = sx + r * c;
-      float s = 0.0f;
-      for (int j = lo; j <= hi; ++j) s += row[j] * row[j];
       float pb, dpow;
-      neg_pow_pair(1.0f + alpha * s, beta, q, &pb, &dpow);
+      neg_pow_pair(lrn_d(row, ch, c, n, blocked, alpha), beta, q, &pb, &dpow);
       const float gv = load_f32(g, base + i);
       su[i] = gv * row[ch] * dpow;
       sv[i] = gv * pb;
@@ -142,13 +89,7 @@ lrn_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
       const int r = i / c;
       const int ch = i - r * c;
       int lo, hi;
-      if (blocked) {
-        lo = (ch / n) * n;
-        hi = min(lo + n, c) - 1;
-      } else {
-        lo = max(ch - hi_off, 0);
-        hi = min(ch + lo_off, c - 1);
-      }
+      lrn_window(ch, c, n, blocked, true, &lo, &hi);
       const float* urow = su + r * c;
       float t = 0.0f;
       for (int j = lo; j <= hi; ++j) t += urow[j];
@@ -176,26 +117,6 @@ lrn_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
       partial[static_cast<int64_t>(blockIdx.x) * c + ch] = sacc[ch];
     }
   }
-}
-
-// db[ch] = sum over the blocks' partial rows, one block per channel, in a
-// fixed order: strided per-thread sums, then a shared-memory tree.
-__global__ void __launch_bounds__(kThreads)
-db_reduce_kernel(const float* __restrict__ partial, float* __restrict__ db, int blocks,
-                 int c) {
-  __shared__ float red[kThreads];
-  const int ch = blockIdx.x;
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < blocks; k += blockDim.x) {
-    acc += partial[static_cast<int64_t>(k) * c + ch];
-  }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (static_cast<int>(threadIdx.x) < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) db[ch] = red[0];
 }
 
 }  // namespace
@@ -233,6 +154,6 @@ extern "C" int cn_lrn_bwd(const void* g, const void* z, const void* bias, void* 
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !bias) return static_cast<int>(err);
-  db_reduce_kernel<<<c, kThreads, 0, s>>>(part, static_cast<float*>(db), blocks, c);
+  db_reduce_kernel<<<c, kReduceThreads, 0, s>>>(part, static_cast<float*>(db), blocks, c);
   return static_cast<int>(cudaGetLastError());
 }

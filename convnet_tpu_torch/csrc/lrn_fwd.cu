@@ -16,7 +16,9 @@
 //                                        clipped, or the size-n block of i
 //   y   = x * (1 + alpha * s)^(-beta)
 //
-// Math is f32; the output has the input's dtype (bf16 or f32).
+// Math is f32, in lrn_math.cuh (shared with the fused LRN -> pool kernels
+// of pool_lrn.cu, which must reproduce this y bit for bit); the output has
+// the input's dtype (bf16 or f32).
 //
 // Bound: device-memory bytes. Per element it does a few flops and an
 // n-term window sum, against 2 bytes read and 2 written in bf16; at AlexNet
@@ -25,10 +27,7 @@
 // coalesced loads, then each thread sums its window out of shared memory
 // and stores its output element, again coalesced.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "lrn_math.cuh"
 
 namespace {
 
@@ -36,44 +35,6 @@ constexpr int kThreads = 256;
 // f32 elements staged per block: whole rows, at least one.
 constexpr int kTileElems = 4096;
 constexpr int kMaxSharedBytes = 48 * 1024;
-
-__device__ __forceinline__ float load_f32(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f32(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// d^(-beta) for d > 0. q = 4*beta when beta is a quarter-integer in
-// (0, 4], else 0. The quarter-integer case is the reciprocal/rsqrt/sqrt
-// chain of convnet_tpu/ops/lrn.py:_neg_pow, so the port rounds as the
-// reference does; other exponents use powf.
-__device__ __forceinline__ float neg_pow(float d, float beta, int q) {
-  if (q == 0) return powf(d, -beta);
-  float out = 1.0f;
-  bool have = false;
-  const int k = q / 4;
-  int rem = q % 4;
-  if (k) {
-    const float inv = 1.0f / d;
-    out = inv;
-    for (int i = 1; i < k; ++i) out *= inv;
-    have = true;
-  }
-  const float r = rem ? rsqrtf(d) : 0.0f;
-  if (rem >= 2) {
-    out = have ? out * r : r;
-    have = true;
-    rem -= 2;
-  }
-  if (rem) {
-    const float qr = sqrtf(r);
-    out = have ? out * qr : qr;
-  }
-  return out;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -87,32 +48,14 @@ lrn_fwd_kernel(const T* __restrict__ z, const float* __restrict__ bias,
   const int64_t base = row0 * c;
 
   for (int i = threadIdx.x; i < elems; i += blockDim.x) {
-    float v = load_f32(z, base + i);
-    if (bias) v += bias[i % c];
-    // written so that a NaN passes through, as jnp.maximum(x, 0) lets it
-    if (relu && v < 0.0f) v = 0.0f;
-    tile[i] = v;
+    tile[i] = lrn_input(load_f32(z, base + i), bias, i % c, relu);
   }
   __syncthreads();
 
-  const int lo_off = n / 2;
-  const int hi_off = (n - 1) / 2;
   for (int i = threadIdx.x; i < elems; i += blockDim.x) {
     const int r = i / c;
     const int ch = i - r * c;
-    int lo, hi;
-    if (blocked) {
-      lo = (ch / n) * n;
-      hi = min(lo + n, c) - 1;
-    } else {
-      lo = max(ch - lo_off, 0);
-      hi = min(ch + hi_off, c - 1);
-    }
-    const float* row = tile + r * c;
-    float s = 0.0f;
-    for (int j = lo; j <= hi; ++j) s += row[j] * row[j];
-    const float d = 1.0f + alpha * s;
-    store_f32(y, base + i, row[ch] * neg_pow(d, beta, q));
+    store_f32(y, base + i, lrn_y(tile + r * c, ch, c, n, blocked, alpha, beta, q));
   }
 }
 

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from convnet_tpu.proto import convnet_config_pb2 as pb
+from convnet_tpu_torch import proto as pb
 from convnet_tpu_torch.data.jitter import JitterSpec
 
 DT = pb.DataStreamConfig.DataType

@@ -11,6 +11,10 @@ The forward keeps the reference's fusion plan and cast points:
   to the LRN kernel, which adds it in f32 (model.py:287-303) -- always on
   here, as on the TPU, since the port always has its kernel;
 - the ReLU of an LRN's source layer runs inside the LRN (model.py:377-385);
+- under CONVNET_POOL_LRN_FUSED=1 a train step's LRN layer whose one
+  consumer is a max pool is not materialized: the pool edge runs
+  `lrn_maxpool[_bias]` over the LRN's source, with the reference's
+  all-ties pool gradient (model.py:268-365);
 - edges compute in compute_dtype (bf16 outputs), a bias is cast to the
   output's dtype before its add (model.py:176), layers are stored in the
   activation dtype (model.py:433) and output pre-activations are promoted
@@ -29,11 +33,16 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from convnet_tpu.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
+from convnet_tpu_torch.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
 from convnet_tpu_torch.ops import losses as losses_ops
 from convnet_tpu_torch.ops.activations import apply_activation
 from convnet_tpu_torch.ops.conv import S2DInput, conv2d, fc
 from convnet_tpu_torch.ops.dropout import dropout
+from convnet_tpu_torch.ops.fused_pool_lrn import (
+    fusion_applicable,
+    lrn_maxpool_bias,
+    pool_lrn_fusion_wanted,
+)
 from convnet_tpu_torch.ops.lrn import (
     response_norm_cross_map,
     response_norm_cross_map_bias,
@@ -157,6 +166,24 @@ def _bias_deferral_plan(graph: Graph) -> Dict[str, str]:
     return plan
 
 
+def _lrn_deferrable(l, inc, consumers, want) -> bool:
+    """Whether LRN layer l can be left to its pool consumer's lrn_maxpool
+    (convnet_tpu/model.py:312-326): LINEAR, no dropout, not an output, fed
+    by one response-norm edge and read by one max pool only, and not
+    asked for by the caller (want: the requested layers, None for all)."""
+    return (
+        len(inc) == 1
+        and inc[0].edge_type == ET.RESPONSE_NORM
+        and l.activation == ACT.LINEAR
+        and l.dropprob == 0.0
+        and not l.is_output
+        and len(consumers) == 1
+        and consumers[0].edge_type == ET.MAXPOOL
+        and want is not None
+        and l.name not in want
+    )
+
+
 def _edge_fprop(e: EdgeSpec, p, x, cdt, fuse_relu=False, defer_bias=False, bias=None):
     t = e.edge_type
     if t == ET.FC:
@@ -224,13 +251,41 @@ def apply_fn(
 
     defer_bias = _bias_deferral_plan(graph)
     pending_bias: Dict[str, torch.Tensor] = {}
+    fuse_pool_lrn = train and pool_lrn_fusion_wanted()
+    # LRN layer -> (its edge, the edge's input, whether the ReLU is fused)
+    deferred_lrn: Dict[str, Tuple[EdgeSpec, torch.Tensor, bool]] = {}
     drop_i = -1  # the layer counter the dropout masks are keyed by
     for name in graph.topo_layer_order():
         l = graph.layer(name)
         if not l.is_input:
-            drop_i += 1
+            drop_i += 1  # a deferred LRN layer counts too (model.py:332)
+            inc = graph.incoming(name)
+            consumers = [e2 for e2 in graph.edges if e2.source == name]
+            if fuse_pool_lrn and _lrn_deferrable(l, inc, consumers, want):
+                e = inc[0]
+                frelu = e.source in preacts
+                x_src = preacts[e.source] if frelu else acts[e.source]
+                if fusion_applicable(x_src.shape, consumers[0].padding):
+                    deferred_lrn[name] = (e, x_src, frelu)
+                    continue
             z = None
-            for e in graph.incoming(name):
+            for e in inc:
+                if e.source in deferred_lrn:
+                    le, x_src, frelu = deferred_lrn[e.source]
+                    contrib = lrn_maxpool_bias(
+                        x_src,
+                        pending_bias.get(le.source),
+                        le.add_scale,
+                        le.pow_scale,
+                        le.frac_of_filters_response_norm,
+                        le.response_norm_blocked,
+                        e.kernel_size,
+                        e.stride,
+                        e.padding,
+                        frelu,
+                    )
+                    z = contrib if z is None else z + contrib
+                    continue
                 p = params.get(e.name)
                 if p is None and e.has_weights:
                     raise ValueError(
@@ -251,7 +306,6 @@ def apply_fn(
             if l.is_output:
                 z = z.to(torch.promote_types(z.dtype, torch.float32))
                 out[f"{name}:preact"] = z.reshape(z.shape[0], -1)
-            consumers = [e2 for e2 in graph.edges if e2.source == name]
             relu_fusable = (
                 l.activation == ACT.RECTIFIED_LINEAR and not l.is_output and l.dropprob == 0.0
             )

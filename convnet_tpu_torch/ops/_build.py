@@ -3,11 +3,12 @@
 Every `*.cu` file under `convnet_tpu_torch/csrc/` is compiled by nvcc for
 `sm_90a`, one nvcc process per source, all started together, and the
 objects are linked into one shared library with a plain C interface (no
-PyTorch headers, so the build takes seconds). The library is keyed by a hash of
-the sources and the flags and lives under `<checkout>/build/
-convnet_tpu_torch/`; the first call in a checkout builds it, later calls
-and processes load the file. Nothing here runs at import time: a machine
-without nvcc imports the package and uses the kernels' plain versions.
+PyTorch headers, so the build takes seconds). The library is keyed by a
+hash of every file under `csrc/` (headers included) and of the flags, and
+lives under `<checkout>/build/convnet_tpu_torch/`; the first call in a
+checkout builds it, later calls and processes load the file. Nothing here
+runs at import time: a machine without nvcc imports the package and uses
+the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ _SIGNATURES = {
     "cn_dropout": [_p, _p, _i64, _i, _u32, _f, _u32, _u32, _u64, _p],
     # x, oy, ox, flip, mean, std, out, b, h, w, c, crop, s, p, scale, stream
     "cn_s2d_prologue": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    # x, y, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream
+    "cn_maxpool_fwd": [_p, _p] + [_i] * 10 + [_p],
+    # z, bias, m, b, h, w, c, oh, ow, k, s, is_bf16, relu, blocked, n, alpha, beta, q,
+    # stream
+    "cn_pool_lrn_fwd": [_p] * 3 + [_i] * 12 + [_f, _f, _i, _p],
+    # g, m, z, bias, dz, db, partial, max_blocks, b, h, w, c, oh, ow, k, s, is_bf16,
+    # relu, blocked, n, alpha, beta, coef, q, stream
+    "cn_pool_lrn_bwd": [_p] * 7 + [_i] * 13 + [_f, _f, _f, _i, _p],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -54,10 +63,16 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _hashed_files():
+    """Every file under csrc/, the shared headers included: a change to
+    any of them builds a new library."""
+    return sorted(p for p in CSRC.rglob("*") if p.is_file())
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+    for src in _hashed_files():
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libconvnet_kernels_{h.hexdigest()[:16]}.so"
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from convnet_tpu.graph import ACT
+from convnet_tpu_torch.graph import ACT
 
 
 def apply_activation(x: torch.Tensor, activation: int) -> torch.Tensor:

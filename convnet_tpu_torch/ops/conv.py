@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from convnet_tpu.graph import conv_out_size
+from convnet_tpu_torch.graph import conv_out_size
 
 
 @dataclass

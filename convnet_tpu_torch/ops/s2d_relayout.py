@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from convnet_tpu.graph import ET, conv_out_size
+from convnet_tpu_torch.graph import ET, conv_out_size
 from convnet_tpu_torch.ops.conv import S2DInput
 
 #: Launches of the CUDA kernel in this process (CPU calls do not count).

@@ -21,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from convnet_tpu.graph import DECAY, Graph, OptimSpec
+from convnet_tpu_torch.graph import DECAY, Graph, OptimSpec
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 

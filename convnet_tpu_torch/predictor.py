@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from convnet_tpu.graph import Graph
+from convnet_tpu_torch.graph import Graph
 from convnet_tpu_torch.trainer import JitterMap, make_forward
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}

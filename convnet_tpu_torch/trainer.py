@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from convnet_tpu.graph import Graph
+from convnet_tpu_torch.graph import Graph
 from convnet_tpu_torch import model as model_lib
 from convnet_tpu_torch import optim
 from convnet_tpu_torch.data.datahandler import DataHandler

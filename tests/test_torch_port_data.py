@@ -8,6 +8,7 @@ import pytest
 
 from convnet_tpu import config
 from convnet_tpu.data.datahandler import DataHandler as JaxDataHandler
+from convnet_tpu_torch import config as pt_config
 from convnet_tpu_torch.data.datahandler import DataHandler
 from convnet_tpu_torch.data.jitter import JitterSpec
 
@@ -25,20 +26,26 @@ data_config {{ layer_name: "labels" data_type: DUMMY dummy_size: 100 dummy_num_c
 """
 
 
+def _cfgs(text):
+    """(JAX config, port config): one data pbtxt through each package's
+    own reader (their proto classes are distinct types)."""
+    return config.parse_dataset_config(text), pt_config.parse_dataset_config(text)
+
+
 def _cfg(pipeline=True, randomize=True, window=False, chunk=0, batch=16):
     text = DATA.format(
         pipeline=str(pipeline).lower(), randomize=str(randomize).lower(),
         window=str(window).lower(), chunk=chunk, batch=batch,
     )
-    return config.parse_dataset_config(text)
+    return _cfgs(text)
 
 
 @pytest.mark.parametrize("pipeline", [True, False])
 @pytest.mark.parametrize("randomize,window,chunk", [(True, False, 0), (False, False, 0),
                                                     (True, True, 0), (False, True, 40)])
 def test_batches_array_equal_to_jax(pipeline, randomize, window, chunk):
-    cfg = _cfg(pipeline, randomize, window, chunk)
-    ours, ref = DataHandler(cfg, seed=3), JaxDataHandler(cfg, seed=3)
+    jcfg, cfg = _cfg(pipeline, randomize, window, chunk)
+    ours, ref = DataHandler(cfg, seed=3), JaxDataHandler(jcfg, seed=3)
     try:
         assert ours.num_rows == ref.num_rows == 100 and ours.num_batches == 6
         for _ in range(15):  # past two epochs: reshuffles and window refills
@@ -54,8 +61,8 @@ def test_batches_array_equal_to_jax(pipeline, randomize, window, chunk):
 
 
 def test_iter_epoch_reset_and_metadata():
-    cfg = _cfg(pipeline=True)
-    ours, ref = DataHandler(cfg), JaxDataHandler(cfg)
+    jcfg, cfg = _cfg(pipeline=True)
+    ours, ref = DataHandler(cfg), JaxDataHandler(jcfg)
     try:
         got = list(ours.iter_epoch())
         want = list(ref.iter_epoch())
@@ -82,17 +89,17 @@ def test_iter_epoch_reset_and_metadata():
 
 
 def test_unported_streams_raise():
-    cfg = config.parse_dataset_config(
+    cfg = pt_config.parse_dataset_config(
         'name: "r" data_config { layer_name: "input" data_type: RAW_CACHE file_pattern: "x" }'
     )
     with pytest.raises(NotImplementedError, match="Queue A1"):
         DataHandler(cfg)
     with pytest.raises(ValueError, match="no data_config"):
-        DataHandler(config.parse_dataset_config('name: "empty"'))
+        DataHandler(pt_config.parse_dataset_config('name: "empty"'))
 
 
 def test_prefetch_error_reaches_get_batch():
-    cfg = _cfg(pipeline=True)
+    _, cfg = _cfg(pipeline=True)
     h = DataHandler(cfg)
     try:
         h.get_batch()
@@ -115,12 +122,12 @@ def test_hdf5_stream_matches_jax(tmp_path):
     with h5py.File(path, "w") as f:
         f["input"] = rng.integers(0, 256, (40, 8 * 8 * 3), dtype=np.uint8)  # flat rows
         f["labels"] = rng.integers(0, 5, 40).astype(np.int32)
-    cfg = config.parse_dataset_config(f"""
+    jcfg, cfg = _cfgs(f"""
         name: "h" batch_size: 8 randomize_cpu: true pipeline_loads: false
         data_config {{ layer_name: "input" data_type: HDF5 file_pattern: "{path}" image_size: 8 }}
         data_config {{ layer_name: "labels" data_type: HDF5 file_pattern: "{path}" }}
     """)
-    ours, ref = DataHandler(cfg), JaxDataHandler(cfg)
+    ours, ref = DataHandler(cfg), JaxDataHandler(jcfg)
     try:
         for _ in range(7):
             a, b = ours.get_batch(), ref.get_batch()

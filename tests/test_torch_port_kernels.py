@@ -16,7 +16,9 @@ import torch
 from convnet_tpu_torch.ops import _build
 from convnet_tpu_torch.ops import conv
 from convnet_tpu_torch.ops import dropout as drop
+from convnet_tpu_torch.ops import fused_pool_lrn as plrn
 from convnet_tpu_torch.ops import lrn
+from convnet_tpu_torch.ops import pool
 from convnet_tpu_torch.ops import s2d_relayout as s2d
 
 
@@ -81,8 +83,12 @@ def test_library_is_keyed_by_the_sources():
     assert path == _build._library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
-    assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu"}
-    assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_s2d_prologue"}
+    assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu",
+                     "maxpool_fwd.cu", "pool_lrn.cu"}
+    # the shared headers are hashed too: editing one builds a new library
+    assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh"}
+    assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_s2d_prologue",
+                                       "cn_maxpool_fwd", "cn_pool_lrn_fwd", "cn_pool_lrn_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -106,6 +112,25 @@ def test_lrn_bwd_wrapper_takes_the_plain_version_on_cpu():
     assert lrn.BWD_LAUNCHES == before
     with pytest.raises(ValueError, match="g shape"):
         lrn.lrn_bwd(g[:10], z, 5, 1e-4, 0.75)
+
+
+def test_pool_wrappers_take_the_plain_versions_on_cpu():
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy((np.round(rng.standard_normal((2, 7, 7, 16)) * 2) / 2).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 3, 3, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    before = (pool.LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES)
+    assert torch.equal(pool.maxpool_fwd(z, 3, 2), pool.maxpool_reference(z, 3, 2))
+    m = plrn.pool_lrn_fwd(z, 5, 0.2, 0.75, 3, 2, bias=b, relu=True)
+    assert torch.equal(m, pool.maxpool_reference(lrn._fwd_math(z, 5, 0.2, 0.75, b, True), 3, 2))
+    dz, db = plrn.pool_lrn_bwd(g, m, z, 5, 0.2, 0.75, 3, 2, bias=b, relu=True)
+    want_dz, want_db = plrn._bwd_reference(g, m, z, 5, 0.2, 0.75, 3, 2, b, True)
+    assert torch.equal(dz, want_dz) and torch.equal(db, want_db)
+    assert (pool.LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES) == before
+    with pytest.raises(ValueError, match="pooled shape"):
+        plrn.pool_lrn_bwd(g[:, :2], m, z, 5, 0.2, 0.75, 3, 2)
+    with pytest.raises(ValueError, match="padding 0"):
+        plrn.lrn_maxpool(z, 1.0, 0.75, 5 / 16, False, 3, 2, 1)
 
 
 def test_dropout_wrapper_takes_the_plain_version_on_cpu():
@@ -272,3 +297,101 @@ def test_f32_conv_gradients_exact(cuda):
         grads.append(torch.autograd.grad(conv.conv2d(xx, ww, 1, 2), (xx, ww), gy.to(dt)))
     for got, want in zip(*grads):
         torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# The max pool and the fused LRN -> max pool kernels
+# ---------------------------------------------------------------------------
+
+
+def _halves(gen, shape, cuda, dtype):
+    """Values on a grid of halves: many equal window maxima, as post-ReLU
+    zeros and quantized activations give (tests/test_fused_pool_lrn.py:49)."""
+    return (torch.round(2.0 * torch.randn(shape, generator=gen, device=cuda)) / 2).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,k,s,p", [(55, 96, 3, 2, 0), (13, 256, 3, 2, 0), (8, 16, 2, 2, 0),
+                                       (9, 8, 3, 2, 1), (10, 24, 3, 3, 0)])
+def test_maxpool_kernel_matches_plain(cuda, dtype, h, c, k, s, p):
+    gen = torch.Generator(device=cuda).manual_seed(h + c)
+    x = torch.randn((4, h, h, c), generator=gen, device=cuda).to(dtype)
+    before = pool.LAUNCHES
+    y = pool.maxpool_fwd(x, k, s, p)
+    assert pool.LAUNCHES == before + 1
+    assert torch.equal(y, pool.maxpool_reference(x, k, s, p))
+
+
+def test_maxpool_switch_keeps_the_single_winner_gradient(cuda, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = _halves(gen, (4, 13, 13, 32), cuda, torch.bfloat16)
+    g = torch.randn((4, 6, 6, 32), generator=gen, device=cuda).to(torch.bfloat16)
+    xx = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(pool.maxpool2d(xx, 3, 2), xx, g)
+    monkeypatch.setenv("CONVNET_POOL_BACKEND", "pallas")
+    before = pool.LAUNCHES
+    xx = x.clone().requires_grad_()
+    (got,) = torch.autograd.grad(pool.maxpool2d(xx, 3, 2), xx, g)
+    assert pool.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+POOL_LRN_CASES = [  # (h, c, k, s, frac, bias + relu, blocked)
+    (27, 96, 3, 2, 5 / 96, True, False),
+    (13, 256, 3, 2, 5 / 256, True, False),
+    (13, 256, 3, 2, 5 / 256, False, False),
+    (8, 16, 2, 2, 4 / 16, True, True),
+    (10, 8, 3, 3, 5 / 8, False, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,k,s,frac,bias,blocked", POOL_LRN_CASES)
+def test_pool_lrn_kernels_match_plain(cuda, dtype, h, c, k, s, frac, bias, blocked):
+    """The fused forward is array-equal to the max pool of the LRN
+    kernel's output (they share the LRN arithmetic); the fused backward is
+    within 1 bf16 ulp (f32: rtol 1e-4, atol 3e-5 of the largest |dz|) of
+    the plain chain fed with that same y; db within rtol 1e-4 of a float64
+    sum and the same on every run."""
+    gen = torch.Generator(device=cuda).manual_seed(h * c)
+    z = _halves(gen, (8, h, h, c), cuda, dtype)
+    b = (0.5 * torch.randn((c,), generator=gen, device=cuda)).round() if bias else None
+    n = lrn.norm_window_size(c, frac)
+    alpha = 1e-4 / n
+    kw = dict(bias=b, relu=bias, blocked=blocked)
+    before = (plrn.LAUNCHES, plrn.BWD_LAUNCHES)
+    m = plrn.pool_lrn_fwd(z, n, alpha, 0.75, k, s, **kw)
+    y = lrn.lrn_fwd(z.view(-1, c), n, alpha, 0.75, **kw).view(z.shape)
+    assert torch.equal(m, pool.maxpool_reference(y, k, s))
+    g = torch.randn(m.shape, generator=gen, device=cuda).to(dtype)
+    dz, db = plrn.pool_lrn_bwd(g, m, z, n, alpha, 0.75, k, s, **kw)
+    assert (plrn.LAUNCHES, plrn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want_dz, _ = plrn._bwd_reference(g, m, z, n, alpha, 0.75, k, s, y=y, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dz, want_dz, rtol=1e-4, atol=3e-5 * want_dz.abs().max().item())
+    else:
+        assert bf16_ulps(dz, want_dz) <= 1
+    if bias:
+        ref = plrn._bwd_reference(g.float(), m.float(), z.float(), n, alpha, 0.75, k, s,
+                                  y=y.float(), **kw)[0].double()
+        ref = ref.reshape(-1, c)
+        torch.testing.assert_close(db.double(), ref.sum(0), rtol=1e-4,
+                                   atol=1e-5 * ref.abs().sum(0).max().item())
+        assert torch.equal(db, plrn.pool_lrn_bwd(g, m, z, n, alpha, 0.75, k, s, **kw)[1])
+    else:
+        assert db is None
+
+
+def test_lrn_maxpool_autograd_runs_both_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _halves(gen, (4, 27, 27, 96), cuda, torch.bfloat16).requires_grad_()
+    b = (0.5 * torch.randn((96,), generator=gen, device=cuda)).requires_grad_()
+    before = (plrn.LAUNCHES, plrn.BWD_LAUNCHES)
+    m = plrn.lrn_maxpool_bias(x, b, 1e-4, 0.75, 5 / 96, False, 3, 2, 0, True)
+    g = torch.randn(m.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dx, db = torch.autograd.grad(m, (x, b), g)
+    assert (plrn.LAUNCHES, plrn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    y = lrn.lrn_fwd(x.detach().view(-1, 96), 5, 1e-4 / 5, 0.75, bias=b.detach(), relu=True)
+    want = plrn._bwd_reference(g, m.detach(), x.detach(), 5, 1e-4 / 5, 0.75, 3, 2,
+                               b.detach(), True, y=y.view(x.shape))
+    assert bf16_ulps(dx, want[0]) <= 1 and db.dtype == torch.float32

@@ -35,7 +35,9 @@ from convnet_tpu.ops import lrn as jax_lrn
 from convnet_tpu.ops import pool as jax_pool
 from convnet_tpu.ops import prologue as jax_prologue
 from convnet_tpu.ops import s2d_relayout as jax_s2d
+from convnet_tpu_torch import config as pt_config
 from convnet_tpu_torch.data import jitter as pt_jitter
+from convnet_tpu_torch.graph import build_graph as pt_build_graph
 from convnet_tpu_torch.ops import activations as pt_act
 from convnet_tpu_torch.ops import conv as pt_conv
 from convnet_tpu_torch.ops import lrn as pt_lrn
@@ -45,6 +47,12 @@ from convnet_tpu_torch.ops import s2d_relayout as pt_s2d
 REPO = Path(__file__).resolve().parent.parent
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _read_graphs(path):
+    """(JAX graph, port graph): one pbtxt file through each package's own
+    reader and graph IR (their proto classes are distinct types)."""
+    return build_graph(config.read_model(path)), pt_build_graph(pt_config.read_model(path))
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -209,9 +217,9 @@ def test_relayout_geometry(crop, kernel, stride):
 @pytest.mark.parametrize("path", ["imagenet/alexnet.pbtxt", "cifar10/cifar10_conv.pbtxt",
                                   "mnist/mnist_lenet.pbtxt", "imagenet/alexnet_2tower.pbtxt"])
 def test_prologue_plan_matches(path):
-    g = build_graph(config.read_model(str(REPO / "examples" / path)))
+    jg, g = _read_graphs(str(REPO / "examples" / path))
     for l in g.input_layers:
-        want = jax_prologue.prologue_plan(g, l.name)
+        want = jax_prologue.prologue_plan(jg, l.name)
         got = pt_s2d.prologue_plan(g, l.name)
         assert (got and got.name) == (want and want.name)
 

@@ -21,8 +21,10 @@ from convnet_tpu import model as jax_model
 from convnet_tpu.data.jitter import JitterSpec as JaxJitterSpec
 from convnet_tpu.graph import build_graph
 from convnet_tpu.predictor import Predictor as JaxPredictor
+from convnet_tpu_torch import config as pt_config
 from convnet_tpu_torch import model as pt_model
 from convnet_tpu_torch.data.jitter import JitterSpec
+from convnet_tpu_torch.graph import build_graph as pt_build_graph
 from convnet_tpu_torch.ops import lrn as pt_lrn
 from convnet_tpu_torch.ops import s2d_relayout as pt_s2d
 from convnet_tpu_torch.predictor import Predictor
@@ -58,9 +60,19 @@ edge {{ source: "pool2" dest: "output" edge_type: FC initialization: DENSE_GAUSS
 MEAN = np.full((3,), 0.45, np.float32)
 
 
-def _graph(dtype):
+def _graphs(text):
+    """(JAX graph, port graph): one pbtxt through each package's own
+    reader and graph IR (their proto classes are distinct types)."""
+    return build_graph(config.parse_model(text)), pt_build_graph(pt_config.parse_model(text))
+
+
+def _graph_pair(dtype):
     adtype = "bfloat16" if dtype == "bfloat16" else ""
-    return build_graph(config.parse_model(NET.format(dtype=dtype, adtype=adtype, crop=CROP)))
+    return _graphs(NET.format(dtype=dtype, adtype=adtype, crop=CROP))
+
+
+def _graph(dtype):
+    return _graph_pair(dtype)[1]
 
 
 def _requests():
@@ -78,10 +90,10 @@ def _jax_tpu_serving_path(monkeypatch):
 
 def _predictors(dtype, monkeypatch):
     _jax_tpu_serving_path(monkeypatch)
-    g = _graph(dtype)
-    jparams = jax_model.init_params(g, seed=0)
+    jg, g = _graph_pair(dtype)
+    jparams = jax_model.init_params(jg, seed=0)
     ref = JaxPredictor(
-        g, jparams, batch_size=BATCH, raw_size=RAW, input_dtype=np.uint8,
+        jg, jparams, batch_size=BATCH, raw_size=RAW, input_dtype=np.uint8,
         jitter={"input": (JaxJitterSpec(image_size=CROP, scale=1 / 255), MEAN, None)},
     )
     port = Predictor(
@@ -183,8 +195,9 @@ def test_uint8_wire_rejects_out_of_range():
 def test_param_shapes_match_jax(path):
     from pathlib import Path
 
-    g = build_graph(config.read_model(str(Path(__file__).parent.parent / "examples" / path)))
-    assert pt_model.param_shapes(g) == jax_model.param_shapes(g)
+    path = str(Path(__file__).parent.parent / "examples" / path)
+    jg, g = build_graph(config.read_model(path)), pt_build_graph(pt_config.read_model(path))
+    assert pt_model.param_shapes(g) == jax_model.param_shapes(jg)
 
 
 def test_init_modes():
@@ -204,7 +217,7 @@ def test_init_modes():
     edge { source: "d" dest: "e" edge_type: FC initialization: DENSE_UNIFORM_SQRT_FAN_IN init_wt: 1.0 }
     edge { source: "e" dest: "output" edge_type: FC initialization: SPARSE_GAUSSIAN init_wt: 1.0 }
     """
-    g = build_graph(config.parse_model(net))
+    g = pt_build_graph(pt_config.parse_model(net))
     p = pt_model.init_params(g)
     w = {e.dest: p[e.name]["w"].numpy() for e in g.weighted_edges}
     assert all(v.dtype == np.float32 for v in w.values())
@@ -223,7 +236,7 @@ def test_init_modes():
 def test_uint8_wire_without_jitter_widens_to_f32():
     """Without a jitter map the uint8 bytes are used as they are, widened to
     f32 on the device: the same outputs as shipping them as floats."""
-    g = build_graph(config.parse_model("""
+    g = pt_build_graph(pt_config.parse_model("""
         name: "plain" seed: 2
         layer { name: "input" is_input: true num_channels: 3 image_size: 8 }
         layer { name: "h" num_channels: 4 activation: RECTIFIED_LINEAR }

@@ -43,11 +43,13 @@ from convnet_tpu.ops import activations as jax_act
 from convnet_tpu.ops import losses as jax_losses
 from convnet_tpu.ops import lrn as jax_lrn
 from convnet_tpu.ops import s2d_relayout as jax_s2d
+from convnet_tpu_torch import config as pt_config
 from convnet_tpu_torch import model as pt_model
 from convnet_tpu_torch import optim as pt_optim
 from convnet_tpu_torch import trainer as pt_trainer
 from convnet_tpu_torch.data import jitter as pt_jitter
 from convnet_tpu_torch.data.datahandler import DataHandler
+from convnet_tpu_torch.graph import build_graph as pt_build_graph
 from convnet_tpu_torch.ops import activations as pt_act
 from convnet_tpu_torch.ops import dropout as pt_drop
 from convnet_tpu_torch.ops import losses as pt_losses
@@ -56,6 +58,12 @@ from convnet_tpu_torch.ops import s2d_relayout as pt_s2d
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _graphs(text):
+    """(JAX graph, port graph): one pbtxt through each package's own
+    reader and graph IR (their proto classes are distinct types)."""
+    return build_graph(config.parse_model(text)), pt_build_graph(pt_config.parse_model(text))
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -333,7 +341,7 @@ OPT_SPECS = [
 ]
 
 
-def _opt_graph():
+def _opt_graphs():
     names = [f"h{i}" for i in range(len(OPT_SPECS) - 1)] + ["output"]
     layers = "\n".join(f'layer {{ name: "{n}" num_channels: 12 }}' for n in names[:-1])
     layers += '\nlayer { name: "output" is_output: true num_channels: 12 }'
@@ -343,14 +351,14 @@ def _opt_graph():
         f"init_wt: 0.3 weight_optimizer {{ {spec} }} bias_optimizer {{ {spec} }} }}"
         for s, d, spec in zip(src, names, OPT_SPECS)
     )
-    return build_graph(config.parse_model(OPT_NET.format(layers=layers, edges=edges)))
+    return _graphs(OPT_NET.format(layers=layers, edges=edges))
 
 
 def test_optimizer_matches_jax_five_steps():
-    g = _opt_graph()
+    jg, g = _opt_graphs()
     assert {e.weight_optimizer.epsilon_decay for e in g.weighted_edges} >= {
         DECAY.EXPONENTIAL, DECAY.INVERSE_T, DECAY.LINEAR, DECAY.NONE}
-    jp = jax_model.init_params(g, seed=0)
+    jp = jax_model.init_params(jg, seed=0)
     jm = jax_optim.init_momentum(jp)
     pp = pt_model.params_from_numpy(jp)
     pm = pt_optim.init_momentum(pp)
@@ -360,10 +368,10 @@ def test_optimizer_matches_jax_five_steps():
             name: {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p.items()}
             for name, p in jp.items()
         }
-        jp, jm = jax_optim.apply_updates(g, jp, jm, grads, jnp.asarray(step, jnp.int32))
+        jp, jm = jax_optim.apply_updates(jg, jp, jm, grads, jnp.asarray(step, jnp.int32))
         pt_optim.apply_updates(g, pp, pm, pt_model.params_from_numpy(grads), step)
     frozen = g.weighted_edges[-1].name  # start_optimization_after: moved only at steps 2-4
-    assert not np.array_equal(np.asarray(jp[frozen]["w"]), jax_model.init_params(g, 0)[frozen]["w"])
+    assert not np.array_equal(np.asarray(jp[frozen]["w"]), jax_model.init_params(jg, 0)[frozen]["w"])
     for name in jp:
         for k in ("w", "b"):
             np.testing.assert_allclose(pp[name][k].numpy(), np.asarray(jp[name][k]), rtol=1e-6, atol=1e-6)
@@ -372,10 +380,12 @@ def test_optimizer_matches_jax_five_steps():
 
 @pytest.mark.parametrize("t", [0, 1, 7, 100, 1234])
 def test_schedules_match_jax(t):
-    for spec in (e.weight_optimizer for e in _opt_graph().weighted_edges):
+    jg, g = _opt_graphs()
+    for je, e in zip(jg.weighted_edges, g.weighted_edges):
+        spec, jspec = e.weight_optimizer, je.weight_optimizer
         tt = jnp.asarray(float(t), jnp.float32)
-        assert pt_optim.epsilon_at(spec, t) == float(jax_optim.epsilon_at(spec, tt))
-        assert pt_optim.momentum_at(spec, t) == float(jax_optim.momentum_at(spec, tt))
+        assert pt_optim.epsilon_at(spec, t) == float(jax_optim.epsilon_at(jspec, tt))
+        assert pt_optim.momentum_at(spec, t) == float(jax_optim.momentum_at(jspec, tt))
 
 
 # ---------------------------------------------------------------------------
@@ -471,10 +481,14 @@ edge {{ source: "fc" dest: "output" edge_type: FC initialization: DENSE_GAUSSIAN
 """.replace("OPT", OPT)
 
 
-def _train_graph(dtype, dropprob=0.0, data=1):
+def _train_graphs(dtype, dropprob=0.0, data=1):
     adtype = "bfloat16" if dtype == "bfloat16" else ""
     text = TRAIN_NET.format(dtype=dtype, adtype=adtype, crop=CROP, dropprob=dropprob, data=data)
-    return build_graph(config.parse_model(text))
+    return _graphs(text)
+
+
+def _train_graph(dtype, dropprob=0.0, data=1):
+    return _train_graphs(dtype, dropprob, data)[1]
 
 
 def _batches(n, seed=0):
@@ -506,11 +520,11 @@ def _assert_updates_close(graph, p0, want, got, rel):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_step_matches_jax_three_steps(dtype, monkeypatch):
     _jax_tpu_train_path(monkeypatch)
-    g = _train_graph(dtype)
-    jstate = jax_trainer.init_state(g, seed=0)
+    jg, g = _train_graphs(dtype)
+    jstate = jax_trainer.init_state(jg, seed=0)
     p0 = jax.tree.map(np.asarray, jstate["params"])
     jstep = jax_trainer.make_train_step(
-        g, {"input": (JaxJitterSpec(image_size=CROP, scale=1 / 255), MEAN, None)}
+        jg, {"input": (JaxJitterSpec(image_size=CROP, scale=1 / 255), MEAN, None)}
     )
     pstate = _port_state(p0)
     pstep = pt_trainer.make_train_step(
@@ -545,8 +559,8 @@ def test_gradients_with_injected_crops_and_flips(dtype, monkeypatch):
     different generators). In f32 the bf16 S2D input is widened, so both
     sides run conv1 in f32 over the same values."""
     _jax_tpu_train_path(monkeypatch)
-    g = _train_graph(dtype)
-    jparams = jax_model.init_params(g, seed=0)
+    jg, g = _train_graphs(dtype)
+    jparams = jax_model.init_params(jg, seed=0)
     rng = np.random.default_rng(18)
     x = rng.integers(0, 256, (BATCH, RAW, RAW, 3), dtype=np.uint8)
     labels = rng.integers(0, 10, (BATCH,), dtype=np.int32)
@@ -562,7 +576,7 @@ def test_gradients_with_injected_crops_and_flips(dtype, monkeypatch):
     if dtype == "float32":
         js = type(js)(js.x.astype(jnp.float32), js.stride)
         ps = pt_s2d.S2DInput(ps.x.float(), ps.stride)
-    want = jax.grad(lambda p: jax_model.loss_fn(g, p, {"input": js, "labels": jnp.asarray(labels)})[0])(
+    want = jax.grad(lambda p: jax_model.loss_fn(jg, p, {"input": js, "labels": jnp.asarray(labels)})[0])(
         jparams
     )
     params = pt_model.params_from_numpy(jparams)
@@ -598,7 +612,7 @@ def test_trainer_over_dummy_data(tmp_path):
     g = _train_graph("bfloat16", dropprob=0.5, data=8)
 
     def run():
-        cfg = config.parse_dataset_config(DATA.format(pipeline="true"))
+        cfg = pt_config.parse_dataset_config(DATA.format(pipeline="true"))
         train, val = DataHandler(cfg), DataHandler(cfg, randomize=False)
         lines = []
         with pytest.warns(UserWarning, match="8x1 mesh"):
@@ -631,7 +645,7 @@ def test_trainer_over_dummy_data(tmp_path):
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
     g = _train_graph("bfloat16")
-    cfg = config.parse_dataset_config(DATA.format(pipeline="false"))
+    cfg = pt_config.parse_dataset_config(DATA.format(pipeline="false"))
     data = DataHandler(cfg)
     with pytest.raises(NotImplementedError, match="steps_per_launch"):
         pt_trainer.Trainer(g, data, device="cpu", steps_per_launch=2)
@@ -645,9 +659,9 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
         pt_trainer.Trainer(g, data, checkpoint_dir=str(tmp_path), device="cpu")
     text = re.sub(r"max_iter: 6", "max_iter: 6 checkpoint_after: 4", TRAIN_NET.format(
         dtype="bfloat16", adtype="bfloat16", crop=CROP, dropprob=0.0, data=1))
-    gc = build_graph(config.parse_model(text))
+    gc = pt_build_graph(pt_config.parse_model(text))
     with pytest.raises(NotImplementedError, match="checkpoint"):
         pt_trainer.Trainer(gc, data, device="cpu").train()
-    remat = build_graph(config.parse_model(text.replace("seed: 3", "seed: 3 remat: true")))
+    remat = pt_build_graph(pt_config.parse_model(text.replace("seed: 3", "seed: 3 remat: true")))
     with pytest.raises(NotImplementedError, match="remat"):
         pt_model.loss_fn(remat, pt_model.init_params(remat), {})
