@@ -2,6 +2,7 @@
 """Drive the PyTorch port's serving and train paths once on one CUDA card.
 
     python3 chip_smoke.py [--profile-dir DIR]
+    python3 chip_smoke.py --time-only [--root CHECKOUT]
 
 Run from the root of a checkout. It imports no JAX. Phases, in order;
 any failure raises and the script exits non-zero:
@@ -9,7 +10,8 @@ any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), and the build
    of the CUDA kernels from convnet_tpu_torch/csrc.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving and train paths' shapes: the input prologue must be
+   serving and train paths' shapes (the LRN kernels also at a ragged
+   (3001, 100)): the input prologue must be
    array-equal; the response norm within 1 bf16 ulp in bf16 and rtol
    1e-5 in f32; its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
@@ -46,18 +48,28 @@ any failure raises and the script exits non-zero:
    state must agree with a step composed from the plain versions with
    autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
    gradient.
-6. Timing with CUDA events (median of 20 runs after warm-up): each kernel,
-   its plain version, its bound (the larger of its bytes over 3.35 TB/s
-   and its operations over 67 TFLOP/s) and, where one PyTorch call
-   computes the same function, that call; the forward pass, the
-   Predictor's milliseconds per batch and images per second, the train
-   step on both paths (device time and host clock) and the Trainer's
-   images per second over 50 steps.
+6. Timing. Every kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, by device time with the
+   launches hidden (device_ms: up to 20 calls over two input sets queued
+   behind a spin, so no call finds its inputs in L2 and the card never
+   waits for the host; each call first runs under
+   set_sync_debug_mode("error")),
+   beside its bound (the larger of its bytes over 3.35 TB/s and its
+   operations over 67 TFLOP/s); each wrapper's host cost per call (the
+   median of 200 calls, no synchronize); the forward pass and the train
+   step on both paths (device time with the launches hidden, one call a
+   spin, median of 20; host clock
+   with a synchronize, and CUDA events around one call); the Predictor's
+   milliseconds per batch and images per second and the Trainer's images
+   per second over 50 steps.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
 the forward pass and five train steps of each path are also traced with
-torch.profiler into that directory.
+torch.profiler into that directory. --time-only runs phases 1 and 6 alone,
+without the plain versions and library calls, and prints the times as one
+JSON line; --root imports convnet_tpu_torch from another checkout, so that
+two commits' kernels can be timed in turns in one call.
 """
 
 from __future__ import annotations
@@ -77,6 +89,10 @@ ALEXNET = REPO / "examples" / "imagenet" / "alexnet.pbtxt"
 BATCH, RAW, CROP = 128, 256, 224
 REQUESTS = (128, 128, 57)
 ITERS, WARMUP = 20, 3
+# device timing: KCALLS back-to-back calls behind a spin, median of REPS
+# runs; a wrapper's host cost: median of HOST_CALLS calls
+KCALLS, REPS, HOST_CALLS = 20, 3, 200
+SPIN_CYCLES_PER_MS = 2e6  # a spin of at least 1 ms at SM clocks up to 2 GHz
 TRAIN_STEPS, TRAINER_STEPS, PARITY_STEPS = 20, 50, 3
 DUMMY_ROWS = 384
 MEAN = 0.45
@@ -118,27 +134,72 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
-def queued_ms(fn, iters: int = ITERS, warmup: int = WARMUP, spin_ms: float = 40.0) -> float:
-    """Median device milliseconds of fn() with the host's launch cost
-    hidden: each run is queued behind a spin kernel long enough for the
-    host to enqueue all of fn's work, so the events time the card alone.
-    Valid for work that never waits for the card."""
+def device_ms(*calls, k: int = KCALLS, reps: int = REPS) -> float:
+    """Device milliseconds per call of the work the callables enqueue, with
+    the host's launch cost hidden. k calls, taking the callables in turn
+    (each on its own inputs, so that no call finds its inputs in L2 from
+    the call before), are queued behind a spin kernel that outlasts the
+    host's enqueueing of all of them, and one pair of CUDA events around
+    them times the card alone; the median of `reps` runs, over k. Each
+    callable first runs once under torch.cuda.set_sync_debug_mode("error"),
+    so a call that waits for the card raises instead of timing the host.
+    A run in which the spin ended before the last call was queued is
+    repeated with k halved (k calls of many small kernels can fill the
+    CUDA launch queue, about a thousand launches, and the host then waits
+    for the card whatever the spin), then with a longer spin."""
     import torch
 
-    cycles = int(spin_ms * 2e6)  # at least spin_ms at SM clocks up to 2 GHz
-    for _ in range(warmup):
+    for fn in calls:
         fn()
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(k):
+        calls[i % len(calls)]()
+    spin_ms = max(2.0, 2e3 * (time.perf_counter() - t0))  # twice the host's enqueue time
+    torch.cuda.synchronize()
+    runs = []
+    while len(runs) < reps:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
         start.record()
-        fn()
+        for i in range(k):
+            calls[i % len(calls)]()
         end.record()
+        hidden = not start.query()  # the spin still ran when the last call was queued
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if hidden:
+            runs.append(start.elapsed_time(end) / k)
+        elif k > 1:
+            k //= 2
+        elif spin_ms > 4000:
+            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
+        else:
+            spin_ms *= 4
+    return statistics.median(runs)
+
+
+def host_us(fn, n: int = HOST_CALLS) -> float:
+    """Median host microseconds of one call of fn over n calls, without a
+    synchronize: what a wrapper costs the host (checks, allocation, the
+    launch), not the kernel's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spent = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        spent.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(spent) * 1e6
 
 
 def bf16_ulps(a, b) -> int:
@@ -302,6 +363,21 @@ def check_prologue(dev, gen, card):
 
 
 LRN_SHAPES = {"rnorm1": (BATCH * 55 * 55, 96), "rnorm2": (BATCH * 27 * 27, 256)}
+# phase 2 adds a ragged shape: C = 100 takes the kernels' one-channel path
+# (200 bytes a bf16 row), M = 3001 leaves a short last tile. Its inputs
+# come from a generator of their own, so the AlexNet shapes' inputs stay
+# the draws of the shared one.
+CHECK_SHAPES = {**LRN_SHAPES, "ragged": (3001, 100)}
+RAGGED_SEED = 1
+
+
+def shape_generators(dev, gen):
+    """(name, (m, c), generator) of each CHECK_SHAPES entry."""
+    import torch
+
+    ragged = torch.Generator(device=dev)
+    ragged.manual_seed(RAGGED_SEED)
+    return [(name, mc, gen if name in LRN_SHAPES else ragged) for name, mc in CHECK_SHAPES.items()]
 
 
 def check_lrn(dev, gen, card):
@@ -312,9 +388,9 @@ def check_lrn(dev, gen, card):
     from convnet_tpu_torch.ops import lrn
 
     worst = 0.0
-    for shape_name, (m, c) in LRN_SHAPES.items():
-        z32 = 2.0 * torch.randn((m, c), generator=gen, device=dev)
-        bias = 0.5 * torch.randn((c,), generator=gen, device=dev)
+    for shape_name, (m, c), rng in shape_generators(dev, gen):
+        z32 = 2.0 * torch.randn((m, c), generator=rng, device=dev)
+        bias = 0.5 * torch.randn((c,), generator=rng, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
             z = z32.to(dtype)
             for add_scale in (1e-4, 1.0):  # AlexNet's, and one where d is far from 1
@@ -351,10 +427,10 @@ def check_lrn_bwd(dev, gen, card):
     from convnet_tpu_torch.ops import lrn
 
     worst = 0.0
-    for shape_name, (m, c) in LRN_SHAPES.items():
-        z32 = 2.0 * torch.randn((m, c), generator=gen, device=dev)
-        g32 = torch.randn((m, c), generator=gen, device=dev)
-        bias = 0.5 * torch.randn((c,), generator=gen, device=dev)
+    for shape_name, (m, c), rng in shape_generators(dev, gen):
+        z32 = 2.0 * torch.randn((m, c), generator=rng, device=dev)
+        g32 = torch.randn((m, c), generator=rng, device=dev)
+        bias = 0.5 * torch.randn((c,), generator=rng, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
             z, g = z32.to(dtype), g32.to(dtype)
             scales = (1e-4, 1.0) if dtype == torch.float32 else (1e-4,)
@@ -725,10 +801,220 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     return loss.detach()
 
 
+def time_kernels(dev, gen, card, mean_t, plain=True):
+    """Phase 6's kernel times at the main paths' shapes, bf16, with bias and
+    ReLU where the kernel takes them: each wrapper's device time
+    (device_ms, two input sets taken in turn) and host cost (host_us);
+    with `plain`, also its plain version's and the library call's device
+    times; and an empty kernel's device time, the floor of any launch.
+    Returns (times {part: (kernel ms, plain ms or None)}, library {part:
+    ms}, work {part: (bytes, operations)}, host {part: us}, floor ms).
+
+    Bytes: bf16 activations and f32 bias and db, each read or written
+    once. Operations per element, counted from the kernels' arithmetic
+    with AlexNet's n = 5: LRN forward 2n + 8, LRN backward 3n + 19, the
+    fused backward both and the pool-undo (57), Philox dropout 27 (a
+    10-round Philox per 4 elements), the prologue 4 per output, a 3x3 max
+    pool 9 compares per output."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_tpu_torch.ops import dropout as drop
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
+    from convnet_tpu_torch.ops import lrn, pool
+    from convnet_tpu_torch.ops import s2d_relayout as s2d
+
+    times, library, work, host = {}, {}, {}, {}
+
+    def timed(part, kernel, reference, inputs, lib=None, **kw):
+        """Time kernel (and, with `plain`, reference and lib) on each of
+        the input tuples in turn."""
+        calls = [functools.partial(kernel, *x, **kw) for x in inputs]
+        host[part] = host_us(calls[0])
+        ref_ms = None
+        if plain:
+            ref_ms = device_ms(*[functools.partial(reference, *x, **kw) for x in inputs])
+            if lib is not None:
+                library[part] = device_ms(*[functools.partial(lib, *x) for x in inputs])
+        times[part] = (device_ms(*calls), ref_ms)
+
+    def bf16(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def torch_lrn(z, *_):
+        # torch's own LRN on the same tensor (NCHW view), without bias or ReLU
+        zt = z.view(BATCH, -1, z.shape[1]).permute(0, 2, 1)[..., None]
+        return F.local_response_norm(zt, LRN_N, alpha=1e-4, beta=0.75, k=1.0)
+
+    conf = (LRN_N, LRN_ALPHA, 0.75)
+    for shape_name, (m, c) in LRN_SHAPES.items():
+        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        zs = [bf16((m, c), 2.0) for _ in range(2)]
+        timed(f"lrn_fwd {shape_name}", lrn.lrn_fwd, lrn._fwd_math, [(z, *conf) for z in zs],
+              torch_lrn, bias=b, relu=True)
+        work[f"lrn_fwd {shape_name}"] = (4 * m * c + 4 * c, 18 * m * c)
+        timed(f"lrn_bwd {shape_name}", lrn.lrn_bwd, lrn._bwd_math,
+              [(bf16((m, c)), z, *conf) for z in zs], bias=b, relu=True)
+        work[f"lrn_bwd {shape_name}"] = (6 * m * c + 8 * c, 34 * m * c)
+        del zs
+
+    off = torch.full((BATCH,), (RAW - CROP) // 2, dtype=torch.int32, device=dev)
+    kw = dict(crop=CROP, stride=4, p=s2d.relayout_geometry(CROP, 11, 4), scale=1 / 255,
+              mean=mean_t)
+    xs = [(torch.randint(0, 256, (BATCH, RAW, RAW, 3), generator=gen, device=dev,
+                         dtype=torch.uint8), off, off, None) for _ in range(2)]
+    timed("s2d_prologue", s2d.s2d_prologue, s2d.s2d_prologue_reference, xs, **kw)
+    s2d_out = BATCH * kw["p"] * kw["p"] * 48
+    work["s2d_prologue"] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
+    del xs
+
+    key = drop.dropout_key(0, 0, 10)
+    xds = [(bf16((BATCH, 1, 1, 4096)), 0.5, key) for _ in range(2)]
+    timed("dropout", drop.dropout_apply, drop.dropout_reference, xds,
+          lambda x, rate, _: F.dropout(x, rate, training=True))
+    work["dropout"] = (4 * BATCH * 4096, 27 * BATCH * 4096)
+
+    x5s = [(bf16(POOL_SHAPES["pool5"]), 3, 2) for _ in range(2)]
+    # exact cover at pool5 (13 -> 6): torch's floor-mode pool is the same function
+    timed("maxpool_fwd pool5", pool.maxpool_fwd, pool.maxpool_reference, x5s,
+          lambda x, k, s: F.max_pool2d(x.permute(0, 3, 1, 2), k, s))
+    p5_out = pool.maxpool_reference(x5s[0][0], 3, 2).numel()
+    work["maxpool_fwd pool5"] = (2 * (x5s[0][0].numel() + p5_out), 9 * p5_out)
+    del x5s
+
+    for shape_name, shape in CHAINS.items():
+        c = shape[-1]
+        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        kw = dict(bias=b, relu=True)
+        zs = [bf16(shape, 2.0) for _ in range(2)]
+        ms = [plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw) for z in zs]
+        args = (LRN_N, LRN_ALPHA, 0.75, 3, 2)
+        timed(f"pool_lrn_fwd {shape_name}", plrn.pool_lrn_fwd, plrn._fwd_reference,
+              [(z, *args) for z in zs], **kw)
+        gs = [bf16(m.shape) for m in ms]
+        timed(f"pool_lrn_bwd {shape_name}", plrn.pool_lrn_bwd, plrn._bwd_reference,
+              [(g, m, z, *args) for g, m, z in zip(gs, ms, zs)], **kw)
+        z, m = zs[0], ms[0]
+        work[f"pool_lrn_fwd {shape_name}"] = (2 * (z.numel() + m.numel()) + 4 * c,
+                                              18 * z.numel() + 9 * m.numel())
+        work[f"pool_lrn_bwd {shape_name}"] = (4 * (z.numel() + m.numel()) + 8 * c, 57 * z.numel())
+        del zs, ms, gs, z, m
+
+    # the card's floor for one launch on this timing: an empty spin kernel
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"[{card}] one empty kernel (torch.cuda._sleep(0)), device time with the launches "
+          f"hidden: {floor_ms:.4f} ms, the least any launch takes here")
+    print(f"[{card}] host cost of each kernel's wrapper, median of {HOST_CALLS} calls without "
+          f"a synchronize (host time, not the kernel's): "
+          + ", ".join(f"{name} {us:.1f} us" for name, us in host.items()))
+    for name, (k_ms, p_ms) in times.items():
+        b_ms, b_by = bound(*work[name])
+        plain_txt = f", plain {p_ms:.4f} ms" if p_ms is not None else ""
+        lib = f", library {library[name]:.4f} ms" if name in library else ""
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms{plain_txt}{lib} (device time, launches "
+              f"hidden, two input sets in turn), bound {b_ms:.4f} ms ({b_by}: "
+              f"{work[name][0]} bytes, {work[name][1]} operations), {b_ms / k_ms:.3f} of it")
+    return times, library, work, host, floor_ms
+
+
+def step_times(step, state, batch):
+    """(events, device time with the launches hidden, host clock with a
+    synchronize) of one train step on the staged batch, in ms."""
+    import torch
+
+    ev = cuda_ms(lambda: step(state, batch))
+    # one step (about 280 launches) per spin: k steps would fill the queue
+    dev_ms = device_ms(lambda: step(state, batch), k=1, reps=ITERS)
+    host = []
+    for i in range(WARMUP + ITERS):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            host.append((time.perf_counter() - t0) * 1e3)
+    return ev, dev_ms, statistics.median(host)
+
+
+def time_paths(fwd, fwd_params, staged, step, state, batch, card):
+    """The serving forward's time (events, and device time with the
+    launches hidden) and the train step's on both train paths
+    (step_times). Prints them; returns {"forward": (events, device),
+    "train": (events, device, host), "reference_gradient": (...)}."""
+    import torch
+
+    with torch.inference_mode():
+        fwd_ev = cuda_ms(lambda: fwd(fwd_params, staged))
+        fwd_dev = device_ms(lambda: fwd(fwd_params, staged), k=1, reps=ITERS)
+    print(f"[{card}] AlexNet forward, batch {BATCH}: device time with the launches hidden "
+          f"{fwd_dev:.4f} ms; events around one call {fwd_ev:.4f} ms")
+    out = {"forward": (fwd_ev, fwd_dev), "train": step_times(step, state, batch)}
+    with pool_switches():
+        out["reference_gradient"] = step_times(step, state, batch)
+    for path, what in (("train", "AlexNet train step"),
+                       ("reference_gradient", f"AlexNet train step with {POOL_SWITCHES}")):
+        ev, dev_ms, host_ms = out[path]
+        print(f"[{card}] {what}, batch {BATCH}, on a staged batch: device time with the "
+              f"launches hidden {dev_ms:.4f} ms ({BATCH / dev_ms * 1e3:.1f} img/s); host clock "
+              f"with synchronize {host_ms:.4f} ms ({BATCH / host_ms * 1e3:.1f} img/s), so the "
+              f"card idles {1 - dev_ms / host_ms:.3f} of it; events {ev:.4f} ms")
+    return out
+
+
+def time_only(dev, card, root) -> int:
+    """--time-only: phase 6 without the plain versions and library calls,
+    on random weights and one DUMMY batch, untrained. Prints the kernels'
+    device times and host costs and the forward's and train steps' times
+    as one JSON line, so that two checkouts can be timed in turns."""
+    import numpy as np
+    import torch
+
+    import convnet_tpu_torch
+    from convnet_tpu_torch.config import read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.data.jitter import JitterSpec
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.model import init_params
+    from convnet_tpu_torch.predictor import Predictor
+    from convnet_tpu_torch.trainer import Trainer, make_forward, make_train_step
+
+    print(f"[{card}] timing convnet_tpu_torch from {Path(convnet_tpu_torch.__file__).parent}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    mean = np.full((3,), MEAN, np.float32)
+    times, _, work, host, floor_ms = time_kernels(dev, gen, card,
+                                                  torch.as_tensor(mean, device=dev), plain=False)
+    graph = build_graph(read_model(str(ALEXNET)))
+    jitter = {"input": (JitterSpec(image_size=CROP, scale=1 / 255), mean, None)}
+    pred = Predictor(graph, init_params(graph, seed=0, device=dev), batch_size=BATCH,
+                     jitter=jitter, raw_size=RAW, input_dtype=np.uint8, device=dev)
+    x = np.random.default_rng(0).integers(0, 256, (BATCH, RAW, RAW, 3), dtype=np.uint8)
+    train_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
+    train_jitter = {"input": (train_data.jitter_specs()["input"][0], mean, None)}
+    trainer = Trainer(graph, train_data, device=dev, jitter=train_jitter)
+    paths = time_paths(make_forward(graph, pred.layers, jitter), pred.params,
+                       {"input": torch.from_numpy(x).to(dev)}, make_train_step(graph, train_jitter),
+                       clone_state(trainer.state), trainer.device_batch(train_data.get_batch()),
+                       card)
+    train_data.close()
+    kernels = {name: {"ms": ms, "bound_ms": bound(*work[name])[0], "host_us": host[name]}
+               for name, (ms, _) in times.items()}
+    print(json.dumps({"time_only": {"root": str(root), "card": card, "kernels": kernels,
+                                    "empty_launch_ms": floor_ms, "paths": paths}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
                     help="trace the forward pass and five train steps into this directory")
+    ap.add_argument("--time-only", action="store_true",
+                    help="skip phases 2-5 and the plain versions: time the kernels, the "
+                         "forward and the train steps, and print them as one JSON line")
+    ap.add_argument("--root", type=Path, default=REPO,
+                    help="import convnet_tpu_torch from this checkout (with --time-only, to "
+                         "time another commit's kernels in the same call)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -737,17 +1023,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
-    if not (REPO / "convnet_tpu_torch").is_dir() or not ALEXNET.is_file():
+    root = args.root.resolve()
+    if not (root / "convnet_tpu_torch").is_dir() or not ALEXNET.is_file():
         print("chip_smoke: run it from the root of a checkout of the repository", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(root))
     from convnet_tpu_torch.config import read_model
     from convnet_tpu_torch.graph import build_graph
     from convnet_tpu_torch.data.jitter import JitterSpec
     from convnet_tpu_torch.model import init_params
     from convnet_tpu_torch.ops import _build
-    from convnet_tpu_torch.ops import dropout as drop
-    from convnet_tpu_torch.ops import lrn
-    from convnet_tpu_torch.ops import s2d_relayout as s2d
     from convnet_tpu_torch.predictor import Predictor
     from convnet_tpu_torch.trainer import make_forward
 
@@ -764,6 +1049,9 @@ def main(argv=None) -> int:
     load_s = time.perf_counter() - t0
     print(f"[{card}] kernel library: nvcc build {_build.build_seconds} s, "
           f"build+load {load_s:.3f} s")
+
+    if args.time_only:
+        return time_only(dev, card, root)
 
     # -- 2. kernels vs plain versions at the slice's shapes -----------------
     gen = torch.Generator(device=dev)
@@ -880,99 +1168,16 @@ def main(argv=None) -> int:
                            card, fused=True)
 
     # -- 6. timing -----------------------------------------------------------
-    import torch.nn.functional as F
-
-    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
-    from convnet_tpu_torch.ops import pool
-
-    # per timed part: (kernel ms, plain ms), the library call's ms where one
-    # computes the function, and (bytes the function must move, its f32
-    # operations). Bytes: bf16 activations and f32 bias and db, each read
-    # or written once. Operations per element, counted from the kernels'
-    # arithmetic with AlexNet's n = 5: LRN forward 2n + 8, LRN backward
-    # 3n + 19, the fused backward both and the pool-undo (57), Philox
-    # dropout 27 (a 10-round Philox per 4 elements), the prologue 4 per
-    # output, a 3x3 max pool 9 compares per output.
     torch.cuda.synchronize()
-    times, library, work = {}, {}, {}
-    for shape_name, (m, c) in LRN_SHAPES.items():
-        z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
-        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
-        alpha = 1e-4 / 5
-        times[f"lrn_fwd {shape_name}"] = (
-            cuda_ms(lambda: lrn.lrn_fwd(z, 5, alpha, 0.75, bias=b, relu=True)),
-            cuda_ms(lambda: lrn._fwd_math(z, 5, alpha, 0.75, b, True)),
-        )
-        # torch's own LRN on the same tensor (NCHW view), without bias or ReLU
-        zt = z.view(BATCH, -1, c).permute(0, 2, 1)[..., None]
-        library[f"lrn_fwd {shape_name}"] = cuda_ms(
-            lambda: F.local_response_norm(zt, 5, alpha=1e-4, beta=0.75, k=1.0))
-        work[f"lrn_fwd {shape_name}"] = (4 * m * c + 4 * c, 18 * m * c)
-    x = torch.randint(0, 256, (BATCH, RAW, RAW, 3), generator=gen, device=dev, dtype=torch.uint8)
-    off = torch.full((BATCH,), (RAW - CROP) // 2, dtype=torch.int32, device=dev)
-    kw = dict(crop=CROP, stride=4, p=s2d.relayout_geometry(CROP, 11, 4), scale=1 / 255,
-              mean=mean_t)
-    times["s2d_prologue"] = (
-        cuda_ms(lambda: s2d.s2d_prologue(x, off, off, None, **kw)),
-        cuda_ms(lambda: s2d.s2d_prologue_reference(x, off, off, None, **kw)),
-    )
-    s2d_out = BATCH * kw["p"] * kw["p"] * 48
-    work["s2d_prologue"] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
-    for shape_name, (m, c) in LRN_SHAPES.items():
-        z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
-        g = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
-        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
-        alpha = 1e-4 / 5
-        times[f"lrn_bwd {shape_name}"] = (
-            cuda_ms(lambda: lrn.lrn_bwd(g, z, 5, alpha, 0.75, bias=b, relu=True)),
-            cuda_ms(lambda: lrn._bwd_math(g, z, 5, alpha, 0.75, b, True)),
-        )
-        work[f"lrn_bwd {shape_name}"] = (6 * m * c + 8 * c, 34 * m * c)
-    xd = torch.randn((BATCH, 1, 1, 4096), generator=gen, device=dev).to(torch.bfloat16)
-    key = drop.dropout_key(0, 0, 10)
-    times["dropout"] = (
-        cuda_ms(lambda: drop.dropout_apply(xd, 0.5, key)),
-        cuda_ms(lambda: drop.dropout_reference(xd, 0.5, key)),
-    )
-    library["dropout"] = cuda_ms(lambda: F.dropout(xd, 0.5, training=True))
-    work["dropout"] = (4 * xd.numel(), 27 * xd.numel())
-    x5 = torch.randn(POOL_SHAPES["pool5"], generator=gen, device=dev).to(torch.bfloat16)
-    times["maxpool_fwd pool5"] = (
-        cuda_ms(lambda: pool.maxpool_fwd(x5, 3, 2)),
-        cuda_ms(lambda: pool.maxpool_reference(x5, 3, 2)),
-    )
-    # exact cover at pool5 (13 -> 6): torch's floor-mode pool is the same function
-    library["maxpool_fwd pool5"] = cuda_ms(lambda: F.max_pool2d(x5.permute(0, 3, 1, 2), 3, 2))
-    p5_out = pool.maxpool_reference(x5, 3, 2).numel()
-    work["maxpool_fwd pool5"] = (2 * (x5.numel() + p5_out), 9 * p5_out)
-    for shape_name, shape in CHAINS.items():
-        c = shape[-1]
-        z = (2.0 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
-        b = 0.5 * torch.randn((c,), generator=gen, device=dev)
-        kw = dict(bias=b, relu=True)
-        m = plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)
-        g = torch.randn(m.shape, generator=gen, device=dev).to(torch.bfloat16)
-        times[f"pool_lrn_fwd {shape_name}"] = (
-            cuda_ms(lambda: plrn.pool_lrn_fwd(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
-            cuda_ms(lambda: plrn._fwd_reference(z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
-        )
-        times[f"pool_lrn_bwd {shape_name}"] = (
-            cuda_ms(lambda: plrn.pool_lrn_bwd(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
-            cuda_ms(lambda: plrn._bwd_reference(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)),
-        )
-        work[f"pool_lrn_fwd {shape_name}"] = (2 * (z.numel() + m.numel()) + 4 * c,
-                                              18 * z.numel() + 9 * m.numel())
-        work[f"pool_lrn_bwd {shape_name}"] = (4 * (z.numel() + m.numel()) + 8 * c, 57 * z.numel())
-    for name, (k_ms, p_ms) in times.items():
-        lib = f", library {library[name]:.4f} ms" if name in library else ""
-        b_ms, b_by = bound(*work[name])
-        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
-              f"{b_ms:.4f} ms ({b_by}: {work[name][0]} bytes, {work[name][1]} operations)")
+    times, library, work, host_cost, _ = time_kernels(dev, gen, card, mean_t)
 
     fwd = make_forward(graph, pred.layers, jitter)
     staged = {"input": torch.from_numpy(requests[0]).to(dev)}
+    step = make_train_step(graph, train_jitter)
+    step_state = clone_state(trainer.state)
+    step_batch = batches[0]
+    time_paths(fwd, pred.params, staged, step, step_state, step_batch, card)
     with torch.inference_mode():
-        fwd_ms = cuda_ms(lambda: fwd(pred.params, staged))
         plain_fwd_ms = cuda_ms(lambda: plain_alexnet(graph, params, staged["input"], spec, mean_t))
     host = []
     for i in range(WARMUP + ITERS):
@@ -981,49 +1186,15 @@ def main(argv=None) -> int:
         if i >= WARMUP:
             host.append((time.perf_counter() - t0) * 1e3)
     req_ms = statistics.median(host)
-    print(f"[{card}] AlexNet forward, batch {BATCH}, device time: {fwd_ms:.4f} ms "
-          f"(plain-composed forward {plain_fwd_ms:.4f} ms)")
+    print(f"[{card}] plain-composed forward, batch {BATCH}: events {plain_fwd_ms:.4f} ms")
     print(f"[{card}] Predictor, batch {BATCH}: {req_ms:.4f} ms per request, "
           f"{BATCH / req_ms * 1e3:.1f} img/s (host clock, uint8 in, numpy out)")
-
-    step = make_train_step(graph, train_jitter)
-    step_state = clone_state(trainer.state)
-    step_batch = batches[0]
-
-    def step_times():
-        """(events, device time with the launches hidden, host clock with a
-        synchronize) of one train step on the staged batch, in ms."""
-        ev = cuda_ms(lambda: step(step_state, step_batch))
-        dev_ms = queued_ms(lambda: step(step_state, step_batch))
-        host = []
-        for i in range(WARMUP + ITERS):
-            t0 = time.perf_counter()
-            step(step_state, step_batch)
-            torch.cuda.synchronize()
-            if i >= WARMUP:
-                host.append((time.perf_counter() - t0) * 1e3)
-        return ev, dev_ms, statistics.median(host)
-
-    step_ms, step_dev_ms, step_host_ms = step_times()
-    with pool_switches():
-        ref_ms, ref_dev_ms, ref_host_ms = step_times()
     t0 = time.perf_counter()
     trainer.train(max_iter=trainer.state["step"] + TRAINER_STEPS)
     torch.cuda.synchronize()
     trainer_ips = TRAINER_STEPS * BATCH / (time.perf_counter() - t0)
     train_data.close()
     val_data.close()
-    print(f"[{card}] AlexNet train step, batch {BATCH}, on a staged batch: events "
-          f"{step_ms:.4f} ms ({BATCH / step_ms * 1e3:.1f} img/s); host clock with synchronize "
-          f"{step_host_ms:.4f} ms ({BATCH / step_host_ms * 1e3:.1f} img/s); device time with the "
-          f"launches hidden {step_dev_ms:.4f} ms ({BATCH / step_dev_ms * 1e3:.1f} img/s), so the "
-          f"card idles {1 - step_dev_ms / step_host_ms:.3f} of a host-clocked step")
-    print(f"[{card}] AlexNet train step with the reference's pool gradient ({POOL_SWITCHES}): "
-          f"events {ref_ms:.4f} ms; host clock with synchronize {ref_host_ms:.4f} ms "
-          f"({BATCH / ref_host_ms * 1e3:.1f} img/s); device time with the launches hidden "
-          f"{ref_dev_ms:.4f} ms ({BATCH / ref_dev_ms * 1e3:.1f} img/s), idle "
-          f"{1 - ref_dev_ms / ref_host_ms:.3f}; default path beside it: device {step_dev_ms:.4f} "
-          f"ms, host {step_host_ms:.4f} ms")
     print(f"[{card}] Trainer, batch {BATCH}, {TRAINER_STEPS} steps over DUMMY data: "
           f"{trainer_ips:.1f} img/s (host clock, data staging included)")
 
@@ -1080,6 +1251,8 @@ def main(argv=None) -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": sum(lib) if lib else None,
+            # host microseconds of the wrapper's calls (host_us), not device time
+            "host_us": sum(host_cost[t] for t in parts),
         }
 
     kernels = [

@@ -18,6 +18,45 @@ __device__ __forceinline__ void store_f32(float* p, int64_t i, float v) { p[i] =
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
+// V elements of T at p as f32, with 16-byte loads when V elements are a
+// whole number of 16-byte words (p then 16-byte aligned).
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr ((V * sizeof(T)) % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int w = 0; w < V / kPer; ++w) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[w];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) out[w * kPer + v] = load_f32(e, v);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = load_f32(p, v);
+  }
+}
+
+// V f32 values rounded to T and stored at p, with 16-byte stores when V
+// elements are a whole number of 16-byte words (p then 16-byte aligned).
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
+  if constexpr ((V * sizeof(T)) % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+    for (int w = 0; w < V / kPer; ++w) {
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) store_f32(e, v, in[w * kPer + v]);
+      reinterpret_cast<uint4*>(p)[w] = raw;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) store_f32(p, v, in[v]);
+  }
+}
+
 // v rounded to T and back: the value a T tensor holds.
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {

@@ -101,7 +101,9 @@ def dropout_reference(
     """Plain PyTorch version of the kernel (any device)."""
     keep = dropout_bits(x.numel(), key, offset, x.device).view(x.shape) >= keep_threshold(rate)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return torch.where(keep, x * _scale(rate, x.dtype).to(x.device), zero)
+    # filled on the device: copying _scale's CPU tensor over waits for the card
+    scale = torch.full((), float(_scale(rate, x.dtype)), dtype=x.dtype, device=x.device)
+    return torch.where(keep, x * scale, zero)
 
 
 def dropout_apply(

@@ -231,7 +231,8 @@ def lrn_fwd(
     return y
 
 
-#: Most blocks the backward kernel runs: each writes one row of db
+#: Rows of the backward kernel's db scratch: each block of its persistent
+#: grid (as many as fit on the card, capped at this) writes one row of
 #: partial sums, which a second kernel adds up in a fixed order.
 _BWD_MAX_BLOCKS = 1024
 

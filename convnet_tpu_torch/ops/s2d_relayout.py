@@ -91,7 +91,9 @@ def s2d_prologue_reference(
     # (B, P, s, P, s, C): [b, p, rp, q, cp, :] = x[b, row(p, rp), col(q, cp), :]
     v = x[bi, rows.view(b, p, s, 1, 1), cols.view(b, 1, 1, p, s)].float()
     if scale != 1.0:
-        v = v * torch.tensor(scale, dtype=torch.float32, device=dev)
+        # a fill on the device: torch.tensor(scale, device=dev) would copy
+        # from pageable memory and wait for the card
+        v = v * torch.full((), scale, dtype=torch.float32, device=dev)
     if mean is not None:
         v = v - mean.float()
     if std is not None:

@@ -263,6 +263,113 @@ def test_lrn_autograd_runs_both_kernels(cuda):
     torch.testing.assert_close(db, want_db, rtol=1e-4, atol=1e-5 * want_dx.abs().sum(0).max().item())
 
 
+# Shapes for the LRN kernels' code paths, (m, c, n): C = 64, 96 and 256 on
+# the backward's vector path (8 bf16 or 4 f32 channels a thread); C = 100
+# on it in f32 but on the one-channel path in bf16 (200-byte rows); C = 3
+# on the one-channel path; M = 1, and M = 3001, a multiple of no tile's
+# rows; n = 16 (CIFAR-10's) and blocked windows take the generic window.
+LRN_PATH_SHAPES = [(3001, 64, 5), (3001, 64, 16), (3001, 96, 5), (1, 96, 5), (3001, 256, 5),
+                   (1, 256, 5), (3001, 100, 5), (3001, 3, 5), (1, 3, 5)]
+LRN_BIAS_CASES = [(True, True, False), (False, False, False), (False, True, False),
+                  (True, True, True)]
+
+
+def _assert_lrn_fwd(z, n, alpha, b, relu, blocked):
+    before = lrn.LAUNCHES
+    y = lrn.lrn_fwd(z, n, alpha, 0.75, bias=b, relu=relu, blocked=blocked)
+    assert lrn.LAUNCHES == before + 1
+    ref = lrn._fwd_math(z, n, alpha, 0.75, b, relu, blocked)
+    assert y.dtype == z.dtype and y.shape == z.shape
+    if z.dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=0)
+    else:
+        assert bf16_ulps(y, ref) <= 1
+
+
+def _assert_lrn_bwd(g, z, n, alpha, b, relu, blocked):
+    before = lrn.BWD_LAUNCHES
+    dx, db = lrn.lrn_bwd(g, z, n, alpha, 0.75, bias=b, relu=relu, blocked=blocked)
+    assert lrn.BWD_LAUNCHES == before + 1
+    want_dx, _ = lrn._bwd_math(g, z, n, alpha, 0.75, b, relu, blocked)
+    assert dx.dtype == z.dtype and dx.shape == z.shape
+    if z.dtype == torch.float32:
+        torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=3e-5 * want_dx.abs().max().item())
+    else:
+        assert bf16_ulps(dx, want_dx) <= 1
+    if b is None:
+        assert db is None
+        return
+    ref = lrn._bwd_math(g.float(), z.float(), n, alpha, 0.75, b, relu, blocked)[0].double()
+    torch.testing.assert_close(db.double(), ref.sum(0), rtol=1e-4,
+                               atol=1e-5 * ref.abs().sum(0).max().item())
+    again = lrn.lrn_bwd(g, z, n, alpha, 0.75, bias=b, relu=relu, blocked=blocked)[1]
+    assert torch.equal(db, again)
+
+
+@pytest.mark.parametrize("m,c,n", LRN_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias,relu,blocked", LRN_BIAS_CASES)
+def test_lrn_kernels_on_every_path(cuda, m, c, n, dtype, bias, relu, blocked):
+    """Both LRN kernels against their plain versions on each code path of
+    the backward (the bars of test_lrn_kernel_matches_plain and
+    test_lrn_bwd_kernel_matches_plain)."""
+    g, z, b = _lrn_bwd_inputs(cuda, c, dtype, m + c + n, m)
+    b = b if bias else None
+    _assert_lrn_fwd(z, n, 0.2, b, relu, blocked)
+    _assert_lrn_bwd(g, z, n, 1e-4 / n, b, relu, blocked)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_kernels_unaligned_rows(cuda, dtype):
+    """C = 96 rows whose bytes fit the vector path but which start 8 bytes
+    past a 16-byte boundary: the backward takes the one-channel path."""
+    m, c = 3001, 96
+    gen = torch.Generator(device=cuda).manual_seed(8)
+
+    def unaligned(scale):
+        buf = torch.empty((m * c + 8,), dtype=dtype, device=cuda)
+        t = buf[8 // buf.element_size():][: m * c].view(m, c)
+        t.copy_(scale * torch.randn((m, c), generator=gen, device=cuda))
+        assert t.is_contiguous() and t.data_ptr() % 16 == 8
+        return t
+
+    z, g = unaligned(2.0), unaligned(1.0)
+    b = 0.5 * torch.randn((c,), generator=gen, device=cuda)
+    for bias, relu, blocked in LRN_BIAS_CASES:
+        _assert_lrn_fwd(z, 5, 0.2, b if bias else None, relu, blocked)
+        _assert_lrn_bwd(g, z, 5, 1e-4 / 5, b if bias else None, relu, blocked)
+
+
+@pytest.mark.parametrize("c", [96, 256])
+def test_lrn_bwd_db_same_on_every_run(cuda, c):
+    """Enough rows that every block of the backward's persistent grid walks
+    many tiles: db, summed per thread across tiles and then per block in a
+    fixed order, is the same in three runs."""
+    g, z, b = _lrn_bwd_inputs(cuda, c, torch.bfloat16, 12, m=128 * 27 * 27)
+    dbs = [lrn.lrn_bwd(g, z, 5, 1e-4 / 5, 0.75, bias=b, relu=True)[1] for _ in range(3)]
+    assert all(torch.equal(dbs[0], d) for d in dbs[1:])
+    ref = lrn._bwd_math(g.float(), z.float(), 5, 1e-4 / 5, 0.75, b, True)[0].double()
+    torch.testing.assert_close(dbs[0].double(), ref.sum(0), rtol=1e-4,
+                               atol=1e-5 * ref.abs().sum(0).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,start", [(1, 0), (7, 0), (8, 0), (9, 0), (4099, 0), (4099, 1),
+                                     (4096, 3)])
+def test_dropout_kernel_tails_and_unaligned(cuda, dtype, n, start):
+    """The dropout kernel's element-wise paths: a last group of fewer than 8
+    elements, and an x (start > 0) that is not 16-byte aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    buf = torch.randn((n + start,), generator=gen, device=cuda).to(dtype)
+    x = buf[start:]
+    assert (x.data_ptr() % 16 != 0) == (start > 0)
+    key = drop.dropout_key(3, 1, 4)
+    before = drop.LAUNCHES
+    y = drop.dropout_apply(x, 0.5, key, offset=12)
+    assert drop.LAUNCHES == before + 1
+    assert torch.equal(y, drop.dropout_reference(x, 0.5, key, offset=12))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,offset", [((128, 4096), 0), ((7, 33), 8)])
 def test_dropout_kernel_bit_equal_to_plain(cuda, dtype, shape, offset):
