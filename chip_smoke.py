@@ -13,7 +13,9 @@ any failure raises and the script exits non-zero:
    serving and train paths' shapes (the LRN kernels also at a ragged
    (3001, 100)): the input prologue must be
    array-equal; the response norm within 1 bf16 ulp in bf16 and rtol
-   1e-5 in f32; its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
+   1e-5 in f32, and array-equal to the fused LRN -> max pool kernel with
+   a 1x1 pool (the y that kernel's backward recomputes to find its ties);
+   its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
    1e-4 of a float64 column sum; dropout array-equal, with the backward's
    mask equal to the forward's. The max pool at pool1, pool2 and pool5
@@ -55,9 +57,11 @@ any failure raises and the script exits non-zero:
    waits for the host; each call first runs under
    set_sync_debug_mode("error")),
    beside its bound (the larger of its bytes over 3.35 TB/s and its
-   operations over 67 TFLOP/s); each wrapper's host cost per call (the
-   median of 200 calls, no synchronize); the forward pass and the train
-   step on both paths (device time with the launches hidden, one call a
+   operations over 67 TFLOP/s), the input prologue in its serving form
+   (center crops) and its train form (random crops and flips) apart;
+   each wrapper's host cost per call (the median of 200 calls queued
+   behind a spin, no synchronize); the forward pass and the train step
+   on both paths (device time with the launches hidden, one call a
    spin, median of 20; host clock
    with a synchronize, and CUDA events around one call); the Predictor's
    milliseconds per batch and images per second and the Trainer's images
@@ -93,6 +97,7 @@ ITERS, WARMUP = 20, 3
 # runs; a wrapper's host cost: median of HOST_CALLS calls
 KCALLS, REPS, HOST_CALLS = 20, 3, 200
 SPIN_CYCLES_PER_MS = 2e6  # a spin of at least 1 ms at SM clocks up to 2 GHz
+HOST_SPIN_MS = 100  # outlasts HOST_CALLS calls of the slowest wrapper (about 90 us each)
 TRAIN_STEPS, TRAINER_STEPS, PARITY_STEPS = 20, 50, 3
 DUMMY_ROWS = 384
 MEAN = 0.45
@@ -188,11 +193,14 @@ def device_ms(*calls, k: int = KCALLS, reps: int = REPS) -> float:
 def host_us(fn, n: int = HOST_CALLS) -> float:
     """Median host microseconds of one call of fn over n calls, without a
     synchronize: what a wrapper costs the host (checks, allocation, the
-    launch), not the kernel's time."""
+    launch), not the kernel's time. The calls queue behind a spin kernel
+    that outlasts them, so every wrapper launches onto a card in the same
+    state (busy), however fast its own kernel drains the queue."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(HOST_SPIN_MS * SPIN_CYCLES_PER_MS))
     spent = []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -381,10 +389,12 @@ def shape_generators(dev, gen):
 
 
 def check_lrn(dev, gen, card):
-    """Kernel A vs its plain version: 1 bf16 ulp, f32 rtol 1e-5. Returns
+    """Kernel A vs its plain version: 1 bf16 ulp, f32 rtol 1e-5; and array-
+    equal to lrn_y, as the fused LRN -> max pool kernel computes it. Returns
     max |err| over the cases."""
     import torch
 
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
     from convnet_tpu_torch.ops import lrn
 
     worst = 0.0
@@ -413,6 +423,12 @@ def check_lrn(dev, gen, card):
                         rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
                         print(f"[{card}] {tag}: max_abs_err {err} max_rel_err {rel}")
                         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+                    # the fused LRN -> max pool kernel with a 1x1 pool writes
+                    # lrn_y, the y its backward recomputes to find ties
+                    lrn_y = plrn.pool_lrn_fwd(z.view(m, 1, 1, c), n, alpha, 0.75, 1, 1, bias=b,
+                                              relu=use_bias, blocked=blocked)
+                    if not torch.equal(got.view(m, 1, 1, c), lrn_y):
+                        raise AssertionError(f"{tag}: y differs from pool_lrn.cu's lrn_y")
     return worst
 
 
@@ -860,15 +876,31 @@ def time_kernels(dev, gen, card, mean_t, plain=True):
         work[f"lrn_bwd {shape_name}"] = (6 * m * c + 8 * c, 34 * m * c)
         del zs
 
+    # the prologue in its serving form (center crops, trainer.py's eval
+    # prologue) and in its train form (random crops and flips, as
+    # sample_crop_flip draws them for the train step)
     off = torch.full((BATCH,), (RAW - CROP) // 2, dtype=torch.int32, device=dev)
     kw = dict(crop=CROP, stride=4, p=s2d.relayout_geometry(CROP, 11, 4), scale=1 / 255,
               mean=mean_t)
-    xs = [(torch.randint(0, 256, (BATCH, RAW, RAW, 3), generator=gen, device=dev,
-                         dtype=torch.uint8), off, off, None) for _ in range(2)]
-    timed("s2d_prologue", s2d.s2d_prologue, s2d.s2d_prologue_reference, xs, **kw)
+    images = [torch.randint(0, 256, (BATCH, RAW, RAW, 3), generator=gen, device=dev,
+                            dtype=torch.uint8) for _ in range(2)]
+
+    def origins():
+        return torch.randint(0, RAW - CROP + 1, (BATCH,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    forms = {
+        "s2d_prologue": [(x, off, off, None) for x in images],
+        "s2d_prologue train": [
+            (x, origins(), origins(), torch.randint(0, 2, (BATCH,), generator=gen, device=dev).bool())
+            for x in images
+        ],
+    }
     s2d_out = BATCH * kw["p"] * kw["p"] * 48
-    work["s2d_prologue"] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
-    del xs
+    for part, xs in forms.items():
+        timed(part, s2d.s2d_prologue, s2d.s2d_prologue_reference, xs, **kw)
+        work[part] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
+    del images, forms
 
     key = drop.dropout_key(0, 0, 10)
     xds = [(bf16((BATCH, 1, 1, 4096)), 0.5, key) for _ in range(2)]
@@ -906,8 +938,8 @@ def time_kernels(dev, gen, card, mean_t, plain=True):
     floor_ms = device_ms(lambda: torch.cuda._sleep(0))
     print(f"[{card}] one empty kernel (torch.cuda._sleep(0)), device time with the launches "
           f"hidden: {floor_ms:.4f} ms, the least any launch takes here")
-    print(f"[{card}] host cost of each kernel's wrapper, median of {HOST_CALLS} calls without "
-          f"a synchronize (host time, not the kernel's): "
+    print(f"[{card}] host cost of each kernel's wrapper, median of {HOST_CALLS} calls queued behind "
+          f"a spin, without a synchronize (host time, not the kernel's): "
           + ", ".join(f"{name} {us:.1f} us" for name, us in host.items()))
     for name, (k_ms, p_ms) in times.items():
         b_ms, b_by = bound(*work[name])

@@ -13,8 +13,9 @@
 //
 // The backward recomputes y from z and compares it with the stored maxima,
 // so its y must be the forward's bit for bit: both take it from lrn_y /
-// lrn_y_from_d in lrn_math.cuh, as lrn_fwd.cu does. m from the forward is
-// therefore exactly maxpool(lrn_fwd(z)).
+// lrn_y_from_d in lrn_math.cuh, whose chain lrn_fwd.cu repeats operation
+// for operation. m from the forward is therefore exactly
+// maxpool(lrn_fwd(z)).
 //
 // Bound: device-memory bytes. At AlexNet, batch 128, bf16, the forward
 // moves z once in and m once out (rnorm1 (128,55,55,96): 74.3 + 17.9 MB,

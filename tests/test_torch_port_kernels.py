@@ -197,6 +197,47 @@ def test_s2d_kernel_matches_plain(cuda, flip, std):
     assert torch.equal(got, s2d.s2d_prologue_reference(x, oy, ox, flips, **kw))
 
 
+# The prologue kernel's cases, (b, raw, c, crop, kernel, stride, flip, std,
+# offset): random origins, so most crop rows start off a 16-byte boundary;
+# flips; a std; C = 1 and C = 3; B = 1; crop < P*s (the ceil-mode pad:
+# 35 < 9*4, 29 < 15*2) and crop > P*s (17 > 5*3, columns left unread);
+# AlexNet's crop; rows of P*s*s*C elements that are no whole number of
+# 16-byte words (5 * 45, element-wise stores); and an x that starts one
+# byte past a 16-byte boundary (offset 1: the first and last staged words
+# reach past x and are copied byte by byte).
+S2D_CASES = [
+    (8, 40, 3, 35, 11, 4, False, False, 0),
+    (8, 40, 3, 35, 11, 4, True, True, 0),
+    (1, 40, 3, 35, 11, 4, True, False, 0),
+    (8, 40, 1, 36, 8, 4, True, True, 0),
+    (4, 33, 3, 29, 5, 2, False, True, 0),
+    (4, 256, 3, 224, 11, 4, True, False, 0),
+    (3, 20, 5, 17, 3, 3, True, True, 0),
+    (5, 40, 3, 35, 11, 4, True, True, 1),
+]
+
+
+@pytest.mark.parametrize("b,raw,c,crop,kernel,stride,flip,std,offset", S2D_CASES)
+def test_s2d_kernel_paths(cuda, b, raw, c, crop, kernel, stride, flip, std, offset):
+    gen = torch.Generator(device=cuda).manual_seed(b * raw + c)
+    n = b * raw * raw * c
+    buf = torch.randint(0, 256, (n + offset,), generator=gen, device=cuda, dtype=torch.uint8)
+    x = buf[offset:].view(b, raw, raw, c)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    oy = torch.randint(0, raw - crop + 1, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    ox = torch.randint(0, raw - crop + 1, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    flips = torch.randint(0, 2, (b,), generator=gen, device=cuda).bool() if flip else None
+    kw = dict(
+        crop=crop, stride=stride, p=s2d.relayout_geometry(crop, kernel, stride), scale=1 / 255,
+        mean=0.5 * torch.rand((c,), generator=gen, device=cuda),
+        std=0.1 + torch.rand((c,), generator=gen, device=cuda) if std else None,
+    )
+    before = s2d.LAUNCHES
+    got = s2d.s2d_prologue(x, oy, ox, flips, **kw)
+    assert s2d.LAUNCHES == before + 1
+    assert torch.equal(got, s2d.s2d_prologue_reference(x, oy, ox, flips, **kw))
+
+
 def test_s2d_kernel_marks_crops_outside_the_image(cuda):
     x = torch.zeros((2, 12, 12, 3), dtype=torch.uint8, device=cuda)
     off = torch.tensor([0, 5], dtype=torch.int32, device=cuda)  # 5 > 12 - 9
@@ -317,6 +358,54 @@ def test_lrn_kernels_on_every_path(cuda, m, c, n, dtype, bias, relu, blocked):
     b = b if bias else None
     _assert_lrn_fwd(z, n, 0.2, b, relu, blocked)
     _assert_lrn_bwd(g, z, n, 1e-4 / n, b, relu, blocked)
+
+
+# The forward kernel's code paths, (m, c, n, beta, blocked): the register
+# path (sliding n = 5, beta = 0.75) with 1 to 256 chunks a row (bf16 C = 8
+# is one chunk of 8 channels, so every halo is clipped; C = 2048 is 256,
+# one row a pass); the generic path past 256 chunks (C = 2056), for n = 3,
+# beta = 0.6 and blocked windows; one channel a thread for bf16 C = 100 and
+# C = 3; M = 1 (fewer passes than the grid has blocks) and M = 3001 (a
+# short last pass).
+LRN_FWD_PATHS = [
+    (3001, 96, 5, 0.75, False), (3001, 256, 5, 0.75, False), (3001, 8, 5, 0.75, False),
+    (3001, 16, 5, 0.75, False), (777, 2048, 5, 0.75, False), (257, 2056, 5, 0.75, False),
+    (1, 96, 5, 0.75, False), (3001, 100, 5, 0.75, False), (3001, 3, 5, 0.75, False),
+    (3001, 96, 3, 0.75, False), (3001, 96, 5, 0.6, False), (3001, 96, 5, 0.75, True),
+    (3001, 100, 3, 0.6, False),
+]
+
+
+@pytest.mark.parametrize("m,c,n,beta,blocked", LRN_FWD_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_lrn_fwd_kernel_paths(cuda, m, c, n, beta, blocked, dtype, bias):
+    gen = torch.Generator(device=cuda).manual_seed(m + c + n)
+    z = (2.0 * torch.randn((m, c), generator=gen, device=cuda)).to(dtype)
+    b = 0.5 * torch.randn((c,), generator=gen, device=cuda) if bias else None
+    before = lrn.LAUNCHES
+    y = lrn.lrn_fwd(z, n, 0.2, beta, bias=b, relu=bias, blocked=blocked)
+    assert lrn.LAUNCHES == before + 1
+    ref = lrn._fwd_math(z, n, 0.2, beta, b, bias, blocked)
+    assert y.dtype == dtype and y.shape == z.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=0)
+    else:
+        assert bf16_ulps(y, ref) <= 1
+
+
+@pytest.mark.parametrize("m,c,n,beta,blocked", LRN_FWD_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_fwd_is_lrn_y_bit_for_bit(cuda, m, c, n, beta, blocked, dtype):
+    """The fused LRN -> max pool forward with a 1x1 pool writes lrn_y, the
+    chain pool_lrn.cu's backward recomputes to find its ties: lrn_fwd must
+    give the same bits on every path."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * m + c)
+    z = (2.0 * torch.randn((m, 1, 1, c), generator=gen, device=cuda)).to(dtype)
+    b = 0.5 * torch.randn((c,), generator=gen, device=cuda)
+    kw = dict(bias=b, relu=True, blocked=blocked)
+    y = lrn.lrn_fwd(z.view(m, c), n, 0.2, beta, **kw)
+    assert torch.equal(y.view(z.shape), plrn.pool_lrn_fwd(z, n, 0.2, beta, 1, 1, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
