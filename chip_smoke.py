@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving and train paths once on one CUDA card.
 
     python3 chip_smoke.py [--profile-dir DIR]
-    python3 chip_smoke.py --time-only [--root CHECKOUT]
+    python3 chip_smoke.py --time-only [--root CHECKOUT] [--kernels TEXT]
+    python3 chip_smoke.py --ulp-study SEEDS
 
 Run from the root of a checkout. It imports no JAX. Phases, in order;
 any failure raises and the script exits non-zero:
@@ -15,14 +16,16 @@ any failure raises and the script exits non-zero:
    array-equal; the response norm within 1 bf16 ulp in bf16 and rtol
    1e-5 in f32, and array-equal to the fused LRN -> max pool kernel with
    a 1x1 pool (the y that kernel's backward recomputes to find its ties);
-   its backward within 1 bf16 ulp at AlexNet's alpha, f32 dx
+   its backward within 1 bf16 ulp of the plain version at AlexNet's alpha
+   and no further from a float64 dx than the plain version is plus that
+   ulp (the bar --ulp-study measured), f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
    1e-4 of a float64 column sum; dropout array-equal, with the backward's
    mask equal to the forward's. The max pool at pool1, pool2 and pool5
    array-equal; the fused LRN -> max pool forward at rnorm1/pool1 and
    rnorm2/pool2, with bias and ReLU, array-equal to the max pool of the
-   LRN kernel's output; its backward within 1 bf16 ulp of the plain chain
-   fed with that same y (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
+   LRN kernel's output; its backward held to the plain chain fed with that
+   same y by the same bar (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
    db within rtol 1e-4 of a float64 sum and the same in two runs; inputs
    on a grid of halves, so window maxima tie (the count is printed). An
    f32 conv's gradients at conv2's shape must match float64 within rtol
@@ -73,7 +76,12 @@ the forward pass and five train steps of each path are also traced with
 torch.profiler into that directory. --time-only runs phases 1 and 6 alone,
 without the plain versions and library calls, and prints the times as one
 JSON line; --root imports convnet_tpu_torch from another checkout, so that
-two commits' kernels can be timed in turns in one call.
+two commits' kernels can be timed in turns in one call; --kernels TEXT
+times just the kernels whose name holds TEXT, a few seconds a turn while a
+kernel is being tuned. --ulp-study runs
+phase 1 and then measures, over SEEDS seeds a shape, how far the two
+backward kernels' bf16 results and their plain versions' fall from a
+float64 result and from each other: the measurement behind the bf16 bars.
 """
 
 from __future__ import annotations
@@ -210,15 +218,66 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
     return statistics.median(spent) * 1e6
 
 
-def bf16_ulps(a, b) -> int:
-    """Largest distance in bf16 ulps between two bf16 tensors."""
+def bf16_ulp_map(a, b):
+    """The distance in bf16 ulps between two bf16 tensors, element by element."""
     import torch
 
     def ordered(t):
         i = t.contiguous().view(torch.int16).int()
         return torch.where(i >= 0, i, -32768 - i)
 
-    return int((ordered(a) - ordered(b)).abs().max().item())
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    return int(bf16_ulp_map(a, b).max().item())
+
+
+def lrn_bwd_f64(g, z, n, alpha, beta, bias=None, relu=False, blocked=False):
+    """dx of the LRN backward in float64, by the plain chain's formula with
+    the powers from pow: the yardstick of the bf16 bars. g: the cotangent of
+    the LRN output (any float dtype); z: the conv output without its bias."""
+    import torch
+
+    from convnet_tpu_torch.ops import lrn
+
+    zf = z.double()
+    if bias is not None:
+        zf = zf + bias.double()
+    x = torch.relu(zf) if relu else zf
+    gf = g.double()
+    d = 1.0 + alpha * lrn._window_sum(x * x, n, blocked)
+    inner = lrn._window_sum(gf * x * d ** -(beta + 1.0), n, blocked, transpose=True)
+    dx = gf * d ** -beta - 2.0 * alpha * beta * x * inner
+    return torch.where(zf > 0.0, dx, 0.0) if relu else dx
+
+
+def bf16_distances(kernel, plain, ref64):
+    """(kernel to float64, plain to float64, kernel to plain): the largest
+    distances in bf16 ulps, float64 rounded to bf16 through f32."""
+    import torch
+
+    ref = ref64.float().to(torch.bfloat16)
+    return bf16_ulps(kernel, ref), bf16_ulps(plain, ref), bf16_ulps(kernel, plain)
+
+
+def expect_bf16_close(tag, kernel, plain, ref64, kernel_to_plain) -> str:
+    """The bf16 bar of a backward kernel. Neither the kernel nor its plain
+    version is the truth: each rounds an f32 chain once, in its own order
+    of operations, so near a rounding boundary they land one bf16 value
+    apart, and where dx's two summands cancel both stray far from float64
+    (tens of ulps on a handful of elements in 6e8) while staying together.
+    So the kernel is held to the plain version by `kernel_to_plain`, the
+    largest kernel-to-plain distance measured over many seeds (--ulp-study),
+    and to float64 by the plain version's own distance on these inputs plus
+    that allowance. Returns the distances as text; raises beyond the bar."""
+    k64, p64, kp = bf16_distances(kernel, plain, ref64)
+    msg = f"bf16_ulps kernel-plain {kp}, kernel-float64 {k64}, plain-float64 {p64}"
+    if kp > kernel_to_plain or k64 > p64 + kernel_to_plain:
+        raise AssertionError(f"{tag}: {msg}; bar: kernel-plain <= {kernel_to_plain} and "
+                             f"kernel-float64 <= plain-float64 + {kernel_to_plain}")
+    return msg
 
 
 def reset_launches():
@@ -374,7 +433,10 @@ LRN_SHAPES = {"rnorm1": (BATCH * 55 * 55, 96), "rnorm2": (BATCH * 27 * 27, 256)}
 # phase 2 adds a ragged shape: C = 100 takes the kernels' one-channel path
 # (200 bytes a bf16 row), M = 3001 leaves a short last tile. Its inputs
 # come from a generator of their own, so the AlexNet shapes' inputs stay
-# the draws of the shared one.
+# the draws of the shared one. It keeps that generator: --ulp-study found
+# the backward kernel 0 or 1 bf16 ulp from its plain version on every
+# seed, but 2 have been seen once on other inputs (a cancelling element),
+# and fixed inputs keep this check from turning on a draw.
 CHECK_SHAPES = {**LRN_SHAPES, "ragged": (3001, 100)}
 RAGGED_SEED = 1
 
@@ -432,12 +494,21 @@ def check_lrn(dev, gen, card):
     return worst
 
 
+# The bf16 bars of the two backward kernels, in bf16 ulps between kernel and
+# plain version (expect_bf16_close): the largest distance --ulp-study found
+# over 16 seeds at each of rnorm1, rnorm2 and (3001, 100) in three forms
+# (lrn_bwd: 0 or 1 in 8.8e9 elements) and at both chains on tie-heavy and on
+# normal inputs (pool_lrn_bwd: 0 or 1 in 3.9e9), NVIDIA H100 80GB HBM3.
+LRN_BWD_ULPS = 1
+POOL_LRN_BWD_ULPS = 1
+
+
 def check_lrn_bwd(dev, gen, card):
-    """The LRN backward kernel vs its plain version. bf16 dx: at most 1
-    bf16 ulp from the plain version (f32 math, one rounding) at AlexNet's
-    alpha, where dx has no cancellation; f32 dx: rtol 1e-4, atol 3e-5 of
-    the largest |dx| (also at alpha = 0.2, where it cancels); db: rtol 1e-4
-    of a float64 column sum of the plain f32 dx. Returns max |dx err|."""
+    """The LRN backward kernel vs its plain version. bf16 dx at AlexNet's
+    alpha: the bar of expect_bf16_close with LRN_BWD_ULPS; f32 dx: rtol
+    1e-4, atol 3e-5 of the largest |dx| (also at alpha = 0.2, where it
+    cancels); db: rtol 1e-4 of a float64 column sum of the plain f32 dx.
+    Returns max |dx err|."""
     import torch
 
     from convnet_tpu_torch.ops import lrn
@@ -463,10 +534,10 @@ def check_lrn_bwd(dev, gen, card):
                     tag = (f"lrn_bwd {shape_name} ({m},{c}) {str(dtype)[6:]} add_scale={add_scale} "
                            f"bias+relu={use_bias} blocked={blocked}")
                     if dtype == torch.bfloat16:
-                        ulps = bf16_ulps(dx, want)
-                        msg = f"max_abs_err {err} bf16_ulps {ulps}"
-                        if ulps > 1:
-                            raise AssertionError(f"{tag}: {ulps} bf16 ulps from the plain version")
+                        ref64 = lrn_bwd_f64(g, z, n, alpha, 0.75, b, use_bias, blocked)
+                        msg = f"max_abs_err {err} " + expect_bf16_close(tag, dx, want, ref64,
+                                                                        LRN_BWD_ULPS)
+                        del ref64
                     else:
                         msg = f"max_abs_err {err}"
                         torch.testing.assert_close(dx, want, rtol=1e-4,
@@ -581,15 +652,17 @@ def check_maxpool(dev, gen, card):
 def check_pool_lrn(dev, gen, card):
     """The fused LRN -> max pool kernels at both AlexNet chains, with bias
     and ReLU, tie-heavy inputs. Forward: array-equal to the plain max pool
-    of the LRN kernel's output. Backward: within 1 bf16 ulp of the plain
-    chain (all-ties pool-undo in f32, plain LRN backward) fed with that
-    same y; f32 dz within rtol 1e-4 and atol 3e-5 of the largest |dz|; db
+    of the LRN kernel's output. Backward: the bar of expect_bf16_close with
+    POOL_LRN_BWD_ULPS against the plain chain (all-ties pool-undo in f32,
+    plain LRN backward) fed with that same y, float64 taking the same f32
+    pool-undo sum; f32 dz within rtol 1e-4 and atol 3e-5 of the largest |dz|; db
     within rtol 1e-4 of a float64 sum and the same in two runs. Returns
     (max |m err|, max |dz err|)."""
     import torch
 
     from convnet_tpu_torch.ops import fused_pool_lrn as plrn
     from convnet_tpu_torch.ops import lrn, pool
+    from convnet_tpu_torch.ops.pool import maxpool2d_undo_reference
 
     worst_m = worst_dz = 0.0
     for name, shape in CHAINS.items():
@@ -617,10 +690,12 @@ def check_pool_lrn(dev, gen, card):
             err = (dz.float() - want_dz.float()).abs().max().item()
             worst_dz = max(worst_dz, err)
             if dtype == torch.bfloat16:
-                ulps = bf16_ulps(dz, want_dz)
-                msg = f"max_abs_err {err} bf16_ulps {ulps}"
-                if ulps > 1:
-                    raise AssertionError(f"pool_lrn_bwd {tag}: {ulps} bf16 ulps from the plain chain")
+                # up to four bf16 cotangents summed in f32: exact to 2^-24
+                g_lrn = maxpool2d_undo_reference(y.float(), m.float(), g.float(), 3, 2)
+                ref64 = lrn_bwd_f64(g_lrn, z, LRN_N, LRN_ALPHA, 0.75, bias, True)
+                msg = f"max_abs_err {err} " + expect_bf16_close(f"pool_lrn_bwd {tag}", dz, want_dz,
+                                                                ref64, POOL_LRN_BWD_ULPS)
+                del g_lrn, ref64
             else:
                 msg = f"max_abs_err {err}"
                 torch.testing.assert_close(dz, want_dz, rtol=1e-4,
@@ -635,6 +710,83 @@ def check_pool_lrn(dev, gen, card):
             if not torch.equal(db, again):
                 raise AssertionError(f"pool_lrn_bwd {tag}: db differs between two runs")
     return worst_m, worst_dz
+
+
+def ulp_study(dev, card, seeds: int) -> int:
+    """--ulp-study: how far the bf16 results of the two backward kernels and
+    of their plain versions fall from float64, and from each other, over
+    `seeds` seeds a shape: lrn_bwd at rnorm1, rnorm2 and (3001, 100), with
+    and without bias + ReLU and blocked; pool_lrn_bwd at both chains, on
+    tie-heavy inputs (halves) and on normal ones. Prints, for each case, the
+    largest distance in bf16 ulps over all seeds and how many elements lie 2
+    or more ulps apart, then everything as one JSON line. The bars of
+    check_lrn_bwd and check_pool_lrn (LRN_BWD_ULPS, POOL_LRN_BWD_ULPS) come
+    from this."""
+    import torch
+
+    from convnet_tpu_torch.ops import fused_pool_lrn as plrn
+    from convnet_tpu_torch.ops import lrn
+    from convnet_tpu_torch.ops.pool import maxpool2d_undo_reference
+
+    out = {}
+
+    def record(name, kernel, plain, ref64):
+        ref = ref64.float().to(torch.bfloat16)
+        maps = {"kernel_float64": bf16_ulp_map(kernel, ref), "plain_float64": bf16_ulp_map(plain, ref),
+                "kernel_plain": bf16_ulp_map(kernel, plain)}
+        row = out.setdefault(name, {"elements": 0, "kernel_further_than_plain": 0,
+                                    **{k: 0 for k in maps}, **{k + "_ge2": 0 for k in maps}})
+        row["elements"] += kernel.numel()
+        row["kernel_further_than_plain"] += int(
+            (maps["kernel_float64"] > maps["plain_float64"].max()).sum().item())
+        for k, d in maps.items():
+            row[k] = max(row[k], int(d.max().item()))
+            row[k + "_ge2"] += int((d >= 2).sum().item())
+
+    n, alpha, beta = LRN_N, LRN_ALPHA, 0.75
+    for seed in range(seeds):
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(1000 + seed)
+        for shape_name, (m, c) in CHECK_SHAPES.items():
+            z = (2.0 * torch.randn((m, c), generator=rng, device=dev)).to(torch.bfloat16)
+            g = torch.randn((m, c), generator=rng, device=dev).to(torch.bfloat16)
+            bias = 0.5 * torch.randn((c,), generator=rng, device=dev)
+            for use_bias, blocked in ((True, False), (False, False), (True, True)):
+                kw = dict(bias=bias if use_bias else None, relu=use_bias, blocked=blocked)
+                record(f"lrn_bwd {shape_name} bias+relu={use_bias} blocked={blocked}",
+                       lrn.lrn_bwd(g, z, n, alpha, beta, **kw)[0],
+                       lrn._bwd_math(g, z, n, alpha, beta, *kw.values())[0],
+                       lrn_bwd_f64(g, z, n, alpha, beta, *kw.values()))
+            del z, g
+        for chain, shape in CHAINS.items():
+            c = shape[-1]
+            for kind in ("halves", "normal"):
+                if kind == "halves":
+                    z = halves(rng, shape, dev, torch.bfloat16)
+                    bias = torch.round(0.5 * torch.randn((c,), generator=rng, device=dev))
+                else:
+                    z = (2.0 * torch.randn(shape, generator=rng, device=dev)).to(torch.bfloat16)
+                    bias = 0.5 * torch.randn((c,), generator=rng, device=dev)
+                kw = dict(bias=bias, relu=True)
+                mx = plrn.pool_lrn_fwd(z, n, alpha, beta, 3, 2, **kw)
+                y = lrn.lrn_fwd(z.view(-1, c), n, alpha, beta, **kw).view(shape)
+                g = torch.randn(mx.shape, generator=rng, device=dev).to(torch.bfloat16)
+                # up to four bf16 cotangents summed in f32: exact to 2^-24
+                g_lrn = maxpool2d_undo_reference(y.float(), mx.float(), g.float(), 3, 2)
+                record(f"pool_lrn_bwd {chain} {kind}",
+                       plrn.pool_lrn_bwd(g, mx, z, n, alpha, beta, 3, 2, **kw)[0],
+                       plrn._bwd_reference(g, mx, z, n, alpha, beta, 3, 2, y=y, **kw)[0],
+                       lrn_bwd_f64(g_lrn, z, n, alpha, beta, bias, True))
+                del z, mx, y, g, g_lrn
+    for name, row in out.items():
+        print(f"[{card}] {name}, {seeds} seeds, {row['elements']} elements, largest bf16 ulps: "
+              f"kernel-float64 {row['kernel_float64']} ({row['kernel_float64_ge2']} of 2 or more), "
+              f"plain-float64 {row['plain_float64']} ({row['plain_float64_ge2']}), "
+              f"kernel-plain {row['kernel_plain']} ({row['kernel_plain_ge2']}); "
+              f"{row['kernel_further_than_plain']} elements where the kernel is further from "
+              f"float64 than the plain version ever is")
+    print(json.dumps({"ulp_study": {"card": card, "seeds": seeds, "cases": out}}))
+    return 0
 
 
 def check_conv_grad(dev, gen, card):
@@ -817,14 +969,15 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     return loss.detach()
 
 
-def time_kernels(dev, gen, card, mean_t, plain=True):
+def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
     """Phase 6's kernel times at the main paths' shapes, bf16, with bias and
     ReLU where the kernel takes them: each wrapper's device time
     (device_ms, two input sets taken in turn) and host cost (host_us);
     with `plain`, also its plain version's and the library call's device
     times; and an empty kernel's device time, the floor of any launch.
-    Returns (times {part: (kernel ms, plain ms or None)}, library {part:
-    ms}, work {part: (bytes, operations)}, host {part: us}, floor ms).
+    `only`: time just the parts whose name holds this text. Returns (times
+    {part: (kernel ms, plain ms or None)}, library {part: ms}, work {part:
+    (bytes, operations)}, host {part: us}, floor ms).
 
     Bytes: bf16 activations and f32 bias and db, each read or written
     once. Operations per element, counted from the kernels' arithmetic
@@ -847,6 +1000,8 @@ def time_kernels(dev, gen, card, mean_t, plain=True):
     def timed(part, kernel, reference, inputs, lib=None, **kw):
         """Time kernel (and, with `plain`, reference and lib) on each of
         the input tuples in turn."""
+        if only and only not in part:
+            return
         calls = [functools.partial(kernel, *x, **kw) for x in inputs]
         host[part] = host_us(calls[0])
         ref_ms = None
@@ -994,11 +1149,13 @@ def time_paths(fwd, fwd_params, staged, step, state, batch, card):
     return out
 
 
-def time_only(dev, card, root) -> int:
+def time_only(dev, card, root, only=None) -> int:
     """--time-only: phase 6 without the plain versions and library calls,
     on random weights and one DUMMY batch, untrained. Prints the kernels'
     device times and host costs and the forward's and train steps' times
-    as one JSON line, so that two checkouts can be timed in turns."""
+    as one JSON line, so that two checkouts can be timed in turns. With
+    `only` (--kernels), just the kernels whose name holds that text, and
+    no forward or step."""
     import numpy as np
     import torch
 
@@ -1015,8 +1172,14 @@ def time_only(dev, card, root) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     mean = np.full((3,), MEAN, np.float32)
-    times, _, work, host, floor_ms = time_kernels(dev, gen, card,
-                                                  torch.as_tensor(mean, device=dev), plain=False)
+    times, _, work, host, floor_ms = time_kernels(dev, gen, card, torch.as_tensor(mean, device=dev),
+                                                  plain=False, only=only)
+    kernels = {name: {"ms": ms, "bound_ms": bound(*work[name])[0], "host_us": host[name]}
+               for name, (ms, _) in times.items()}
+    if only:
+        print(json.dumps({"time_only": {"root": str(root), "card": card, "kernels": kernels,
+                                        "empty_launch_ms": floor_ms}}))
+        return 0
     graph = build_graph(read_model(str(ALEXNET)))
     jitter = {"input": (JitterSpec(image_size=CROP, scale=1 / 255), mean, None)}
     pred = Predictor(graph, init_params(graph, seed=0, device=dev), batch_size=BATCH,
@@ -1030,8 +1193,6 @@ def time_only(dev, card, root) -> int:
                        clone_state(trainer.state), trainer.device_batch(train_data.get_batch()),
                        card)
     train_data.close()
-    kernels = {name: {"ms": ms, "bound_ms": bound(*work[name])[0], "host_us": host[name]}
-               for name, (ms, _) in times.items()}
     print(json.dumps({"time_only": {"root": str(root), "card": card, "kernels": kernels,
                                     "empty_launch_ms": floor_ms, "paths": paths}}))
     return 0
@@ -1044,6 +1205,12 @@ def main(argv=None) -> int:
     ap.add_argument("--time-only", action="store_true",
                     help="skip phases 2-5 and the plain versions: time the kernels, the "
                          "forward and the train steps, and print them as one JSON line")
+    ap.add_argument("--kernels", metavar="TEXT",
+                    help="with --time-only: time just the kernels whose name holds TEXT "
+                         "(e.g. pool_lrn), and no forward or train step")
+    ap.add_argument("--ulp-study", type=int, metavar="SEEDS", default=0,
+                    help="skip phases 2-6: measure over SEEDS seeds how far the backward "
+                         "kernels' bf16 results and their plain versions' fall from float64")
     ap.add_argument("--root", type=Path, default=REPO,
                     help="import convnet_tpu_torch from this checkout (with --time-only, to "
                          "time another commit's kernels in the same call)")
@@ -1083,7 +1250,9 @@ def main(argv=None) -> int:
           f"build+load {load_s:.3f} s")
 
     if args.time_only:
-        return time_only(dev, card, root)
+        return time_only(dev, card, root, args.kernels)
+    if args.ulp_study:
+        return ulp_study(dev, card, args.ulp_study)
 
     # -- 2. kernels vs plain versions at the slice's shapes -----------------
     gen = torch.Generator(device=dev)

@@ -57,6 +57,24 @@ __device__ __forceinline__ void store_vec(T* p, const float* in) {
   }
 }
 
+// Two f32 values rounded to bf16 (to nearest even, as store_f32 rounds) in
+// one word, `lo` in the low half: one instruction for the pair.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pair);
+}
+
+// 16 / sizeof(T) f32 values rounded to T as one 16-byte word: what
+// store_vec writes, kept in registers.
+__device__ __forceinline__ uint4 pack_word(const float* in, const float*) {
+  return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]), __float_as_uint(in[2]),
+                    __float_as_uint(in[3]));
+}
+__device__ __forceinline__ uint4 pack_word(const float* in, const __nv_bfloat16*) {
+  return make_uint4(pack_bf16x2(in[0], in[1]), pack_bf16x2(in[2], in[3]),
+                    pack_bf16x2(in[4], in[5]), pack_bf16x2(in[6], in[7]));
+}
+
 // v rounded to T and back: the value a T tensor holds.
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {

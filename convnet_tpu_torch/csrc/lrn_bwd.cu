@@ -69,36 +69,12 @@
 //   db_reduce_kernel adds the blocks' rows in a fixed order. No atomics.
 
 #include "lrn_math.cuh"
+#include "stage.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmemPerBlock = 227 * 1024;
 constexpr size_t kStageBytes = 8 * 1024;  // one staged tile of one tensor
-
-__host__ __device__ constexpr size_t align_up16(size_t bytes) { return (bytes + 15) & ~size_t{15}; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// Start copying `elems` elements from src (device memory) to dst (shared):
-// with VEC, 16-byte cp.async copies in one commit group (complete after
-// cp.async.wait_group 0), else plain copies. Visible to the block after
-// the next __syncthreads.
-template <bool VEC, typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int elems) {
-  if constexpr (VEC) {
-    const int words = static_cast<int>(elems * sizeof(T) / 16);
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < words; i += blockDim.x) cp_async16(d + i, s + i);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  } else {
-    for (int i = threadIdx.x; i < elems; i += blockDim.x) dst[i] = src[i];
-  }
-}
 
 // Values of channels ch0 - B .. ch0 + V - 1 + A of a row into w[0 .. V +
 // B + A): own[] for the thread's V channels, load(j) for the halo, 0
@@ -173,7 +149,7 @@ lrn_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z, const float* __
   int64_t tile = blockIdx.x;
   stage_tile(0, tile);
   for (int k = 0; tile < tiles; tile += gridDim.x, ++k) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    cp_async_wait_all();
     __syncthreads();  // tile k staged; every thread is done with tile k - 1
     const int64_t next = tile + gridDim.x;
     if (next < tiles) stage_tile((k + 1) & 1, next);

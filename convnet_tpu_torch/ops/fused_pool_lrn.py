@@ -21,6 +21,14 @@ PyTorch version:
   y equals the stored max, runs the LRN backward with the ReLU mask on
   that f32 sum, and returns dx and, with a bias, db (deterministic).
 
+Each has a fast path for what the train step runs (a sliding window of
+n = 5, beta = 0.75, rows of whole 16-byte words, aligned tensors, any
+pool kernel and stride): a persistent grid of blocks that walk bands of
+an image's rows with the next row in flight, each y computed once, 8
+bf16 or 4 f32 channels a thread. Other windows, exponents and alignments
+take generic kernels. The library picks the path from shapes, dtype and
+alignment before it launches; the wrappers here are the same for both.
+
 For a CPU tensor a wrapper runs the plain version (the port's plain LRN,
 `maxpool_reference`, then `maxpool2d_undo_reference` in f32 and the plain
 LRN backward); for a CUDA tensor it launches the kernel or raises. The

@@ -26,6 +26,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_port_parity import jax_reference_numerics  # noqa: F401  (autouse fixture)
+
 from convnet_tpu import config
 from convnet_tpu.data import jitter as jax_jitter
 from convnet_tpu.graph import ACT, build_graph

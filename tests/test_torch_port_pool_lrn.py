@@ -22,6 +22,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_port_parity import jax_reference_numerics  # noqa: F401  (autouse fixture)
+
 from convnet_tpu import config
 from convnet_tpu import trainer as jax_trainer
 from convnet_tpu.graph import build_graph
@@ -79,13 +81,14 @@ FUSED_CASES = [  # (b, h, c, k, s, frac, blocked, relu, bias)
 ]
 
 
-def _fused_pair(dtype, b, h, c, k, s, frac, blocked, relu, bias, monkeypatch, seed=0):
-    """(port m, JAX m, port dx, JAX dx, port db, JAX db) for one cotangent."""
+def _fused_pair(dtype, b, h, c, k, s, frac, blocked, relu, bias, monkeypatch, seed=0, w=None):
+    """(port m, JAX m, port dx, JAX dx, port db, JAX db) for one cotangent
+    over a (b, h, w, c) input (w: h when not given)."""
     monkeypatch.setenv("CONVNET_POOL_LRN_BACKEND", "pallas")
     rng = np.random.default_rng(seed)
-    x = _halves(rng, (b, h, h, c))
-    oh = _pooled(h, k, s)
-    g = rng.standard_normal((b, oh, oh, c)).astype(np.float32)
+    w = h if w is None else w
+    x = _halves(rng, (b, h, w, c))
+    g = rng.standard_normal((b, _pooled(h, k, s), _pooled(w, k, s), c)).astype(np.float32)
     bb = np.round(rng.standard_normal(c)).astype(np.float32)  # keeps x + b on the grid
     # the values both sides start from
     xj, gj = jnp.asarray(x, JAX_DT[dtype]), jnp.asarray(g, JAX_DT[dtype])
@@ -127,6 +130,31 @@ def test_lrn_maxpool_matches_jax_bf16(b, h, c, k, s, frac, blocked, relu, bias, 
     if bias:
         assert db.dtype == torch.float32
         np.testing.assert_allclose(_np(db), np.asarray(want_db), rtol=2e-2, atol=2e-2)
+
+
+# The geometries the fused kernels' card tests add (tests/test_torch_port_kernels.py,
+# POOL_LRN_FAST), (b, h, w, c, k, s): a ceil-mode overhang on both edges with
+# k 3/s 3, k 2/s 2 and k 3/s 2; a non-square image; a non-overlapping pool
+# that covers exactly; 1x1 pools, also over a 1x1 image; a wide, short image.
+CARD_GEOMETRIES = [
+    (8, 10, 10, 16, 3, 3), (8, 9, 9, 16, 2, 2), (8, 8, 8, 16, 3, 2), (4, 21, 17, 32, 3, 2),
+    (8, 12, 12, 8, 2, 2), (8, 6, 6, 16, 1, 1), (8, 1, 1, 96, 1, 1), (4, 5, 70, 64, 3, 2),
+]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("b,h,w,c,k,s", CARD_GEOMETRIES)
+def test_plain_versions_match_jax_on_the_card_tests_geometries(b, h, w, c, k, s, bias, monkeypatch):
+    """On the CPU the wrappers run their plain versions, which the card tests
+    hold the kernels against: here they meet the JAX op on those tests'
+    overhang, non-square and 1x1 geometries (f32, n = 5, rtol as above)."""
+    m, want_m, dx, want_dx, db, want_db = _fused_pair(
+        "f32", b, h, c, k, s, 5 / c, False, bias, bias, monkeypatch, seed=k + s, w=w)
+    assert tuple(m.shape) == (b, _pooled(h, k, s), _pooled(w, k, s), c)
+    np.testing.assert_allclose(_np(m), np.asarray(want_m), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(dx), np.asarray(want_dx), rtol=1e-4, atol=1e-5)
+    if bias:
+        np.testing.assert_allclose(_np(db), np.asarray(want_db), rtol=1e-4, atol=1e-4)
 
 
 def test_ties_credit_every_winner():

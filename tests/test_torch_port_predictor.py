@@ -16,6 +16,8 @@ import pytest
 import jax  # noqa: F401  (tests/conftest.py pins it to the CPU)
 import torch
 
+from torch_port_parity import jax_reference_numerics  # noqa: F401  (autouse fixture)
+
 from convnet_tpu import config
 from convnet_tpu import model as jax_model
 from convnet_tpu.data.jitter import JitterSpec as JaxJitterSpec

@@ -32,6 +32,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_port_parity import jax_reference_numerics  # noqa: F401  (autouse fixture)
+
 from convnet_tpu import config
 from convnet_tpu import model as jax_model
 from convnet_tpu import optim as jax_optim
