@@ -21,10 +21,12 @@ any failure raises and the script exits non-zero:
    ulp (the bar --ulp-study measured), f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
    1e-4 of a float64 column sum; dropout array-equal, with the backward's
-   mask equal to the forward's. The max pool at pool1, pool2 and pool5
-   array-equal; the fused LRN -> max pool forward at rnorm1/pool1 and
-   rnorm2/pool2, with bias and ReLU, array-equal to the max pool of the
-   LRN kernel's output; its backward held to the plain chain fed with that
+   mask equal to the forward's. The max pool at pool1, pool2, pool5 and a
+   ragged geometry (C = 100, 14x14, pad 1, the ceil-mode last window), each
+   also from a view off a 16-byte boundary, bit for bit (NaN payloads and
+   the sign of zero included) on inputs with planted NaNs; the fused
+   LRN -> max pool forward at rnorm1/pool1 and rnorm2/pool2, with bias and
+   ReLU, array-equal to the max pool of the LRN kernel's output; its backward held to the plain chain fed with that
    same y by the same bar (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
    db within rtol 1e-4 of a float64 sum and the same in two runs; inputs
    on a grid of halves, so window maxima tie (the count is printed). An
@@ -52,7 +54,11 @@ any failure raises and the script exits non-zero:
    s2d_prologue 1 times; the parameters stay finite; three steps from one
    state must agree with a step composed from the plain versions with
    autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
-   gradient.
+   gradient. Then, where h5py imports (else one line says the phase was
+   not run): the trained state through a checkpoint save -> load round
+   trip, params and momenta array-equal, and the shipped digits network
+   served from examples/digits/digits_pretrained.h5 through
+   Predictor.from_checkpoint at top-1 error < 0.05 (where sklearn imports).
 6. Timing. Every kernel, its plain version and, where one PyTorch call
    computes the same function, that call, by device time with the
    launches hidden (device_ms: up to 20 calls over two input sets queued
@@ -73,9 +79,9 @@ any failure raises and the script exits non-zero:
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
 the forward pass and five train steps of each path are also traced with
-torch.profiler into that directory. --time-only runs phases 1 and 6 alone,
-without the plain versions and library calls, and prints the times as one
-JSON line; --root imports convnet_tpu_torch from another checkout, so that
+torch.profiler into that directory (with --time-only too). --time-only
+runs phases 1 and 6 alone, without the plain versions and library calls,
+and prints the times as one JSON line; --root imports convnet_tpu_torch from another checkout, so that
 two commits' kernels can be timed in turns in one call; --kernels TEXT
 times just the kernels whose name holds TEXT, a few seconds a turn while a
 kernel is being tuned. --ulp-study runs
@@ -626,26 +632,83 @@ def tied_windows(y, m, k, s) -> int:
     return int((count > 1).sum().item())
 
 
+# NaN bit patterns planted in the max pool's inputs: quiet and signalling,
+# both signs, other payloads. ATen's scan keeps a window's last NaN as it is.
+NAN_BITS = {"bfloat16": (0x7FC0, -64, 0x7F81, -91), "float32": (0x7FC00000, -4194304, 0x7F800001,
+                                                                 -8388607)}
+# the max pool's checks beyond AlexNet's pools: a channel row of no whole
+# number of 16-byte words in bf16 (C = 100), padding and the ceil-mode last
+# window (14 -> 8 at k3 s2 p1)
+POOL_RAGGED = ((BATCH, 14, 14, 100), 3, 2, 1)
+
+
+def plant_nans(gen, x, share=0.01):
+    """x with `share` of its elements set to NaN bit patterns (NAN_BITS):
+    windows that hold one NaN or several, of other payloads."""
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype]
+    bits = torch.tensor(NAN_BITS[str(x.dtype)[6:]], dtype=ints, device=x.device)
+    n = int(share * x.numel())
+    at = torch.randint(0, x.numel(), (n,), generator=gen, device=x.device)
+    pick = torch.randint(0, len(bits), (n,), generator=gen, device=x.device)
+    x.view(ints).view(-1)[at] = bits[pick]
+    return x
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit: NaN payloads and the sign of zero count."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def unaligned(x, elements=1):
+    """A contiguous copy of x whose storage starts `elements` elements past
+    a 16-byte boundary (a view with a storage offset)."""
+    import torch
+
+    base = torch.empty(x.numel() + elements, dtype=x.dtype, device=x.device)
+    view = base[elements:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def check_maxpool(dev, gen, card):
-    """The max pool kernel vs its plain version at pool1, pool2 and pool5,
-    tie-heavy inputs: array-equal. Returns max |err| (0)."""
+    """The max pool kernel vs its plain version, bit for bit (NaN payloads
+    and the sign of zero included): at pool1, pool2 and pool5 and at
+    POOL_RAGGED, on tie-heavy inputs (halves, with -0 and +0) with planted
+    NaNs, each also from a view 2 or 4 bytes past a 16-byte boundary (the
+    kernel's one-value form), bf16 and f32. Returns max |err| over the
+    non-NaN outputs (0)."""
     import torch
 
     from convnet_tpu_torch.ops import pool
 
     worst = 0.0
-    for name, shape in POOL_SHAPES.items():
+    cases = [(name, shape, 3, 2, 0) for name, shape in POOL_SHAPES.items()]
+    cases.append(("ragged", *POOL_RAGGED))
+    for name, shape, k, s, p in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            x = halves(gen, shape, dev, dtype)
-            got = pool.maxpool_fwd(x, 3, 2)
-            want = pool.maxpool_reference(x, 3, 2)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            print(f"[{card}] maxpool_fwd {name} {shape} {str(dtype)[6:]}: max_abs_err {err}, "
-                  f"{tied_windows(x, got, 3, 2)} of {got.numel()} window maxima tied")
-            if not torch.equal(got, want):
-                raise AssertionError(f"maxpool_fwd {name} {dtype} is not array-equal to its plain version")
+            x = plant_nans(gen, halves(gen, shape, dev, dtype))
+            want = pool.maxpool_reference(x, k, s, p)
+            for form, xin in (("aligned", x), ("unaligned", unaligned(x))):
+                got = pool.maxpool_fwd(xin, k, s, p)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(want)
+                err = (got.float() - want.float())[fin].abs().max().item()
+                worst = max(worst, err)
+                tag = f"maxpool_fwd {name} {shape} k{k} s{s} p{p} {str(dtype)[6:]} {form}"
+                print(f"[{card}] {tag}: bit for bit {same_bits(got, want)}, max_abs_err {err}; "
+                      f"{int(want.isnan().sum().item())} NaN and "
+                      f"{int(((want == 0) & want.signbit()).sum().item())} -0 outputs of "
+                      f"{want.numel()}" + (f", {tied_windows(x, want, k, s)} window maxima tied"
+                                           if p == 0 else ""))
+                if not same_bits(got, want):
+                    raise AssertionError(f"{tag} is not bit for bit its plain version")
     return worst
 
 
@@ -787,6 +850,78 @@ def ulp_study(dev, card, seeds: int) -> int:
               f"float64 than the plain version ever is")
     print(json.dumps({"ulp_study": {"card": card, "seeds": seeds, "cases": out}}))
     return 0
+
+
+DIGITS = REPO / "examples" / "digits"
+CKPT_DIR = REPO / "build" / "chip_smoke_checkpoint"
+
+
+def check_checkpoints(dev, graph, state, card) -> None:
+    """Phase 5b, when h5py imports: the trained AlexNet state through a
+    save -> load round trip (params and momenta array-equal), and the
+    shipped digits network served from its checkpoint through
+    Predictor.from_checkpoint on the card (top-1 error < 0.05 on the
+    held-out rows of sklearn's bundled digits, tests/test_checkpoint.py's
+    split; skipped with a line when sklearn does not import)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print(f"[{card}] checkpoint phase: needs h5py, which does not import on this machine; "
+              "not run (the round trip and the digits network are tested on the CPU in "
+              "tests/test_torch_port_checkpoint.py)")
+        return
+    from convnet_tpu_torch import checkpoint as ckpt
+    from convnet_tpu_torch.config import read_model
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.model import param_shapes, params_from_numpy
+    from convnet_tpu_torch.predictor import Predictor
+
+    def host(tree):
+        return {n: {k: v.detach().float().cpu().numpy() for k, v in p.items()}
+                for n, p in tree.items()}
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        path = ckpt.save(str(CKPT_DIR), graph.name, host(state["params"]), host(state["moms"]),
+                         step=state["step"])
+        params, moms, step = ckpt.load(path, expected_shapes=param_shapes(graph))
+        for name, tree in (("params", params), ("moms", moms)):
+            loaded = params_from_numpy(tree, dev)
+            for edge, p in state[name].items():
+                for k, v in p.items():
+                    if not torch.equal(loaded[edge][k], v.detach()):
+                        raise AssertionError(f"checkpoint round trip changed {name} {edge}/{k}")
+        if step != state["step"]:
+            raise AssertionError(f"checkpoint round trip step {step} != {state['step']}")
+        print(f"[{card}] checkpoint round trip of the trained AlexNet state at step {step}: "
+              f"params and momenta array-equal ({Path(path).stat().st_size} bytes)")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError:
+        print(f"[{card}] digits network from its checkpoint: needs sklearn's bundled digits, "
+              "which do not import on this machine; not run")
+        return
+    dg = build_graph(read_model(str(DIGITS / "digits.pbtxt")), {"input": 8})
+    d = load_digits()
+    images = (d.images * (255.0 / 16.0)).astype(np.uint8)[..., None]
+    held_out = np.random.RandomState(0).permutation(len(images))[1500:]
+    x = images[held_out].astype(np.float32) * (1.0 / 255.0)
+    pred = Predictor.from_checkpoint(dg, str(DIGITS / "digits_pretrained.h5"), batch_size=128,
+                                     device=dev)
+    labels = np.concatenate([pred.predict_labels({"input": x[i: i + 128]})
+                             for i in range(0, len(x), 128)])
+    err = float(np.mean(labels != d.target[held_out]))
+    print(f"[{card}] digits network from examples/digits/digits_pretrained.h5 on the card: top-1 "
+          f"error {err} on {len(x)} held-out images")
+    if err >= 0.05:
+        raise AssertionError(f"the shipped digits network misclassifies {err} of the held-out rows")
 
 
 def check_conv_grad(dev, gen, card):
@@ -1063,13 +1198,16 @@ def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
           lambda x, rate, _: F.dropout(x, rate, training=True))
     work["dropout"] = (4 * BATCH * 4096, 27 * BATCH * 4096)
 
-    x5s = [(bf16(POOL_SHAPES["pool5"]), 3, 2) for _ in range(2)]
-    # exact cover at pool5 (13 -> 6): torch's floor-mode pool is the same function
-    timed("maxpool_fwd pool5", pool.maxpool_fwd, pool.maxpool_reference, x5s,
-          lambda x, k, s: F.max_pool2d(x.permute(0, 3, 1, 2), k, s))
-    p5_out = pool.maxpool_reference(x5s[0][0], 3, 2).numel()
-    work["maxpool_fwd pool5"] = (2 * (x5s[0][0].numel() + p5_out), 9 * p5_out)
-    del x5s
+    # pool5 runs on the reference-gradient path; pool1 and pool2 are timed
+    # for the default path's choice. Each is an exact cover, where torch's
+    # floor-mode pool is the same function.
+    for shape_name, shape in POOL_SHAPES.items():
+        xps = [(bf16(shape), 3, 2) for _ in range(2)]
+        timed(f"maxpool_fwd {shape_name}", pool.maxpool_fwd, pool.maxpool_reference, xps,
+              lambda x, k, s: F.max_pool2d(x.permute(0, 3, 1, 2), k, s))
+        out = pool.maxpool_reference(xps[0][0], 3, 2).numel()
+        work[f"maxpool_fwd {shape_name}"] = (2 * (xps[0][0].numel() + out), 9 * out)
+        del xps
 
     for shape_name, shape in CHAINS.items():
         c = shape[-1]
@@ -1149,7 +1287,33 @@ def time_paths(fwd, fwd_params, staged, step, state, batch, card):
     return out
 
 
-def time_only(dev, card, root, only=None) -> int:
+def profile_paths(fwd, fwd_params, staged, step, state, batch, card, out: Path) -> None:
+    """torch.profiler tables (kernels by device time) of five forwards and
+    five train steps of each train path, into `out`; Chrome traces of the
+    forward and the default step beside them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(name, fn, rows, chrome=False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows)
+        (out / f"{name}_profile.txt").write_text(f"{card}\n{table}\n")
+        if chrome:
+            prof.export_chrome_trace(str(out / f"{name}_trace.json"))
+
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.inference_mode():
+        trace("forward", lambda: fwd(fwd_params, staged), 60, chrome=True)
+    trace("train", lambda: step(state, batch), 100, chrome=True)
+    with pool_switches():
+        trace("train_ref_grad", lambda: step(state, batch), 100)
+    print(f"[{card}] profiles of the forward and of 5 train steps of each path -> {out}")
+
+
+def time_only(dev, card, root, only=None, profile_dir=None) -> int:
     """--time-only: phase 6 without the plain versions and library calls,
     on random weights and one DUMMY batch, untrained. Prints the kernels'
     device times and host costs and the forward's and train steps' times
@@ -1188,10 +1352,12 @@ def time_only(dev, card, root, only=None) -> int:
     train_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
     train_jitter = {"input": (train_data.jitter_specs()["input"][0], mean, None)}
     trainer = Trainer(graph, train_data, device=dev, jitter=train_jitter)
-    paths = time_paths(make_forward(graph, pred.layers, jitter), pred.params,
-                       {"input": torch.from_numpy(x).to(dev)}, make_train_step(graph, train_jitter),
-                       clone_state(trainer.state), trainer.device_batch(train_data.get_batch()),
-                       card)
+    fwd, staged = make_forward(graph, pred.layers, jitter), {"input": torch.from_numpy(x).to(dev)}
+    step, state = make_train_step(graph, train_jitter), clone_state(trainer.state)
+    batch = trainer.device_batch(train_data.get_batch())
+    paths = time_paths(fwd, pred.params, staged, step, state, batch, card)
+    if profile_dir is not None:
+        profile_paths(fwd, pred.params, staged, step, state, batch, card, profile_dir)
     train_data.close()
     print(json.dumps({"time_only": {"root": str(root), "card": card, "kernels": kernels,
                                     "empty_launch_ms": floor_ms, "paths": paths}}))
@@ -1201,7 +1367,8 @@ def time_only(dev, card, root, only=None) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
-                    help="trace the forward pass and five train steps into this directory")
+                    help="trace five forwards and five train steps of each train path into "
+                         "this directory (also with --time-only, after its timings)")
     ap.add_argument("--time-only", action="store_true",
                     help="skip phases 2-5 and the plain versions: time the kernels, the "
                          "forward and the train steps, and print them as one JSON line")
@@ -1250,7 +1417,7 @@ def main(argv=None) -> int:
           f"build+load {load_s:.3f} s")
 
     if args.time_only:
-        return time_only(dev, card, root, args.kernels)
+        return time_only(dev, card, root, args.kernels, args.profile_dir)
     if args.ulp_study:
         return ulp_study(dev, card, args.ulp_study)
 
@@ -1368,6 +1535,9 @@ def main(argv=None) -> int:
         check_train_parity(graph, trainer.state, train_jitter, ref_batches, train_spec, mean_t,
                            card, fused=True)
 
+    # -- 5b. checkpoints (host I/O: no kernel of its own) ----------------------
+    check_checkpoints(dev, graph, trainer.state, card)
+
     # -- 6. timing -----------------------------------------------------------
     torch.cuda.synchronize()
     times, library, work, host_cost, _ = time_kernels(dev, gen, card, mean_t)
@@ -1400,35 +1570,8 @@ def main(argv=None) -> int:
           f"{trainer_ips:.1f} img/s (host clock, data staging included)")
 
     if args.profile_dir is not None:
-        from torch.profiler import ProfilerActivity, profile
-
-        args.profile_dir.mkdir(parents=True, exist_ok=True)
-        with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            for _ in range(5):
-                fwd(pred.params, staged)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-        (args.profile_dir / "forward_profile.txt").write_text(f"{card}\n{table}\n")
-        prof.export_chrome_trace(str(args.profile_dir / "forward_trace.json"))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step(step_state, step_batch)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        (args.profile_dir / "train_profile.txt").write_text(f"{card}\n{table}\n")
-        prof.export_chrome_trace(str(args.profile_dir / "train_trace.json"))
-        with pool_switches(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            for _ in range(5):
-                step(step_state, step_batch)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        (args.profile_dir / "train_ref_grad_profile.txt").write_text(f"{card}\n{table}\n")
-        print(f"[{card}] profiles of the forward and of 5 train steps of each path -> "
-              f"{args.profile_dir}")
+        profile_paths(fwd, pred.params, staged, step, step_state, step_batch, card,
+                      args.profile_dir)
 
     paths = {"serving": serve_launches, "train": train_launches,
              "reference_gradient": ref_launches}

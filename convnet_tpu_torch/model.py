@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from convnet_tpu_torch import checkpoint
 from convnet_tpu_torch.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
 from convnet_tpu_torch.ops import losses as losses_ops
 from convnet_tpu_torch.ops.activations import apply_activation
@@ -101,28 +102,33 @@ def _init_weight(rng: np.random.Generator, e: EdgeSpec, shape) -> np.ndarray:
         # ~sqrt(fan_in) nonzero inputs per unit (Martens-style)
         w = scale * rng.standard_normal(shape, np.float32)
         return np.where(rng.random(shape) < 1.0 / math.sqrt(fan_in), w, 0.0).astype(np.float32)
-    if kind == INIT.PRETRAINED:
-        raise NotImplementedError(
-            f"edge {e.name}: PRETRAINED init needs checkpoint loading, not ported yet"
-        )
     raise ValueError(f"unknown initialization {kind}")
 
 
 def init_params(graph: Graph, seed: Optional[int] = None, device="cpu") -> Params:
     """Initialise every weighted edge with its pbtxt init mode, from numpy
-    Generators seeded by (seed, edge index). The draws are not the JAX
+    Generators seeded by (seed, edge index); a PRETRAINED edge loads its
+    weights and bias from its checkpoint (`pretrained_model`, the edge
+    `pretrained_edge_name` or its own name). The draws are not the JAX
     package's (threefry); parity tests share params via params_from_numpy."""
     root = graph.seed if seed is None else seed
-    params: Params = {}
+    arrays = {}
     for i, e in enumerate(graph.weighted_edges):
+        if e.initialization == INIT.PRETRAINED:
+            if not e.pretrained_model:
+                raise ValueError(f"edge {e.name}: PRETRAINED init without pretrained_model")
+            arrays[e.name] = checkpoint.load_edge(
+                e.pretrained_model,
+                e.pretrained_edge_name or e.name,
+                expected_shape=_weight_shape(graph, e),
+            )
+            continue
         rng = np.random.default_rng((root, i))
-        w = _init_weight(rng, e, _weight_shape(graph, e))
-        b = np.full(_bias_shape(graph, e), e.init_bias, np.float32)
-        params[e.name] = {
-            "w": torch.from_numpy(w).to(device),
-            "b": torch.from_numpy(b).to(device),
+        arrays[e.name] = {
+            "w": _init_weight(rng, e, _weight_shape(graph, e)),
+            "b": np.full(_bias_shape(graph, e), e.init_bias, np.float32),
         }
-    return params
+    return params_from_numpy(arrays, device)
 
 
 def params_from_numpy(params, device="cpu") -> Params:

@@ -14,7 +14,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from convnet_tpu_torch import checkpoint as ckpt
 from convnet_tpu_torch.graph import Graph
+from convnet_tpu_torch.model import param_shapes
 from convnet_tpu_torch.trainer import JitterMap, make_forward
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
@@ -91,6 +93,23 @@ class Predictor:
                 dtype=_TORCH_DTYPES[self._wire_dtype[l.data_field]],
                 pin_memory=pin,
             )
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        graph: Graph,
+        path: str,
+        layers=None,
+        batch_size: int = 128,
+        jitter=None,
+        raw_size=None,
+        input_dtype=np.float32,
+        device="cuda",
+    ) -> "Predictor":
+        """A Predictor over the params of a checkpoint file (any layout
+        `checkpoint.load` accepts, weights coerced to the graph's shapes)."""
+        params, _, _ = ckpt.load(path, expected_shapes=param_shapes(graph))
+        return cls(graph, params, layers, batch_size, jitter, raw_size, input_dtype, device)
 
     def _stage(self, k: str, v, n: int) -> torch.Tensor:
         want = self._wire_dtype[k]

@@ -8,9 +8,10 @@ Randomness is keyed by (seed, step): each input field's crop generator by
 so a run started again from the same state replays the same stream. The
 draws are not the JAX package's (threefry).
 
-Not ported yet, and raising NotImplementedError rather than skipped:
-checkpoint save and resume (they need `checkpoint.py` and h5py, ROADMAP
-Queue A1), several steps per launch, and the profiler trace.
+`Trainer` writes a checkpoint every `checkpoint_after` steps and resumes
+from the newest one in its checkpoint directory (`checkpoint.py`, the JAX
+package's HDF5 layout). Not ported yet, and raising NotImplementedError
+rather than skipped: several steps per launch, and the profiler trace.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from convnet_tpu_torch import checkpoint as ckpt
+from convnet_tpu_torch.config import model_to_text
 from convnet_tpu_torch.graph import Graph
 from convnet_tpu_torch import model as model_lib
 from convnet_tpu_torch import optim
@@ -202,13 +205,17 @@ def _clamp_parallel(graph: Graph) -> None:
 
 class Trainer:
     """Owns the state, the data handlers and the step loop: display every
-    `display_after` steps, validation every `validate_after`, the train log
+    `display_after` steps, validation every `validate_after`, a checkpoint
+    every `checkpoint_after` (`save`), the train log
     `<checkpoint_dir>/<model>_train_log.txt` when a checkpoint directory
-    is set.
+    is set. At construction it resumes from the newest checkpoint of the
+    model in the checkpoint directory, if there is one.
 
     jitter: {field: (JitterSpec, mean, std)} to use instead of the data
     handlers' `jitter_specs()` (for example a mean given without an HDF5
-    mean file)."""
+    mean file). model_proto: the model's message; when given, `save`
+    rewrites `<checkpoint_dir>/<model>.pbtxt` with the checkpoint's
+    timestamp recorded."""
 
     def __init__(
         self,
@@ -217,6 +224,7 @@ class Trainer:
         val_data: Optional[DataHandler] = None,
         checkpoint_dir: Optional[str] = None,
         log_fn=print,
+        model_proto=None,
         steps_per_launch: int = 1,
         device="cuda",
         jitter: Optional[JitterMap] = None,
@@ -225,6 +233,7 @@ class Trainer:
             raise NotImplementedError("steps_per_launch > 1 is not ported yet")
         _clamp_parallel(graph)
         self.graph = graph
+        self.model_proto = model_proto
         self.train_data = train_data
         self.val_data = val_data
         self.device = torch.device(device)
@@ -258,22 +267,47 @@ class Trainer:
             with open(self._log_path, "a") as f:
                 f.write(msg + "\n")
 
-    # -- checkpointing: not ported yet --------------------------------------
+    # -- checkpointing ------------------------------------------------------
 
     def _resume(self):
-        prefix = f"{self.graph.name}_"
-        if os.path.isdir(self.checkpoint_dir) and any(
-            f.startswith(prefix) and f.endswith(".h5") for f in os.listdir(self.checkpoint_dir)
-        ):
-            raise NotImplementedError(
-                f"{self.checkpoint_dir} holds a checkpoint of {self.graph.name}: resuming needs "
-                "checkpoint.py (h5py), not ported yet (ROADMAP Queue A1)"
-            )
+        path = ckpt.latest(self.checkpoint_dir, self.graph.name)
+        if not path:
+            return
+        shapes = {
+            name: {"w": tuple(p["w"].shape), "b": tuple(p["b"].shape)}
+            for name, p in self.state["params"].items()
+        }
+        params, moms, step = ckpt.load(path, expected_shapes=shapes)
+        expect = {e.name for e in self.graph.weighted_edges}
+        if set(params) != expect:
+            raise ValueError(f"checkpoint {path} edges {sorted(params)} != model {sorted(expect)}")
+        self.state["params"] = model_lib.params_from_numpy(params, self.device)
+        if moms is not None:
+            self.state["moms"] = model_lib.params_from_numpy(moms, self.device)
+        self.state["step"] = step
+        self.log(f"resumed from {path} at step {step}")
 
-    def save(self):
-        raise NotImplementedError(
-            "checkpoint save needs checkpoint.py (h5py), not ported yet (ROADMAP Queue A1)"
-        )
+    def save(self) -> str:
+        """Write the params, momenta and step as a checkpoint (f32, on the
+        host) and return its path; with a model_proto, also rewrite
+        `<model>.pbtxt` beside it with the checkpoint's timestamp."""
+        def host(tree):
+            return {n: {k: v.detach().float().cpu().numpy() for k, v in p.items()}
+                    for n, p in tree.items()}
+
+        path = ckpt.save(self.checkpoint_dir, self.graph.name, host(self.state["params"]),
+                         host(self.state["moms"]), step=self.state["step"])
+        if self.model_proto is not None:
+            # the tag is the file name without the model prefix, not a split
+            # on "_": a collision-suffixed name ("<ts>_1.h5") keeps "<ts>_1",
+            # so checkpoint_path(dir, name, tag) still resolves to this file
+            ts = os.path.basename(path).removeprefix(f"{self.graph.name}_").removesuffix(".h5")
+            self.model_proto.timestamp = ts
+            self.model_proto.timestamp_history.append(ts)
+            with open(os.path.join(self.checkpoint_dir, f"{self.graph.name}.pbtxt"), "w") as f:
+                f.write(model_to_text(self.model_proto))
+        self.log(f"checkpoint -> {path}")
+        return path
 
     # -- loops --------------------------------------------------------------
 
@@ -295,8 +329,6 @@ class Trainer:
         g = self.graph
         total = max_iter if max_iter is not None else g.max_iter
         it = self.state["step"]
-        if g.checkpoint_after and total // g.checkpoint_after > it // g.checkpoint_after:
-            self.save()  # fails before the first step rather than at the checkpoint
         window: List[Dict[str, torch.Tensor]] = []
         t0 = time.time()
         next_batch = self.device_batch(self.train_data.get_batch()) if it < total else None
@@ -329,6 +361,9 @@ class Trainer:
             ):
                 verr, vloss = self.validate()
                 self.log(f"step {it} VALIDATION loss {vloss:.4f} err {verr:.4f}")
+                t0 = time.time()
+            if g.checkpoint_after and it // g.checkpoint_after > prev // g.checkpoint_after:
+                self.save()
                 t0 = time.time()
         return self.state
 

@@ -539,16 +539,81 @@ def _halves(gen, shape, cuda, dtype):
     return (torch.round(2.0 * torch.randn(shape, generator=gen, device=cuda)) / 2).to(dtype)
 
 
+_INTS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+# quiet and signalling NaNs of both signs and other payloads (chip_smoke.py's NAN_BITS)
+_NAN_BITS = {torch.bfloat16: (0x7FC0, -64, 0x7F81, -91),
+             torch.float32: (0x7FC00000, -4194304, 0x7F800001, -8388607)}
+
+
+def _same_bits(a, b):
+    """Bit for bit: NaN payloads and the sign of zero count."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(_INTS[a.dtype]), b.contiguous().view(_INTS[b.dtype]))
+
+
+def _plant_nans(gen, x, share=0.02):
+    bits = torch.tensor(_NAN_BITS[x.dtype], dtype=_INTS[x.dtype], device=x.device)
+    n = max(1, int(share * x.numel()))
+    at = torch.randint(0, x.numel(), (n,), generator=gen, device=x.device)
+    pick = torch.randint(0, len(bits), (n,), generator=gen, device=x.device)
+    x.view(_INTS[x.dtype]).view(-1)[at] = bits[pick]
+    return x
+
+
+def _at_offset(x, elements):
+    """x copied into a contiguous view `elements` elements into its storage:
+    1 leaves it off a 16-byte boundary."""
+    if not elements:
+        return x
+    base = torch.empty(x.numel() + elements, dtype=x.dtype, device=x.device)
+    view = base[elements:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+MAXPOOL_CASES = [  # (h, c, k, s, pad)
+    (55, 96, 3, 2, 0), (27, 256, 3, 2, 0), (13, 256, 3, 2, 0),  # AlexNet's pools
+    (14, 100, 3, 2, 1),  # no whole 16-byte words in bf16; padding; ceil-mode last window
+    (8, 16, 2, 2, 0), (9, 8, 3, 2, 1), (10, 24, 3, 3, 0), (6, 1, 3, 2, 0),
+    (7, 8, 5, 1, 2), (6, 3, 4, 3, 1),  # k outside the compiled 2 and 3
+]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,c,k,s,p", [(55, 96, 3, 2, 0), (13, 256, 3, 2, 0), (8, 16, 2, 2, 0),
-                                       (9, 8, 3, 2, 1), (10, 24, 3, 3, 0)])
-def test_maxpool_kernel_matches_plain(cuda, dtype, h, c, k, s, p):
-    gen = torch.Generator(device=cuda).manual_seed(h + c)
-    x = torch.randn((4, h, h, c), generator=gen, device=cuda).to(dtype)
+@pytest.mark.parametrize("h,c,k,s,p", MAXPOOL_CASES)
+def test_maxpool_kernel_matches_plain(cuda, dtype, h, c, k, s, p, offset):
+    """Bit for bit on tie-heavy inputs (halves: -0 and +0 among them) with
+    planted NaNs, from aligned tensors and from views off a 16-byte boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(h + c + k)
+    x = _plant_nans(gen, _halves(gen, (4, h, h, c), cuda, dtype))
+    want = pool.maxpool_reference(x, k, s, p)
     before = pool.LAUNCHES
-    y = pool.maxpool_fwd(x, k, s, p)
+    y = pool.maxpool_fwd(_at_offset(x, offset), k, s, p)
     assert pool.LAUNCHES == before + 1
-    assert torch.equal(y, pool.maxpool_reference(x, k, s, p))
+    assert _same_bits(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 5])
+def test_maxpool_kernel_keeps_the_first_zero_and_the_last_nan(cuda, dtype, c):
+    """Every 3x3 window of a 13x13 input holds -0 and +0 above -1, in one
+    order and then the other, then two NaNs of other payloads: the kernel
+    keeps the first zero and the last NaN, as ATen's scan does."""
+    x = torch.full((2, 13, 13, c), -1.0, device=cuda, dtype=dtype)
+    for first, second in ((-0.0, 0.0), (0.0, -0.0)):
+        x[:, 0::2, 0::2] = first  # a window's first tap is at an even row and column
+        x[:, 1::2, 1::2] = second
+        want = pool.maxpool_reference(x, 3, 2)
+        assert torch.equal(want.signbit(), torch.full_like(want, first).signbit())
+        assert _same_bits(pool.maxpool_fwd(x, 3, 2), want)
+    ints = x.view(_INTS[dtype])
+    nans = _NAN_BITS[dtype]
+    ints[:, 0::2, 0::2] = nans[0]
+    ints[:, 1::2, 1::2] = nans[1]
+    want = pool.maxpool_reference(x, 3, 2)
+    assert _same_bits(pool.maxpool_fwd(x, 3, 2), want)
+    assert _same_bits(pool.maxpool_fwd(_at_offset(x, 1), 3, 2), want)
 
 
 def test_maxpool_switch_keeps_the_single_winner_gradient(cuda, monkeypatch):
