@@ -75,11 +75,32 @@ any failure raises and the script exits non-zero:
    with a synchronize, and CUDA events around one call); the Predictor's
    milliseconds per batch and images per second and the Trainer's images
    per second over 50 steps.
+7. The model zoo and the CLIs. (a) LOCAL at alexnet_local's conv4
+   ((128, 13, 13, 384) in, weight (13, 13, 3456, 384), pad 1): forward, dx
+   and dw against float64 on the card, f32 within 1e-5 and bf16 within
+   1e-2 of the largest element, and the bf16 forward's and backward's
+   device times. (b) examples/imagenet/alexnet_local.pbtxt at full width
+   (bf16, batch 128), 10 steps through the train CLI
+   (convnet_tpu_torch.cli.train.main, in this process) over DUMMY
+   ImageNet-shaped data with --profile-dir, from a temp copy of the model
+   that logs a loss every 5 steps (and, where h5py does not import, sets
+   checkpoint_after: 0): each step must launch lrn_fwd 2, lrn_bwd 2,
+   dropout 4 and s2d_prologue 1 times, every parameter (the 224M-element
+   LOCAL weight too) move and stay finite, the logged losses be finite
+   and a trace be written; then its train step's times beside AlexNet's.
+   (c) the grad_check CLI on the card in f32 at its defaults (eps 1e-3,
+   tol 2e-3) over a small conv -> LRN -> max pool -> LOCAL ->
+   CONV_ONETOONE -> FC model: no failure, and the LRN kernels launched.
+   (d) conv_autoencoder, 5 train steps over DUMMY 32x32x3 data: finite
+   losses, every parameter moved. (e) where h5py imports, fc7 from (b)'s
+   checkpoint through the extract CLI (else one line says it was not run).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
 the forward pass and five train steps of each path are also traced with
-torch.profiler into that directory (with --time-only too). --time-only
+torch.profiler into that directory (with --time-only too), and phase 7a
+writes a table of five LOCAL forwards and backwards there, phase 7b one
+of five alexnet_local train steps. --time-only
 runs phases 1 and 6 alone, without the plain versions and library calls,
 and prints the times as one JSON line; --root imports convnet_tpu_torch from another checkout, so that
 two commits' kernels can be timed in turns in one call; --kernels TEXT
@@ -125,6 +146,7 @@ POOL_SWITCHES = {"CONVNET_POOL_LRN_FUSED": "1", "CONVNET_POOL_BACKEND": "pallas"
 # cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (LOCAL's products)
 
 
 def card_line() -> str:
@@ -325,26 +347,32 @@ def pool_switches():
                 os.environ[k] = v
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(the least milliseconds the card could take, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dummy_imagenet(batch: int, rows: int, randomize: bool):
-    """A DUMMY DatasetConfig shaped like ImageNet's train data: uint8
-    256x256x3 images cropped to 224 with random translations and flips,
-    scale 1/255, 1000 classes. Nothing is read from or written to disk."""
-    from convnet_tpu_torch.config import parse_dataset_config
-
-    return parse_dataset_config(f"""
+def dummy_imagenet_text(batch: int, rows: int, randomize: bool) -> str:
+    """A DUMMY DatasetConfig shaped like ImageNet's train data, as pbtxt
+    text: uint8 256x256x3 images cropped to 224 with random translations
+    and flips, scale 1/255, 1000 classes."""
+    return f"""
         name: "dummy_imagenet" batch_size: {batch} randomize_cpu: {str(randomize).lower()}
         data_config {{ layer_name: "input" data_type: DUMMY raw_image_size: {RAW}
                       image_size: {CROP} num_colors: 3 can_translate: true can_flip: true
                       scale: {1 / 255} dummy_size: {rows} }}
         data_config {{ layer_name: "labels" data_type: DUMMY dummy_size: {rows}
                       dummy_num_classes: 1000 }}
-    """)
+    """
+
+
+def dummy_imagenet(batch: int, rows: int, randomize: bool):
+    """dummy_imagenet_text's DatasetConfig. Nothing is read from or written
+    to disk."""
+    from convnet_tpu_torch.config import parse_dataset_config
+
+    return parse_dataset_config(dummy_imagenet_text(batch, rows, randomize))
 
 
 def clone_state(state):
@@ -1364,6 +1392,317 @@ def time_only(dev, card, root, only=None, profile_dir=None) -> int:
     return 0
 
 
+# -- phase 7: the model zoo and the CLIs ---------------------------------------
+
+ALEXNET_LOCAL = REPO / "examples" / "imagenet" / "alexnet_local.pbtxt"
+AUTOENCODER = REPO / "examples" / "autoencoder" / "conv_autoencoder.pbtxt"
+CLI_STEPS, AUTOENCODER_STEPS = 10, 5
+# LOCAL at alexnet_local's conv4: (B, 13, 13, 384) -> 384, k3 s1 p1, so the
+# weight is (13, 13, 3*3*384, 384), 224.3M elements
+CONV4 = dict(x=(BATCH, 13, 13, 384), cout=384, kernel=3, stride=1, padding=1)
+# LOCAL against float64, as a share of the largest |element|: f32 is one
+# f32 sum of 3456 products a site (no TF32); bf16 rounds the output once
+LOCAL_F32_RTOL, LOCAL_BF16_RTOL = 1e-5, 1e-2
+# Phase 7c's model, written to a temp dir: a ReLU conv whose bias the LRN
+# kernels take (bias deferral), a max pool, LOCAL, CONV_ONETOONE and an FC
+# softmax, f32. A finite difference across a ReLU or max-pool kink fails
+# the check by itself; at seed 0 and batch 2 none is crossed (the largest
+# error is under 2e-4 on the CPU and on the card, against 2e-3).
+GRAD_CHECK_MODEL = """
+name: "lrn_local_check"
+seed: 7
+layer { name: "input" is_input: true num_channels: 3 image_size: 6 }
+layer { name: "conv1" num_channels: 16 activation: RECTIFIED_LINEAR }
+layer { name: "rnorm1" num_channels: 16 }
+layer { name: "pool1" num_channels: 16 }
+layer { name: "local2" num_channels: 8 activation: TANH }
+layer { name: "mix3" num_channels: 8 activation: TANH }
+layer { name: "output" is_output: true num_channels: 5 activation: SOFTMAX data_field: "labels" }
+edge { source: "input" dest: "conv1" edge_type: CONV kernel_size: 3 stride: 1 padding: 1
+       initialization: DENSE_GAUSSIAN init_wt: 0.3 init_bias: 1.0 }
+edge { source: "conv1" dest: "rnorm1" edge_type: RESPONSE_NORM
+       add_scale: 0.01 pow_scale: 0.75 frac_of_filters_response_norm: 0.3 }
+edge { source: "rnorm1" dest: "pool1" edge_type: MAXPOOL kernel_size: 2 stride: 2 }
+edge { source: "pool1" dest: "local2" edge_type: LOCAL kernel_size: 3 stride: 1 padding: 1
+       initialization: DENSE_GAUSSIAN init_wt: 0.2 init_bias: 0.05 }
+edge { source: "local2" dest: "mix3" edge_type: CONV_ONETOONE initialization: DENSE_GAUSSIAN init_wt: 0.3 }
+edge { source: "mix3" dest: "output" edge_type: FC initialization: DENSE_GAUSSIAN_SQRT_FAN_IN init_wt: 1.0 }
+"""
+
+
+def h5py_imports() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def check_local(dev, gen, card, profile_dir=None):
+    """Phase 7a: LOCAL at alexnet_local's conv4 in f32 and bf16, forward,
+    dx and dw against float64 on the card (the bf16 case on the bf16-rounded
+    inputs), each within its share of the largest |element|; then the
+    bf16 forward's and backward's device times with the launches hidden
+    beside their bounds (and, with profile_dir, a torch.profiler table of
+    five of each)."""
+    import torch
+
+    from convnet_tpu_torch.ops.local import local_conv2d
+
+    b, h, w_, c = CONV4["x"]
+    k, s, p, cout = CONV4["kernel"], CONV4["stride"], CONV4["padding"], CONV4["cout"]
+    wshape = (h, w_, k * k * c, cout)  # stride 1, pad 1: 13x13 sites
+    x = torch.randn(CONV4["x"], generator=gen, device=dev)
+    w = 0.01 * torch.randn(wshape, generator=gen, device=dev)
+    gy = torch.randn((b, h, w_, cout), generator=gen, device=dev)
+
+    def run(dt):
+        # as the model calls it: bf16 through compute_dtype, f32 without one
+        xx = x.to(dt).requires_grad_()
+        ww = w.to(dt).requires_grad_()
+        y = local_conv2d(xx, ww, s, p, k, None if dt == torch.float32 else dt)
+        dx, dw = torch.autograd.grad(y, (xx, ww), gy.to(dt))
+        return y.detach(), dx, dw
+
+    for dt, rtol in ((torch.float32, LOCAL_F32_RTOL), (torch.bfloat16, LOCAL_BF16_RTOL)):
+        got = run(dt)
+        # float64 on the same inputs: the bf16 case rounds x, w and g first
+        xd, wd = x.to(dt).double().requires_grad_(), w.to(dt).double().requires_grad_()
+        yd = local_conv2d(xd, wd, s, p, k)
+        want = (yd.detach(), *torch.autograd.grad(yd, (xd, wd), gy.to(dt).double()))
+        del xd, wd, yd
+        for name, g_, ref in zip(("y", "dx", "dw"), got, want):
+            scale = ref.abs().max().item()
+            err = (g_.double() - ref).abs().max().item() / scale
+            print(f"[{card}] LOCAL conv4 {str(dt).removeprefix('torch.')} {name} "
+                  f"{tuple(g_.shape)}: max |err| {err:.3g} of the largest vs float64 "
+                  f"(tolerance {rtol})")
+            if err > rtol:
+                raise AssertionError(f"LOCAL {dt} {name} is {err} of the largest from float64")
+        del got, want
+    torch.cuda.empty_cache()
+
+    xb = x.to(torch.bfloat16).requires_grad_()
+    wb = w.to(torch.bfloat16).requires_grad_()
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: local_conv2d(xb, wb, s, p, k, bf16), k=4)
+    y = local_conv2d(xb, wb, s, p, k, bf16)
+    gb = gy.to(torch.bfloat16)
+    bwd_ms = device_ms(lambda: torch.autograd.grad(y, (xb, wb), gb, retain_graph=True), k=4)
+    sites, kkc = h * w_, k * k * c
+    flops = 2 * b * sites * kkc * cout
+    act = 2 * (x.numel() + gy.numel())  # bf16 x and y (or g and dx)
+    fb, fb_by = bound(2 * w.numel() + act, flops, BF16_OPS_PER_S)
+    bb, bb_by = bound(4 * w.numel() + 2 * act, 2 * flops, BF16_OPS_PER_S)
+    print(f"[{card}] LOCAL conv4, bf16, batch {b}: forward {fwd_ms:.4f} ms (bound {fb:.4f} ms, "
+          f"{fb_by}), backward dx + dw {bwd_ms:.4f} ms (bound {bb:.4f} ms, {bb_by}); device "
+          f"time with the launches hidden; {flops / 1e9:.1f} GFLOP forward")
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                with torch.no_grad():
+                    local_conv2d(xb, wb, s, p, k, bf16)
+                torch.autograd.grad(y, (xb, wb), gb, retain_graph=True)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        (profile_dir / "local_conv4_profile.txt").write_text(f"{card}\n{table}\n")
+
+
+class _CapturingTrainer:
+    """A hook around the train CLI's Trainer: keeps each Trainer it makes
+    and a copy of its initial params, so the phase can check what the
+    CLI trained."""
+
+    def __init__(self, cli_module):
+        self.made = []
+        self._cli = cli_module
+        self._orig = cli_module.Trainer
+
+    def __enter__(self):
+        made, orig = self.made, self._orig
+
+        class Capturing(orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.p_init = clone_state(self.state)["params"]
+                made.append(self)
+
+        self._cli.Trainer = Capturing
+        return self
+
+    def __exit__(self, *exc):
+        self._cli.Trainer = self._orig
+
+
+def expect_trained(what, params, p_init, card):
+    import torch
+
+    moved = 0
+    for name, p in params.items():
+        for k, v in p.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{what}: {name}/{k} is not finite")
+            moved += int(not torch.equal(v, p_init[name][k]))
+    print(f"[{card}] {what}: {moved}/{2 * len(p_init)} parameter tensors moved, all finite")
+    if moved != 2 * len(p_init):
+        raise AssertionError(f"{what}: some parameters did not move")
+
+
+def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
+    """Phase 7. (a) LOCAL at conv4 (check_local); (b) alexnet_local at full
+    width, 10 steps through the train CLI over DUMMY ImageNet-shaped data,
+    with a trace of steps 5-10 (--profile-dir); (c) grad_check through its
+    CLI on the card in f32 (eps 1e-3, tol 2e-3) over GRAD_CHECK_MODEL; (d)
+    conv_autoencoder, 5 train steps over DUMMY 32x32x3 data; (e) where h5py
+    imports, fc7 extracted from (b)'s checkpoint through the extract CLI.
+    With profile_dir, torch.profiler tables of LOCAL and of five
+    alexnet_local steps go there. Returns the alexnet_local run's
+    launches."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.cli import extract as extract_cli
+    from convnet_tpu_torch.cli import grad_check as grad_check_cli
+    from convnet_tpu_torch.cli import train as train_cli
+    from convnet_tpu_torch.config import model_to_text, parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import device_batch, init_state, make_train_step
+
+    check_local(dev, gen, card, profile_dir)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- (b) --
+        model = read_model(str(ALEXNET_LOCAL))
+        # widths untouched; a loss line every 5 steps for the log
+        model.display_after = 5
+        have_h5py = h5py_imports()
+        if not have_h5py:
+            model.checkpoint_after = 0
+            print(f"[{card}] alexnet_local through the train CLI: h5py does not import on this "
+                  "machine, so the model's copy sets checkpoint_after: 0 (no checkpoint is "
+                  "written) and phase 7e is not run")
+        (tmp / "alexnet_local.pbtxt").write_text(model_to_text(model))
+        (tmp / "train.pbtxt").write_text(dummy_imagenet_text(BATCH, DUMMY_ROWS, True))
+        out, prof = tmp / "run", tmp / "profile"
+        reset_launches()
+        t0 = time.perf_counter()
+        with _CapturingTrainer(train_cli) as cap:
+            rc = train_cli.main([str(tmp / "alexnet_local.pbtxt"), str(tmp / "train.pbtxt"),
+                                 "--output-dir", str(out), "--max-iter", str(CLI_STEPS),
+                                 "--profile-dir", str(prof)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        local_launches = read_launches()
+        print(f"[{card}] launches during {CLI_STEPS} alexnet_local steps through the train CLI "
+              f"({cli_s:.3f} s, rc {rc}): {local_launches}")
+        if rc != 0:
+            raise AssertionError(f"the train CLI returned {rc}")
+        expect_launches("alexnet_local's steps", local_launches,
+                        {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}, CLI_STEPS)
+        trainer = cap.made[0]
+        if trainer.state["step"] != CLI_STEPS:
+            raise AssertionError(f"the CLI stopped at step {trainer.state['step']}")
+        w4 = trainer.state["params"]["conv3:conv4"]["w"]
+        print(f"[{card}] alexnet_local conv3:conv4 LOCAL weight {tuple(w4.shape)}, "
+              f"{w4.numel()} elements")
+        expect_trained(f"alexnet_local after {CLI_STEPS} CLI steps", trainer.state["params"],
+                       trainer.p_init, card)
+        log = (out / "alexnet_local_train_log.txt").read_text()
+        losses = [float(v) for v in re.findall(r"^step \d+ loss (\S+)", log, re.M)]
+        print(f"[{card}] alexnet_local train log: losses {losses}; "
+              f"{sorted(q.name for q in prof.iterdir()) if prof.is_dir() else 'no'} trace files")
+        if len(losses) != CLI_STEPS // 5 or not np.isfinite(losses).all():
+            raise AssertionError(f"alexnet_local's logged losses {losses}")
+        if not prof.is_dir() or not any(prof.iterdir()):
+            raise AssertionError("--profile-dir wrote no trace")
+        graph = trainer.graph
+        del trainer.p_init
+        data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
+        batch = trainer.device_batch(data.get_batch())
+        data.close()
+        step = make_train_step(graph, data.jitter_specs())
+        ev, dev_ms, host_ms = step_times(step, trainer.state, batch)
+        a_ev, a_dev, a_host = alexnet_times["train"]
+        print(f"[{card}] alexnet_local train step, batch {BATCH}, on a staged batch: device time "
+              f"with the launches hidden {dev_ms:.4f} ms ({BATCH / dev_ms * 1e3:.1f} img/s); host "
+              f"clock with synchronize {host_ms:.4f} ms, so the card idles "
+              f"{1 - dev_ms / host_ms:.3f} of it; events {ev:.4f} ms. AlexNet's in this run: "
+              f"{a_dev:.4f} ms device, {a_host:.4f} ms host clock, idle {1 - a_dev / a_host:.3f}")
+        if profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
+                for _ in range(5):
+                    step(trainer.state, batch)
+                torch.cuda.synchronize()
+            table = tr.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            (profile_dir / "alexnet_local_train_profile.txt").write_text(f"{card}\n{table}\n")
+        del trainer, cap, batch, step
+        torch.cuda.empty_cache()
+
+        # -- (c) --
+        (tmp / "check.pbtxt").write_text(GRAD_CHECK_MODEL)
+        reset_launches()
+        rc = grad_check_cli.main([str(tmp / "check.pbtxt"), "--batch-size", "2"])
+        gc_launches = read_launches()
+        print(f"[{card}] grad_check CLI, f32 on the card (eps 1e-3, tol 2e-3): rc {rc}; "
+              f"launches {gc_launches}")
+        if rc != 0:
+            raise AssertionError("grad_check found failures on the card")
+        if not (gc_launches["lrn_fwd"] > 0 and gc_launches["lrn_bwd"] > 0):
+            raise AssertionError("grad_check did not go through the LRN kernels")
+
+        # -- (d) --
+        auto_cfg = parse_dataset_config(f"""
+            name: "dummy_32" batch_size: 128 randomize_cpu: true
+            data_config {{ layer_name: "input" data_type: DUMMY image_size: 32 num_colors: 3
+                          scale: {1 / 255} dummy_size: 512 }}
+        """)
+        ag = build_graph(read_model(str(AUTOENCODER)))
+        data = DataHandler(auto_cfg)
+        step = make_train_step(ag, data.jitter_specs())
+        state = init_state(ag, device=dev)
+        p_init = clone_state(state)["params"]
+        losses = [step(state, device_batch(data.get_batch(), dev))["loss"].item()
+                  for _ in range(AUTOENCODER_STEPS)]
+        data.close()
+        print(f"[{card}] conv_autoencoder, {AUTOENCODER_STEPS} train steps over DUMMY 32x32x3 "
+              f"data: losses {losses}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"conv_autoencoder losses {losses}")
+        expect_trained("conv_autoencoder", state["params"], p_init, card)
+
+        # -- (e) --
+        if not have_h5py:
+            print(f"[{card}] extract phase: needs h5py, which does not import on this machine; "
+                  "not run (the train -> extract round trip is tested on the CPU in "
+                  "tests/test_torch_port_cli.py)")
+        else:
+            import h5py
+
+            ckpts = sorted(out.glob("alexnet_local_*.h5"))
+            (tmp / "val.pbtxt").write_text(dummy_imagenet_text(BATCH, 2 * BATCH, False))
+            feats = tmp / "fc7.h5"
+            rc = extract_cli.main([str(tmp / "alexnet_local.pbtxt"), str(tmp / "val.pbtxt"),
+                                   "--checkpoint", str(ckpts[-1]), "--output", str(feats),
+                                   "--layers", "fc7"])
+            with h5py.File(feats) as f:
+                fc7 = f["fc7"][...]
+            print(f"[{card}] extract CLI: fc7 {fc7.shape}, finite {bool(np.isfinite(fc7).all())}")
+            if rc != 0 or fc7.shape != (2 * BATCH, 4096) or not np.isfinite(fc7).all():
+                raise AssertionError(f"extract gave rc {rc}, fc7 {fc7.shape}")
+    return local_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -1547,7 +1886,7 @@ def main(argv=None) -> int:
     step = make_train_step(graph, train_jitter)
     step_state = clone_state(trainer.state)
     step_batch = batches[0]
-    time_paths(fwd, pred.params, staged, step, step_state, step_batch, card)
+    alexnet_times = time_paths(fwd, pred.params, staged, step, step_state, step_batch, card)
     with torch.inference_mode():
         plain_fwd_ms = cuda_ms(lambda: plain_alexnet(graph, params, staged["input"], spec, mean_t))
     host = []
@@ -1573,8 +1912,11 @@ def main(argv=None) -> int:
         profile_paths(fwd, pred.params, staged, step, step_state, step_batch, card,
                       args.profile_dir)
 
+    # -- 7. the model zoo and the CLIs ------------------------------------------
+    local_launches = check_zoo_and_clis(dev, gen, card, alexnet_times, args.profile_dir)
+
     paths = {"serving": serve_launches, "train": train_launches,
-             "reference_gradient": ref_launches}
+             "reference_gradient": ref_launches, "alexnet_local": local_launches}
 
     def kernel(name, source, replaces, also, err, parts, path):
         b_ms, b_by = bound(sum(work[t][0] for t in parts), sum(work[t][1] for t in parts))

@@ -4,7 +4,9 @@ The JAX package `convnet_tpu` stays the reference; this package runs the
 same `.pbtxt` models through PyTorch. Two slices are ported: serving,
 `Predictor` (predictor.py) over the eval forward, and training, `Trainer`
 (trainer.py) over a `DataHandler` (data/datahandler.py) with the
-reference's per-edge SGD (optim.py). Convolutions, pooling and GEMMs and
+reference's per-edge SGD (optim.py); every edge type of the JAX package,
+so every example model; and the three CLIs (`cli/`: train, extract,
+grad_check) and the model zoo (`models/`). Convolutions, pooling and GEMMs and
 their gradients go to cuDNN, cuBLAS and ATen through `torch.nn.functional`
 and autograd, as the JAX package left them to XLA; the Pallas kernels of
 those paths are hand-written CUDA kernels here (`csrc/`, bound in

@@ -1,0 +1,107 @@
+"""Train CLI (counterpart of `convnet_tpu/cli/train.py`).
+
+Usage:
+    python -m convnet_tpu_torch.cli.train MODEL.pbtxt TRAIN_DATA.pbtxt \
+        [VAL_DATA.pbtxt] [--output-dir DIR] [--max-iter N] [--batch-size N] \
+        [--device cuda|cpu]
+
+Builds the graph from the model pbtxt (input sizes from the data config),
+resumes from the newest checkpoint in the output dir if there is one, runs
+the train loop on one device and, when the model sets checkpoint_after,
+saves a checkpoint at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from convnet_tpu_torch import config
+from convnet_tpu_torch.cli import add_device_argument, resolve_device
+from convnet_tpu_torch.data.datahandler import DataHandler
+from convnet_tpu_torch.graph import build_graph
+from convnet_tpu_torch.trainer import Trainer
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="convnet_torch_train", description=__doc__)
+    p.add_argument("model", help="model .pbtxt")
+    p.add_argument("train_data", help="training DatasetConfig .pbtxt")
+    p.add_argument("val_data", nargs="?", default=None, help="validation DatasetConfig .pbtxt")
+    p.add_argument("--output-dir", default=None, help="checkpoint/output directory")
+    p.add_argument("--max-iter", type=int, default=None, help="override model max_iter")
+    p.add_argument("--batch-size", type=int, default=None, help="override batch size")
+    p.add_argument(
+        "--profile-dir",
+        default=None,
+        help="capture a torch.profiler trace of steps 5-15 here",
+    )
+    p.add_argument(
+        "--data-parallel",
+        type=int,
+        default=None,
+        help="override Model.parallel.data (the port runs on one device and "
+        "clamps a larger mesh to 1x1 with a warning)",
+    )
+    p.add_argument(
+        "--model-parallel",
+        type=int,
+        default=None,
+        help="override Model.parallel.model (clamped to 1 likewise)",
+    )
+    p.add_argument(
+        "--steps-per-launch",
+        type=int,
+        default=1,
+        help="train steps per device launch; only 1 is ported",
+    )
+    p.add_argument(
+        "--strict",
+        action="store_true",
+        help="fail on pbtxt fields unknown to the schema instead of "
+        "parsing leniently with a warning",
+    )
+    add_device_argument(p)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    if args.strict:
+        config.set_strict(True)
+    device = resolve_device(args.device)
+    model = config.read_model(args.model)
+    if args.batch_size:
+        model.batch_size = args.batch_size
+    if args.data_parallel is not None:
+        model.parallel.data = args.data_parallel
+    if args.model_parallel is not None:
+        model.parallel.model = args.model_parallel
+    train_cfg = config.read_dataset_config(args.train_data)
+    train_data = DataHandler(train_cfg, batch_size=model.batch_size, seed=model.seed)
+    val_data = None
+    if args.val_data:
+        val_cfg = config.read_dataset_config(args.val_data)
+        val_data = DataHandler(val_cfg, batch_size=model.batch_size, randomize=False)
+    try:
+        graph = build_graph(model, train_data.input_image_sizes())
+        trainer = Trainer(
+            graph,
+            train_data,
+            val_data,
+            checkpoint_dir=args.output_dir,
+            model_proto=model,
+            steps_per_launch=args.steps_per_launch,
+            device=device,
+        )
+        trainer.train(max_iter=args.max_iter, profile_dir=args.profile_dir)
+        if graph.checkpoint_after:
+            trainer.save()
+    finally:
+        train_data.close()
+        if val_data:
+            val_data.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -2,8 +2,10 @@
 `convnet_tpu/model.py`).
 
 Params are `{edge_name: {"w": tensor, "b": tensor}}` for weighted edges,
-f32, in the JAX package's layouts (HWIO conv weights, (H*W*C, units) FC
-weights), so a JAX params tree maps over unchanged (`params_from_numpy`).
+f32 (float64 for the gradient check's --x64), in the JAX package's
+layouts (HWIO conv weights, (H*W*C, units) FC weights, (Cin, Cout)
+CONV_ONETOONE weights, (out_h, out_w, k*k*Cin, Cout) LOCAL weights), so a
+JAX params tree maps over unchanged (`params_from_numpy`).
 Activations are NHWC; FC outputs are (B, 1, 1, units).
 
 The forward keeps the reference's fusion plan and cast points:
@@ -37,7 +39,7 @@ from convnet_tpu_torch import checkpoint
 from convnet_tpu_torch.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
 from convnet_tpu_torch.ops import losses as losses_ops
 from convnet_tpu_torch.ops.activations import apply_activation
-from convnet_tpu_torch.ops.conv import S2DInput, conv2d, fc
+from convnet_tpu_torch.ops.conv import S2DInput, conv2d, conv_onetoone, fc
 from convnet_tpu_torch.ops.dropout import dropout
 from convnet_tpu_torch.ops.fused_pool_lrn import (
     fusion_applicable,
@@ -48,7 +50,9 @@ from convnet_tpu_torch.ops.lrn import (
     response_norm_cross_map,
     response_norm_cross_map_bias,
 )
+from convnet_tpu_torch.ops.local import local_conv2d, local_weight_shape
 from convnet_tpu_torch.ops.pool import maxpool2d
+from convnet_tpu_torch.ops.resample import downsample, rgb_to_yuv, upsample
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -59,19 +63,21 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 
 def _weight_shape(graph: Graph, e: EdgeSpec) -> Tuple[int, ...]:
     src_h, src_w, src_c = graph.shapes[e.source]
-    dst_c = graph.shapes[e.dest][2]
+    dst_h, dst_w, dst_c = graph.shapes[e.dest]
     if e.edge_type == ET.FC:
         return (src_h * src_w * src_c, dst_c)
     if e.edge_type == ET.CONV:
         return (e.kernel_size, e.kernel_size, src_c // e.num_groups, dst_c)
-    raise NotImplementedError(
-        f"edge {e.name}: {ET.Name(e.edge_type)} weights are not ported yet"
-    )
+    if e.edge_type == ET.CONV_ONETOONE:
+        return (src_c, dst_c)
+    if e.edge_type == ET.LOCAL:
+        return local_weight_shape(dst_h, dst_w, e.kernel_size, src_c, dst_c)
+    raise ValueError(f"edge {e.name} has no weights")
 
 
 def _bias_shape(graph: Graph, e: EdgeSpec) -> Tuple[int, ...]:
     dst_h, dst_w, dst_c = graph.shapes[e.dest]
-    if e.edge_type == ET.CONV and not e.shared_bias:
+    if e.edge_type in (ET.CONV, ET.LOCAL) and not e.shared_bias:
         return (dst_h, dst_w, dst_c)
     return (dst_c,)
 
@@ -86,7 +92,9 @@ def param_shapes(graph: Graph) -> Dict[str, Dict[str, Tuple[int, ...]]]:
 
 def _init_weight(rng: np.random.Generator, e: EdgeSpec, shape) -> np.ndarray:
     kind, scale = e.initialization, e.init_wt
-    fan_in = int(np.prod(shape[:-1]))  # every layout contracts all but the last dim
+    # every layout contracts all but the last dim; for LOCAL that counts the
+    # out_h*out_w sites too, as the JAX package does (model.py:461-463)
+    fan_in = int(np.prod(shape[:-1]))
     if kind == INIT.CONSTANT:
         return np.full(shape, scale, np.float32)
     if kind == INIT.DENSE_GAUSSIAN:
@@ -105,12 +113,16 @@ def _init_weight(rng: np.random.Generator, e: EdgeSpec, shape) -> np.ndarray:
     raise ValueError(f"unknown initialization {kind}")
 
 
-def init_params(graph: Graph, seed: Optional[int] = None, device="cpu") -> Params:
+def init_params(
+    graph: Graph, seed: Optional[int] = None, device="cpu", dtype=torch.float32
+) -> Params:
     """Initialise every weighted edge with its pbtxt init mode, from numpy
     Generators seeded by (seed, edge index); a PRETRAINED edge loads its
     weights and bias from its checkpoint (`pretrained_model`, the edge
     `pretrained_edge_name` or its own name). The draws are not the JAX
-    package's (threefry); parity tests share params via params_from_numpy."""
+    package's (threefry); parity tests share params via params_from_numpy.
+    The values are drawn in f32 and then take `dtype` (float64 for the
+    gradient check's --x64, as the JAX package casts its f32 draws)."""
     root = graph.seed if seed is None else seed
     arrays = {}
     for i, e in enumerate(graph.weighted_edges):
@@ -128,15 +140,16 @@ def init_params(graph: Graph, seed: Optional[int] = None, device="cpu") -> Param
             "w": _init_weight(rng, e, _weight_shape(graph, e)),
             "b": np.full(_bias_shape(graph, e), e.init_bias, np.float32),
         }
-    return params_from_numpy(arrays, device)
+    return params_from_numpy(arrays, device, dtype)
 
 
-def params_from_numpy(params, device="cpu") -> Params:
+def params_from_numpy(params, device="cpu", dtype=torch.float32) -> Params:
     """{edge: {"w", "b"}} arrays (a JAX params tree, or numpy) -> the
-    port's f32 tensors, same layouts and values."""
+    port's tensors of `dtype` (f32, or float64), same layouts and values."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return {
         name: {
-            k: torch.as_tensor(np.array(v, np.float32), device=device)
+            k: torch.as_tensor(np.array(v, np_dtype), device=device).to(dtype)
             for k, v in p.items()
         }
         for name, p in params.items()
@@ -214,7 +227,19 @@ def _edge_fprop(e: EdgeSpec, p, x, cdt, fuse_relu=False, defer_bias=False, bias=
         if bias is not None:
             return response_norm_cross_map_bias(x, bias, *args)
         return response_norm_cross_map(x, *args)
-    raise NotImplementedError(f"edge {e.name}: {ET.Name(t)} is not ported yet")
+    if t == ET.CONV_ONETOONE:
+        z = conv_onetoone(x, p["w"], compute_dtype=cdt)
+        return z + p["b"].to(z.dtype)
+    if t == ET.LOCAL:
+        z = local_conv2d(x, p["w"], e.stride, e.padding, e.kernel_size, compute_dtype=cdt)
+        return z + p["b"].to(z.dtype)
+    if t == ET.UPSAMPLE:
+        return upsample(x, e.sample_factor)
+    if t == ET.DOWNSAMPLE:
+        return downsample(x, e.sample_factor)
+    if t == ET.RGBTOYUV:
+        return rgb_to_yuv(x)
+    raise ValueError(f"edge {e.name}: unknown edge type {t}")
 
 
 def apply_fn(

@@ -165,3 +165,11 @@ def fc(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     xf = x.reshape(x.shape[0], -1)
     xf, w = _cast(xf, w, compute_dtype)
     return torch.matmul(xf, w)
+
+
+def conv_onetoone(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """1x1 channel-mixing edge (CONV_ONETOONE, `convnet_tpu/ops/conv.py:
+    382-397`): x (B, H, W, Cin) NHWC times w (Cin, Cout) over the channel
+    axis. Returns NHWC in compute_dtype when it is set."""
+    x, w = _cast(x, w, compute_dtype)
+    return torch.matmul(x, w)

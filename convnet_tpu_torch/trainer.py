@@ -10,8 +10,9 @@ draws are not the JAX package's (threefry).
 
 `Trainer` writes a checkpoint every `checkpoint_after` steps and resumes
 from the newest one in its checkpoint directory (`checkpoint.py`, the JAX
-package's HDF5 layout). Not ported yet, and raising NotImplementedError
-rather than skipped: several steps per launch, and the profiler trace.
+package's HDF5 layout). `Trainer.train(profile_dir=...)` traces the
+reference's window of steps with torch.profiler. Not ported yet, and
+raising NotImplementedError rather than skipped: several steps per launch.
 """
 
 from __future__ import annotations
@@ -56,6 +57,20 @@ def _as_tensor(v, device):
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def device_batch(host_batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Host arrays as tensors on `device`. To a card they go through
+    pinned memory without blocking, so the copy does not wait for the work
+    in flight."""
+    device = torch.device(device)
+    out = {}
+    for k, v in host_batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
 
 
 def init_state(graph: Graph, seed: Optional[int] = None, device="cpu") -> TrainState:
@@ -313,26 +328,31 @@ class Trainer:
 
     def device_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A DataHandler batch as tensors on the Trainer's device."""
-        out = {}
-        for k, v in host_batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                # pinned, so the copy does not wait for the step in flight
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t.to(self.device)
-        return out
+        return device_batch(host_batch, self.device)
 
     def train(self, max_iter: Optional[int] = None, profile_dir: Optional[str] = None):
-        """The step loop up to `max_iter` steps (default: the pbtxt's)."""
-        if profile_dir is not None:
-            raise NotImplementedError("profile_dir is not ported yet")
+        """The step loop up to `max_iter` steps (default: the pbtxt's).
+        profile_dir: trace steps start+5 to start+15 (past the first
+        steps' warm-up) with torch.profiler into this directory, as a
+        TensorBoard-readable Chrome trace (the reference's window,
+        `convnet_tpu/trainer.py:444-524`); a run that ends inside the
+        window writes what it traced, one that ends before it says so."""
         g = self.graph
         total = max_iter if max_iter is not None else g.max_iter
         it = self.state["step"]
+        p_start, p_stop = it + 5, it + 15
+        prof = None
         window: List[Dict[str, torch.Tensor]] = []
         t0 = time.time()
         next_batch = self.device_batch(self.train_data.get_batch()) if it < total else None
         while it < total:
+            if profile_dir is not None:
+                if prof is None and p_start <= it < p_stop:
+                    prof = self._start_trace(profile_dir)
+                elif prof is not None and it >= p_stop:
+                    self._stop_trace(prof)
+                    prof = None
+                    self.log(f"profile trace -> {profile_dir}")
             metrics = self._train_step(self.state, next_batch)
             prev, it = it, it + 1
             # stage the next batch while this step runs on the device
@@ -365,7 +385,33 @@ class Trainer:
             if g.checkpoint_after and it // g.checkpoint_after > prev // g.checkpoint_after:
                 self.save()
                 t0 = time.time()
+        if prof is not None:
+            self._stop_trace(prof)
+            self.log(f"profile trace -> {profile_dir} (truncated at end of run)")
+        elif profile_dir is not None and it < p_start:
+            self.log(
+                f"WARNING: profile_dir given but the run ended at step {it} "
+                f"before the trace window (starts at step {p_start}); no "
+                "trace was captured"
+            )
         return self.state
+
+    def _start_trace(self, profile_dir: str):
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof) -> None:
+        """End the trace once the traced steps' device work is done, and
+        write it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
 
     def validate(self, num_batches: Optional[int] = None) -> Tuple[float, float]:
         """(error rate, mean loss) over num_batches validation batches

@@ -38,6 +38,7 @@ def test_walk_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for want in ("convnet_tpu_torch/config.py", "convnet_tpu_torch/graph.py",
                  "convnet_tpu_torch/proto/__init__.py", "convnet_tpu_torch/ops/fused_pool_lrn.py",
+                 "convnet_tpu_torch/cli/grad_check.py", "convnet_tpu_torch/models/zoo.py",
                  "chip_smoke.py"):
         assert want in names
     assert _forbidden("convnet_tpu.graph") and _forbidden("jax.numpy")
@@ -45,12 +46,19 @@ def test_walk_sees_the_whole_port():
 
 
 def test_entry_points_load_no_jax_and_no_jax_package():
+    """The entry points, the CLIs and the zoo import neither JAX nor the
+    JAX package, and none imports h5py when it is imported (the card's
+    machine has none: checkpoints and the extract CLI's writer import it
+    when they open a file)."""
     code = (
         "import sys\n"
         "import convnet_tpu_torch.trainer, convnet_tpu_torch.predictor\n"
         "import convnet_tpu_torch.data.datahandler, convnet_tpu_torch.config\n"
+        "import convnet_tpu_torch.cli.train, convnet_tpu_torch.cli.extract\n"
+        "import convnet_tpu_torch.cli.grad_check, convnet_tpu_torch.models.zoo\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.'))\n"
+        "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.')\n"
+        "             or m == 'h5py' or m.startswith('h5py.'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

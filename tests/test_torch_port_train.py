@@ -650,9 +650,6 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     data = DataHandler(cfg)
     with pytest.raises(NotImplementedError, match="steps_per_launch"):
         pt_trainer.Trainer(g, data, device="cpu", steps_per_launch=2)
-    tr = pt_trainer.Trainer(g, data, checkpoint_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        tr.train(1, profile_dir=str(tmp_path))
     text = TRAIN_NET.format(dtype="bfloat16", adtype="bfloat16", crop=CROP, dropprob=0.0, data=1)
     remat = pt_build_graph(pt_config.parse_model(text.replace("seed: 3", "seed: 3 remat: true")))
     with pytest.raises(NotImplementedError, match="remat"):
