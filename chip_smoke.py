@@ -21,12 +21,16 @@ any failure raises and the script exits non-zero:
    ulp (the bar --ulp-study measured), f32 dx
    within rtol 1e-4 and atol 3e-5 of the largest |dx|, db within rtol
    1e-4 of a float64 column sum; dropout array-equal, with the backward's
-   mask equal to the forward's. The max pool at pool1, pool2, pool5 and a
+   mask equal to the forward's; the step-draws kernel (a train step's
+   dropout keys, crop origins and flips from the (seed, step) the card
+   holds) array-equal at four (seed, step). The max pool at pool1, pool2, pool5 and a
    ragged geometry (C = 100, 14x14, pad 1, the ceil-mode last window), each
    also from a view off a 16-byte boundary, bit for bit (NaN payloads and
    the sign of zero included) on inputs with planted NaNs; the fused
    LRN -> max pool forward at rnorm1/pool1 and rnorm2/pool2, with bias and
-   ReLU, array-equal to the max pool of the LRN kernel's output; its backward held to the plain chain fed with that
+   ReLU, bit for bit the max pool of the LRN kernel's output, and so again
+   without them on inputs with planted NaNs and windows that hold both -0
+   and +0; its backward held to the plain chain fed with that
    same y by the same bar (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
    db within rtol 1e-4 of a float64 sum and the same in two runs; inputs
    on a grid of halves, so window maxima tie (the count is printed). An
@@ -44,14 +48,14 @@ any failure raises and the script exits non-zero:
    (uint8 256x256x3 images, 1000 classes, random 224 crops and flips,
    scale 1/255, mean 0.45, batch 128) takes 20 steps and one validation
    pass. The parameters must move and stay finite, the losses be finite,
-   each step launch lrn_fwd 2, lrn_bwd 2, dropout 4 and s2d_prologue 1
-   times, and three steps from one state must agree with a train step
+   each step launch lrn_fwd 2, lrn_bwd 2, dropout 4, s2d_prologue 1 and
+   step_draws 1 times, and three steps from one state must agree with a train step
    composed from the plain versions with autograd (tolerance printed).
 5. Training with the reference's pool gradient: the same Trainer takes 20
    more steps with CONVNET_POOL_LRN_FUSED=1 and CONVNET_POOL_BACKEND=pallas
    set (and restored after). Each step must launch pool_lrn_fwd 2,
-   pool_lrn_bwd 2, maxpool_fwd 1, lrn_fwd 0, lrn_bwd 0, dropout 4 and
-   s2d_prologue 1 times; the parameters stay finite; three steps from one
+   pool_lrn_bwd 2, maxpool_fwd 1, lrn_fwd 0, lrn_bwd 0, dropout 4,
+   s2d_prologue 1 and step_draws 1 times; the parameters stay finite; three steps from one
    state must agree with a step composed from the plain versions with
    autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
    gradient. Then, where h5py imports (else one line says the phase was
@@ -85,7 +89,7 @@ any failure raises and the script exits non-zero:
    ImageNet-shaped data with --profile-dir, from a temp copy of the model
    that logs a loss every 5 steps (and, where h5py does not import, sets
    checkpoint_after: 0): each step must launch lrn_fwd 2, lrn_bwd 2,
-   dropout 4 and s2d_prologue 1 times, every parameter (the 224M-element
+   dropout 4, s2d_prologue 1 and step_draws 1 times, every parameter (the 224M-element
    LOCAL weight too) move and stay finite, the logged losses be finite
    and a trace be written; then its train step's times beside AlexNet's.
    (c) the grad_check CLI on the card in f32 at its defaults (eps 1e-3,
@@ -94,6 +98,30 @@ any failure raises and the script exits non-zero:
    (d) conv_autoencoder, 5 train steps over DUMMY 32x32x3 data: finite
    losses, every parameter moved. (e) where h5py imports, fc7 from (b)'s
    checkpoint through the extract CLI (else one line says it was not run).
+8. Stored data, several steps per launch, remat. (a) A learnable set
+   (1280 uint8 256x256x3 images over 10 classes, each class its colour
+   offset and stripes, plus noise; int32 labels), written with the port's
+   write_raw_cache (the C++ gather's host ms per batch printed beside the
+   plain memmap read's), trains full-width AlexNet through the train CLI
+   at --steps-per-launch 4 for 600 steps, logging every 20: the last
+   logged loss must fall below ln 10 and the last window's train error
+   below 0.5 (the pbtxt's eps first, then x2, x4 and x8 from the same
+   state; the eps used is printed); the CLI's --profile-dir traces its
+   window of replays, and each replayed step must launch there, counted
+   by kernel name in the trace, what an eager step does (and so by its
+   capture's count). (b) Where PIL imports:
+   JPEG and mixed JPEG/PNG lists through IMAGE_RAW (each reader printed),
+   SLIDING_WINDOW's features on the card against the CPU (through the
+   extract CLI where h5py imports) and a TXT stream. (c) From one state
+   and 8 staged batches, replays of the captured step against eager
+   steps: each step's crops, flips and dropout keys and masks
+   array-equal, parameters and momenta array-equal or within UPDATE_TOL;
+   the step's time at 1 and 4 a launch on both train paths, and
+   Trainer.train's img/s over 48 steps at 1 and 4 a launch on DUMMY and
+   on the raw cache, with its host stages' ms. (d) One AlexNet step with
+   remat on and off from one state: parameters equal or within
+   UPDATE_TOL; max_memory_allocated of each. A JSON line holds phase 8's
+   numbers.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
@@ -102,7 +130,9 @@ torch.profiler into that directory (with --time-only too), and phase 7a
 writes a table of five LOCAL forwards and backwards there, phase 7b one
 of five alexnet_local train steps. --time-only
 runs phases 1 and 6 alone, without the plain versions and library calls,
-and prints the times as one JSON line; --root imports convnet_tpu_torch from another checkout, so that
+and prints the times as one JSON line (with the step at 4 a launch and
+the Trainer's img/s at 4 a launch where the checkout has them, else
+"n/a"); --root imports convnet_tpu_torch from another checkout, so that
 two commits' kernels can be timed in turns in one call; --kernels TEXT
 times just the kernels whose name holds TEXT, a few seconds a turn while a
 kernel is being tuned. --ulp-study runs
@@ -246,6 +276,48 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
     return statistics.median(spent) * 1e6
 
 
+def enqueue_ms(fn, calls: int = 2, reps: int = ITERS) -> float:
+    """Median host milliseconds to enqueue one call of fn (a forward or a
+    train step of a few hundred launches) with the card held behind a spin
+    that outlasts `calls` calls: the host's cost of a call apart from the
+    card's time. A run in which the spin ended first is repeated with a
+    longer spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin_ms, runs = 50.0, []
+    while len(runs) < reps:
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start = torch.cuda.Event()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        spent = time.perf_counter() - t0
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            runs.append(spent * 1e3 / calls)
+        elif spin_ms > 4000:
+            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
+        else:
+            spin_ms *= 4
+    return statistics.median(runs)
+
+
+def request_ms(pred, x) -> float:
+    """Median host clock of one Predictor request (numpy in, numpy out)
+    over ITERS requests after WARMUP."""
+    host = []
+    for i in range(WARMUP + ITERS):
+        t0 = time.perf_counter()
+        pred({"input": x})
+        if i >= WARMUP:
+            host.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host)
+
+
 def bf16_ulp_map(a, b):
     """The distance in bf16 ulps between two bf16 tensors, element by element."""
     import torch
@@ -313,14 +385,18 @@ def reset_launches():
 
     lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
     pool.LAUNCHES = fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
+    dropout.DRAW_LAUNCHES = 0
 
 
 def read_launches():
-    from convnet_tpu_torch.ops import dropout, fused_pool_lrn, lrn, pool, s2d_relayout
+    from convnet_tpu_torch.ops import launch_counts
 
-    return {"lrn_fwd": lrn.LAUNCHES, "lrn_bwd": lrn.BWD_LAUNCHES, "dropout": dropout.LAUNCHES,
-            "s2d_prologue": s2d_relayout.LAUNCHES, "maxpool_fwd": pool.LAUNCHES,
-            "pool_lrn_fwd": fused_pool_lrn.LAUNCHES, "pool_lrn_bwd": fused_pool_lrn.BWD_LAUNCHES}
+    return launch_counts()
+
+
+# a train step's launches on the default path (step_draws: the dropout keys
+# and the crops, drawn on the card)
+TRAIN_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1, "step_draws": 1}
 
 
 def expect_launches(what, got, per_call, calls):
@@ -613,7 +689,7 @@ def check_dropout(dev, gen, card):
         err = (got.float() - want.float()).abs().max().item()
         worst = max(worst, err)
         xg = x.clone().requires_grad_()
-        y = drop.dropout(xg, 0.5, seed=0, step=7, layer=10)
+        y = drop.dropout(xg, 0.5, key)
         (gx,) = torch.autograd.grad(y, xg, torch.ones_like(y))
         frac = keep.double().mean().item()
         other = [
@@ -631,6 +707,49 @@ def check_dropout(dev, gen, card):
         if any(torch.equal(o != 0, keep) for o in other):
             raise AssertionError("another step or layer drew the same mask")
     return worst
+
+
+# AlexNet's dropout layers, fc6 and fc7, by their index among the non-input
+# layers (the number their keys are derived from)
+ALEXNET_DROPOUT_LAYERS = (10, 11)
+
+
+def check_step_draws(dev, card):
+    """The step-draws kernel vs its plain version at a train step's draw:
+    AlexNet's two dropout keys and the crops and flips of BATCH images RAW
+    -> CROP, at several (seed, step), both halves of the 64-bit words in
+    use: array-equal; the keys equal dropout_key's host derivation; the
+    origins cover [0, RAW - CROP]; about half the images flip. Returns max
+    |err| (0)."""
+    import torch
+
+    from convnet_tpu_torch.data.jitter import crop_draw
+    from convnet_tpu_torch.ops import dropout as drop
+
+    words = [(i, 0) for i in ALEXNET_DROPOUT_LAYERS]
+    draw = crop_draw("input", BATCH, RAW, RAW, CROP, True, True)
+    origins, flipped = set(), 0
+    for seed, step in ((42, 0), (42, 1), (7, (1 << 32) + 5), ((1 << 33) + 1, 123)):
+        state = torch.tensor([seed, step], dtype=torch.int64, device=dev)
+        keys, crops = drop.step_draws(state, words, draw)
+        want_keys, want_crops = drop.step_draws_reference(state, words, draw)
+        torch.cuda.synchronize()
+        if not (torch.equal(keys, want_keys)
+                and all(torch.equal(a, b) for a, b in zip(crops, want_crops))):
+            raise AssertionError(f"step_draws at (seed, step) ({seed}, {step}) differs from its "
+                                 "plain version")
+        host = [drop.dropout_key(seed, step, i) for i in ALEXNET_DROPOUT_LAYERS]
+        if [tuple(k) for k in keys.tolist()] != host:
+            raise AssertionError("step_draws' keys differ from dropout_key's")
+        origins |= set(crops[0].tolist()) | set(crops[1].tolist())
+        flipped += int(crops[2].sum().item())
+    print(f"[{card}] step_draws ({len(words)} keys, crops of {BATCH} images {RAW} -> {CROP} with "
+          f"flips) at 4 (seed, step): array-equal to its plain version, keys equal to "
+          f"dropout_key's; {len(origins)} of {RAW - CROP + 1} origins drawn, {flipped} of "
+          f"{4 * BATCH} images flipped")
+    if origins - set(range(RAW - CROP + 1)) or not 0.35 < flipped / (4 * BATCH) < 0.65:
+        raise AssertionError("step_draws' crops fall outside their range or its flips are skewed")
+    return 0.0
 
 
 # AlexNet's max pools (k3 s2) and its LRN -> pool chains at batch 128
@@ -770,10 +889,34 @@ def check_pool_lrn(dev, gen, card):
             torch.cuda.synchronize()
             err = (m.float() - want_m.float()).abs().max().item()
             worst_m = max(worst_m, err)
-            print(f"[{card}] pool_lrn_fwd {tag}: max_abs_err {err} vs maxpool(lrn_fwd); "
-                  f"{tied_windows(y, m, 3, 2)} of {m.numel()} window maxima tied")
-            if not torch.equal(m, want_m):
-                raise AssertionError(f"pool_lrn_fwd {tag} is not array-equal to maxpool(lrn_fwd)")
+            print(f"[{card}] pool_lrn_fwd {tag}: max_abs_err {err} vs maxpool(lrn_fwd), bit for bit "
+                  f"{same_bits(m, want_m)}; {tied_windows(y, m, 3, 2)} of {m.numel()} window "
+                  "maxima tied")
+            if not same_bits(m, want_m):
+                raise AssertionError(f"pool_lrn_fwd {tag} is not bit for bit maxpool(lrn_fwd)")
+            # without bias and ReLU (a ReLU maps NaN and -0 to +0): planted
+            # NaNs, and windows that hold -0 and +0 (halves round to both)
+            zn = plant_nans(gen, z.clone())
+            mn = plrn.pool_lrn_fwd(zn, LRN_N, LRN_ALPHA, 0.75, 3, 2)
+            yn = lrn.lrn_fwd(zn.view(-1, c), LRN_N, LRN_ALPHA, 0.75).view(shape)
+            want_n = pool.maxpool_reference(yn, 3, 2)
+            torch.cuda.synchronize()
+            zeros = yn == 0
+            neg = pool.maxpool_reference((zeros & yn.signbit()).float(), 3, 2) > 0
+            pos = pool.maxpool_reference((zeros & ~yn.signbit()).float(), 3, 2) > 0
+            both = int((neg & pos).sum().item())
+            ok = same_bits(mn, want_n)
+            print(f"[{card}] pool_lrn_fwd {name} {shape} {str(dtype)[6:]} NaNs and signed zeros: "
+                  f"bit for bit {ok}; {int(want_n.isnan().sum().item())} NaN and "
+                  f"{int(((want_n == 0) & want_n.signbit()).sum().item())} -0 outputs of "
+                  f"{want_n.numel()}, {both} windows hold both -0 and +0")
+            if not ok:
+                differ = (mn.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+                          != want_n.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+                raise AssertionError(f"pool_lrn_fwd {name} {dtype} with NaNs and signed zeros: "
+                                     f"{int(differ.sum().item())} outputs differ in their bits "
+                                     "from maxpool(lrn_fwd)")
+            del zn, mn, yn, want_n, zeros
             g = torch.randn(m.shape, generator=gen, device=dev).to(dtype)
             dz, db = plrn.pool_lrn_bwd(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, **kw)
             want_dz, _ = plrn._bwd_reference(g, m, z, LRN_N, LRN_ALPHA, 0.75, 3, 2, y=y, **kw)
@@ -1106,16 +1249,16 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     import torch
 
     from convnet_tpu_torch import optim
-    from convnet_tpu_torch.data.jitter import sample_crop_flip
+    from convnet_tpu_torch.data.jitter import crop_draw
+    from convnet_tpu_torch.ops.dropout import step_draws_reference
     from convnet_tpu_torch.ops.losses import softmax_cross_entropy
-    from convnet_tpu_torch.trainer import field_generator
 
     seed, step = state["seed"], state["step"]
     x = batch["input"]
     b, h, w, _ = x.shape
-    gen = field_generator(seed, step, "input", x.device)
-    oy, ox, flips = sample_crop_flip(gen, b, h, w, spec.image_size, spec.can_translate,
-                                     spec.can_flip)
+    rng = torch.tensor([seed, step], dtype=torch.int64, device=x.device)
+    draw = crop_draw("input", b, h, w, spec.image_size, spec.can_translate, spec.can_flip)
+    oy, ox, flips = step_draws_reference(rng, (), draw)[1]
     xs = plain_prologue(graph, x, spec, mean_t, oy, ox, flips)
     params = state["params"]
     keys = [(n, k) for n in params for k in ("w", "b")]
@@ -1127,7 +1270,7 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     grads = {n: {} for n in params}
     for (n, k), g in zip(keys, flat):
         grads[n][k] = g
-    optim.apply_updates(graph, params, state["moms"], grads, step)
+    optim.apply_updates(graph, params, state["moms"], grads, step=step)
     state["step"] = step + 1
     return loss.detach()
 
@@ -1160,16 +1303,18 @@ def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
 
     times, library, work, host = {}, {}, {}, {}
 
-    def timed(part, kernel, reference, inputs, lib=None, **kw):
+    def timed(part, kernel, reference, inputs, lib=None, plain_timer=None, **kw):
         """Time kernel (and, with `plain`, reference and lib) on each of
-        the input tuples in turn."""
+        the input tuples in turn; plain_timer(calls) times the reference
+        where device_ms cannot."""
         if only and only not in part:
             return
         calls = [functools.partial(kernel, *x, **kw) for x in inputs]
         host[part] = host_us(calls[0])
         ref_ms = None
         if plain:
-            ref_ms = device_ms(*[functools.partial(reference, *x, **kw) for x in inputs])
+            ref_calls = [functools.partial(reference, *x, **kw) for x in inputs]
+            ref_ms = (plain_timer or (lambda c: device_ms(*c)))(ref_calls)
             if lib is not None:
                 library[part] = device_ms(*[functools.partial(lib, *x) for x in inputs])
         times[part] = (device_ms(*calls), ref_ms)
@@ -1220,11 +1365,31 @@ def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
         work[part] = (BATCH * CROP * CROP * 3 + 2 * s2d_out, 4 * s2d_out)  # the crops
     del images, forms
 
+    # the key on the card, as the train step derives it there (a checkout
+    # whose kernel takes the key by value, without step_draws, gets the pair)
     key = drop.dropout_key(0, 0, 10)
+    if hasattr(drop, "step_draws"):
+        key = torch.tensor(key, dtype=torch.int64, device=dev)
     xds = [(bf16((BATCH, 1, 1, 4096)), 0.5, key) for _ in range(2)]
     timed("dropout", drop.dropout_apply, drop.dropout_reference, xds,
           lambda x, rate, _: F.dropout(x, rate, training=True))
     work["dropout"] = (4 * BATCH * 4096, 27 * BATCH * 4096)
+
+    if hasattr(drop, "step_draws"):
+        from convnet_tpu_torch.data.jitter import crop_draw
+
+        words = [(i, 0) for i in ALEXNET_DROPOUT_LAYERS]
+        draw = crop_draw("input", BATCH, RAW, RAW, CROP, True, True)
+        states = [(torch.tensor([42, t], dtype=torch.int64, device=dev), words, draw)
+                  for t in (0, 1)]
+        # the plain version is about a thousand small launches, more than
+        # CUDA's launch queue holds: it is timed by events around a call
+        timed("step_draws", drop.step_draws, drop.step_draws_reference, states,
+              plain_timer=lambda calls: statistics.median(cuda_ms(c) for c in calls))
+        # bytes: the state, the keys, the origins and the flips; operations:
+        # a 10-round Philox (about 100 integer operations) per key, two per
+        # image (its field's key, then its draw)
+        work["step_draws"] = (16 + 16 * len(words) + 9 * BATCH, 100 * len(words) + 200 * BATCH)
 
     # pool5 runs on the reference-gradient path; pool1 and pool2 are timed
     # for the default path's choice. Each is an exact cover, where torch's
@@ -1291,27 +1456,33 @@ def step_times(step, state, batch):
 
 
 def time_paths(fwd, fwd_params, staged, step, state, batch, card):
-    """The serving forward's time (events, and device time with the
-    launches hidden) and the train step's on both train paths
-    (step_times). Prints them; returns {"forward": (events, device),
-    "train": (events, device, host), "reference_gradient": (...)}."""
+    """The serving forward's time (events, device time with the launches
+    hidden, and the host's time to enqueue it) and the train step's on
+    both train paths (step_times, and the enqueue time). Prints them;
+    returns {"forward": (events, device, enqueue), "train": (events,
+    device, host, enqueue), "reference_gradient": (...)}."""
     import torch
 
     with torch.inference_mode():
         fwd_ev = cuda_ms(lambda: fwd(fwd_params, staged))
         fwd_dev = device_ms(lambda: fwd(fwd_params, staged), k=1, reps=ITERS)
+        fwd_enq = enqueue_ms(lambda: fwd(fwd_params, staged))
     print(f"[{card}] AlexNet forward, batch {BATCH}: device time with the launches hidden "
-          f"{fwd_dev:.4f} ms; events around one call {fwd_ev:.4f} ms")
-    out = {"forward": (fwd_ev, fwd_dev), "train": step_times(step, state, batch)}
+          f"{fwd_dev:.4f} ms; events around one call {fwd_ev:.4f} ms; host enqueue (card held "
+          f"behind a spin) {fwd_enq:.4f} ms")
+    out = {"forward": (fwd_ev, fwd_dev, fwd_enq),
+           "train": (*step_times(step, state, batch), enqueue_ms(lambda: step(state, batch)))}
     with pool_switches():
-        out["reference_gradient"] = step_times(step, state, batch)
+        out["reference_gradient"] = (*step_times(step, state, batch),
+                                     enqueue_ms(lambda: step(state, batch)))
     for path, what in (("train", "AlexNet train step"),
                        ("reference_gradient", f"AlexNet train step with {POOL_SWITCHES}")):
-        ev, dev_ms, host_ms = out[path]
+        ev, dev_ms, host_ms, enq_ms = out[path]
         print(f"[{card}] {what}, batch {BATCH}, on a staged batch: device time with the "
               f"launches hidden {dev_ms:.4f} ms ({BATCH / dev_ms * 1e3:.1f} img/s); host clock "
               f"with synchronize {host_ms:.4f} ms ({BATCH / host_ms * 1e3:.1f} img/s), so the "
-              f"card idles {1 - dev_ms / host_ms:.3f} of it; events {ev:.4f} ms")
+              f"card idles {1 - dev_ms / host_ms:.3f} of it; events {ev:.4f} ms; host enqueue "
+              f"(card held behind a spin) {enq_ms:.4f} ms")
     return out
 
 
@@ -1327,7 +1498,13 @@ def profile_paths(fwd, fwd_params, staged, step, state, batch, card, out: Path) 
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows)
+        averages = prof.key_averages()
+        table = averages.table(sort_by="cuda_time_total", row_limit=rows)
+        # the host's CUDA API calls a call: launches, copies, events
+        api = {e.key: e.count / 5 for e in averages if e.key.startswith(("cuda", "cu"))
+               and e.key not in ("cudaDeviceSynchronize",)}
+        print(f"[{card}] {name}: CUDA API calls per call (torch.profiler, 5 calls): "
+              f"{json.dumps(dict(sorted(api.items())))}")
         (out / f"{name}_profile.txt").write_text(f"{card}\n{table}\n")
         if chrome:
             prof.export_chrome_trace(str(out / f"{name}_trace.json"))
@@ -1384,11 +1561,30 @@ def time_only(dev, card, root, only=None, profile_dir=None) -> int:
     step, state = make_train_step(graph, train_jitter), clone_state(trainer.state)
     batch = trainer.device_batch(train_data.get_batch())
     paths = time_paths(fwd, pred.params, staged, step, state, batch, card)
+    paths["predictor_ms"] = request_ms(pred, x)
+    print(f"[{card}] Predictor, batch {BATCH}: {paths['predictor_ms']:.4f} ms per request")
     if profile_dir is not None:
         profile_paths(fwd, pred.params, staged, step, state, batch, card, profile_dir)
+    import convnet_tpu_torch.trainer as trainer_module
+
+    launch = "n/a"  # a checkout without several steps per launch
+    if hasattr(trainer_module, "TrainSteps"):
+        batches = [trainer.device_batch(train_data.get_batch()) for _ in range(LAUNCH_K)]
+        launch = {"step_ms": launch_times(graph, state, train_jitter, batches, card)}
+        trainer_k = Trainer(graph, train_data, device=dev, jitter=train_jitter,
+                            steps_per_launch=LAUNCH_K, log_fn=lambda _: None)
+        trainer_k.train(max_iter=2 * LAUNCH_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer_k.train(max_iter=2 * LAUNCH_K + TRAINER_LAUNCH_STEPS)
+        torch.cuda.synchronize()
+        launch["trainer_img_s"] = TRAINER_LAUNCH_STEPS * BATCH / (time.perf_counter() - t0)
+        print(f"[{card}] Trainer.train over DUMMY, {LAUNCH_K} steps a launch, "
+              f"{TRAINER_LAUNCH_STEPS} steps: {launch['trainer_img_s']:.1f} img/s")
     train_data.close()
     print(json.dumps({"time_only": {"root": str(root), "card": card, "kernels": kernels,
-                                    "empty_launch_ms": floor_ms, "paths": paths}}))
+                                    "empty_launch_ms": floor_ms, "paths": paths,
+                                    f"k{LAUNCH_K}": launch}}))
     return 0
 
 
@@ -1606,8 +1802,7 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
               f"({cli_s:.3f} s, rc {rc}): {local_launches}")
         if rc != 0:
             raise AssertionError(f"the train CLI returned {rc}")
-        expect_launches("alexnet_local's steps", local_launches,
-                        {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}, CLI_STEPS)
+        expect_launches("alexnet_local's steps", local_launches, TRAIN_PER_STEP, CLI_STEPS)
         trainer = cap.made[0]
         if trainer.state["step"] != CLI_STEPS:
             raise AssertionError(f"the CLI stopped at step {trainer.state['step']}")
@@ -1631,7 +1826,7 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
         data.close()
         step = make_train_step(graph, data.jitter_specs())
         ev, dev_ms, host_ms = step_times(step, trainer.state, batch)
-        a_ev, a_dev, a_host = alexnet_times["train"]
+        a_ev, a_dev, a_host, _ = alexnet_times["train"]
         print(f"[{card}] alexnet_local train step, batch {BATCH}, on a staged batch: device time "
               f"with the launches hidden {dev_ms:.4f} ms ({BATCH / dev_ms * 1e3:.1f} img/s); host "
               f"clock with synchronize {host_ms:.4f} ms, so the card idles "
@@ -1703,6 +1898,552 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
     return local_launches
 
 
+# -- phase 8: stored data, several steps per launch, remat ---------------------
+
+LEARN_ROWS, LEARN_CLASSES = 1280, 10  # 1280 x 256 x 256 x 3 bytes: 252 MB
+LEARN_STEPS, LEARN_LOG, LAUNCH_K = 600, 20, 4
+# the bars of phase 8a: the logged loss below ln 10 (a uniform guess over
+# the 10 classes; it starts near ln 1000), the last window's error below 0.5
+# (chance is 0.9)
+LEARN_LOSS, LEARN_ERR = 2.302585, 0.5
+# eps multipliers tried in turn, each run from the same initial state, until
+# one meets both bars within LEARN_STEPS (the first is the pbtxt's own)
+EPS_LADDER = (1.0, 2.0, 4.0, 8.0)
+LAUNCH_STEPS, TRAINER_LAUNCH_STEPS = 8, 48
+
+
+def learnable_set(n: int, classes: int, seed: int = 0):
+    """A learnable set of n uint8 RAW x RAW x 3 images and int32 labels, from
+    numpy with a fixed seed: class k has its own colour offset and stripe
+    texture (angle and period), and every image adds uniform noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(n) % classes).astype(np.int32)
+    rng.shuffle(labels)
+    yy, xx = np.mgrid[0:RAW, 0:RAW].astype(np.float32)
+    images = np.empty((n, RAW, RAW, 3), np.uint8)
+    for k in range(classes):
+        colour = rng.uniform(40, 215, 3).astype(np.float32)
+        angle, period = np.pi * k / classes, 6.0 + 3.0 * k
+        stripes = 35.0 * np.sin((xx * np.cos(angle) + yy * np.sin(angle)) * (2 * np.pi / period))
+        base = colour[None, None, :] + stripes[:, :, None]
+        rows = np.flatnonzero(labels == k)
+        noise = rng.integers(-30, 31, (len(rows), RAW, RAW, 3), dtype=np.int16)
+        images[rows] = np.clip(base[None] + noise, 0, 255).astype(np.uint8)
+    return images, labels
+
+
+def raw_cache_data_text(directory: Path, batch: int, pipeline: bool = True) -> str:
+    """Two RAW_CACHE streams over learnable_set's files: random CROP crops
+    and flips, scale 1/255. (The schema gives a mean only through an HDF5
+    mean file, which needs h5py.)"""
+    return f"""
+        name: "learnable" batch_size: {batch} randomize_cpu: true
+        pipeline_loads: {str(pipeline).lower()}
+        data_config {{ layer_name: "input" data_type: RAW_CACHE
+                      file_pattern: "{directory / 'images.cache'}" raw_image_size: {RAW}
+                      image_size: {CROP} num_colors: 3 can_translate: true can_flip: true
+                      scale: {1 / 255} }}
+        data_config {{ layer_name: "labels" data_type: RAW_CACHE
+                      file_pattern: "{directory / 'labels.cache'}" }}
+    """
+
+
+def write_learnable_set(directory: Path, card):
+    """Phase 8a's data, written with the port's write_raw_cache; prints the
+    reader's backend and its host milliseconds per batch."""
+    import numpy as np
+
+    from convnet_tpu_torch.config import parse_dataset_config
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.data.native import (
+        RawCacheReader, raw_cache_gather_reference, write_raw_cache)
+
+    t0 = time.perf_counter()
+    images, labels = learnable_set(LEARN_ROWS, LEARN_CLASSES)
+    write_raw_cache(str(directory / "images.cache"), images)
+    write_raw_cache(str(directory / "labels.cache"), labels)
+    made_s = time.perf_counter() - t0
+    size = (directory / "images.cache").stat().st_size
+    reader = RawCacheReader(str(directory / "images.cache"))
+    idx = np.random.default_rng(1).integers(0, LEARN_ROWS, (20, BATCH))
+    if not np.array_equal(reader.gather(idx[0]), images[idx[0]]):
+        raise AssertionError("the raw cache gather differs from the rows written")
+    gather_ms = statistics.median(_ms(lambda i=i: reader.gather(i)) for i in idx)
+    plain_ms = statistics.median(
+        _ms(lambda i=i: raw_cache_gather_reference(str(directory / "images.cache"), i)) for i in idx)
+    reader.close()
+    data = DataHandler(parse_dataset_config(raw_cache_data_text(directory, BATCH, False)))
+    backends = data.backends()
+    data.get_batch()
+    batch_ms = statistics.median(_ms(data.get_batch) for _ in range(20))
+    data.close()
+    print(f"[{card}] learnable set: {LEARN_ROWS} images {RAW}x{RAW}x3 over {LEARN_CLASSES} classes, "
+          f"raw cache {size} bytes, made and written in {made_s:.3f} s; readers {backends}; host "
+          f"ms per {BATCH}-row batch ({BATCH * RAW * RAW * 3} bytes, page cache warm): C++ gather "
+          f"{gather_ms:.4f}, numpy memmap gather (the plain version) {plain_ms:.4f}, "
+          f"DataHandler.get_batch without prefetch {batch_ms:.4f}")
+    del images, labels
+    return {"gather_ms": gather_ms, "plain_gather_ms": plain_ms, "get_batch_ms": batch_ms}
+
+
+# each wrapper's main kernel, as torch.profiler names it in a trace
+TRACE_KERNELS = {
+    "lrn_fwd": r"\blrn_fwd_(regs|generic)\b", "lrn_bwd": r"\blrn_bwd_kernel\b",
+    "dropout": r"\bdropout_kernel\b", "step_draws": r"\bstep_draws_kernel\b",
+    "s2d_prologue": r"\bs2d_prologue_kernel\b", "maxpool_fwd": r"\bmaxpool_fwd_kernel\b",
+    "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
+    "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
+}
+
+
+def traced_launches(trace_dir: Path):
+    """From the Chrome traces torch.profiler wrote into trace_dir: the
+    card's launches of each wrapper's kernel (kernel events by name, those
+    of a CUDA graph's replays included) and the host's cudaGraphLaunch
+    calls."""
+    import re
+
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    graph_launches = 0
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if not files:
+        raise AssertionError(f"no torch.profiler trace in {trace_dir}")
+    for f in files:
+        for ev in json.loads(f.read_text()).get("traceEvents", []):
+            name, cat = ev.get("name", ""), ev.get("cat", "")
+            if cat == "kernel":
+                for k, pat in TRACE_KERNELS.items():
+                    if re.search(pat, name):
+                        counts[k] += 1
+            elif cat == "cuda_runtime" and name == "cudaGraphLaunch":
+                graph_launches += 1
+    return counts, graph_launches
+
+
+def _ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_learning(directory: Path, card):
+    """Phase 8a: full-width AlexNet from a temp copy of the pbtxt that logs
+    every LEARN_LOG steps, trained through the train CLI in this process at
+    --steps-per-launch LAUNCH_K over the learnable set, LEARN_STEPS steps at
+    most; the pbtxt's eps first, then larger ones (EPS_LADDER) until the
+    last logged loss is below LEARN_LOSS and the last window's train error
+    below LEARN_ERR. Returns (the run's Trainer facts, its launches)."""
+    import re
+    import tempfile
+
+    import torch
+
+    from convnet_tpu_torch.cli import train as train_cli
+    from convnet_tpu_torch.config import model_to_text, read_model
+
+    (directory / "train.pbtxt").write_text(raw_cache_data_text(directory, BATCH))
+    for factor in EPS_LADDER:
+        model = read_model(str(ALEXNET))
+        model.display_after, model.checkpoint_after, model.validate_after = LEARN_LOG, 0, 0
+        for e in model.edge:
+            for opt in (e.weight_optimizer, e.bias_optimizer):
+                opt.base_epsilon *= factor
+        eps = sorted({(e.weight_optimizer.base_epsilon, e.bias_optimizer.base_epsilon)
+                      for e in model.edge if e.HasField("weight_optimizer")})
+        with tempfile.TemporaryDirectory(dir=directory) as out:
+            path = Path(out) / "alexnet.pbtxt"
+            path.write_text(model_to_text(model))
+            reset_launches()
+            t0 = time.perf_counter()
+            with _CapturingTrainer(train_cli) as cap:
+                rc = train_cli.main([str(path), str(directory / "train.pbtxt"), "--output-dir", out,
+                                     "--max-iter", str(LEARN_STEPS), "--steps-per-launch",
+                                     str(LAUNCH_K), "--profile-dir", str(Path(out) / "trace")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counted = read_launches()
+            traced, graph_launches = traced_launches(Path(out) / "trace")
+            log = (Path(out) / "alexnet_train_log.txt").read_text()
+        trainer = cap.made[0]
+        steps = [(int(a), float(b), float(c)) for a, b, c in
+                 re.findall(r"^step (\d+) loss (\S+) train_err (\S+)", log, re.M)]
+        print(f"[{card}] AlexNet through the train CLI over the learnable raw cache, "
+              f"--steps-per-launch {LAUNCH_K}, eps x{factor} (weight, bias base_epsilon {eps}): "
+              f"rc {rc}, {run_s:.3f} s; (step, loss, train_err) every {LEARN_LOG} steps: {steps}")
+        print(f"[{card}]   the train log's lines about the data: "
+              f"{[l for l in log.splitlines() if 'data:' in l]}")
+        if rc != 0 or trainer.state["step"] != LEARN_STEPS or len(steps) != LEARN_STEPS // LEARN_LOG:
+            raise AssertionError(f"the train CLI returned {rc} at step {trainer.state['step']}")
+        captured = trainer.steps.captured
+        facts = {"eps_factor": factor, "eps": eps, "seconds": run_s, "log": steps,
+                 "per_capture": dict(captured.launches), "replays": captured.replays,
+                 "wrapper_counts": counted, "traced": traced,
+                 "traced_graph_launches": graph_launches,
+                 "timers_ms": {k: t.mean * 1e3 for k, t in trainer.timers.items() if t.count}}
+        print(f"[{card}]   kernels launched in the traced window of {graph_launches} replays "
+              f"(torch.profiler, by kernel name): {traced}; through the wrappers in the whole "
+              f"run (the warm-up and the capture): {counted}")
+        expect_launches("the step's capture", captured.launches, TRAIN_PER_STEP, 1)
+        if not graph_launches:
+            raise AssertionError("the trace of the replays holds no cudaGraphLaunch")
+        expect_launches(f"the traced window of {graph_launches} replays", traced, TRAIN_PER_STEP,
+                        graph_launches)
+        if captured.replays != LEARN_STEPS:
+            raise AssertionError(f"{captured.replays} replays for {LEARN_STEPS} steps")
+        expect_trained(f"AlexNet after {LEARN_STEPS} steps", trainer.state["params"],
+                       trainer.p_init, card)
+        del trainer, cap, captured
+        torch.cuda.empty_cache()
+        last_loss, last_err = steps[-1][1], steps[-1][2]
+        if last_loss < LEARN_LOSS and last_err < LEARN_ERR:
+            print(f"[{card}] phase 8a: AlexNet learned the raw cache at eps x{factor}: last logged "
+                  f"loss {last_loss} < {LEARN_LOSS}, last window's train error {last_err} < "
+                  f"{LEARN_ERR}; {facts['replays']} replays of a captured step; host stages, "
+                  f"ms each: {facts['timers_ms']}")
+            return facts
+        print(f"[{card}] phase 8a: at eps x{factor} the last logged loss is {last_loss} and the "
+              f"train error {last_err}: not both below the bars ({LEARN_LOSS}, {LEARN_ERR})")
+    raise AssertionError("AlexNet did not learn the raw cache at any eps of the ladder")
+
+
+def check_image_streams(dev, card):
+    """Phase 8b, where PIL imports: 16 JPEGs and 4 PNGs of mixed sizes
+    through IMAGE_RAW (a JPEG-only list and the mixed one, each reader's
+    backend printed), SLIDING_WINDOW through the extract CLI (where h5py
+    imports; else the same forward on the card over the stream) and TXT
+    through a DataHandler; the card's forward of one batch against the
+    CPU's read of the same files."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print(f"[{card}] phase 8b: needs PIL, which does not import on this machine; not run")
+        return
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.config import parse_dataset_config, parse_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.model import init_params
+    from convnet_tpu_torch.trainer import device_batch, make_forward
+
+    rng = np.random.default_rng(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = []
+        for i in range(20):
+            h, w = int(rng.integers(40, 90)), int(rng.integers(40, 90))
+            arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            p = tmp / (f"img{i}.jpg" if i < 16 else f"img{i}.png")
+            Image.fromarray(arr).save(p)
+            paths.append(p)
+        (tmp / "jpeg.txt").write_text("\n".join(str(p) for p in paths[:16]))
+        (tmp / "mixed.txt").write_text("\n".join(str(p) for p in paths))
+        (tmp / "rows.txt").write_text("\n".join(" ".join(str(v) for v in r)
+                                                for r in rng.normal(size=(12, 6)).round(4)))
+
+        def handler(kind, listfile, extra=""):
+            return DataHandler(parse_dataset_config(f"""
+                name: "{kind}" batch_size: 4 randomize_cpu: false pipeline_loads: false
+                data_config {{ layer_name: "input" data_type: {kind} file_pattern: "{listfile}"
+                              {extra} }}"""))
+
+        reads = {}
+        for name in ("jpeg", "mixed"):
+            data = handler("IMAGE_RAW", tmp / f"{name}.txt",
+                           "image_size: 24 raw_image_size: 32 num_colors: 3")
+            batch = data.get_batch()["input"]
+            reads[name] = (data.backends()["input"], batch.shape, batch.dtype, float(batch.std()))
+            print(f"[{card}] IMAGE_RAW {name}: {'; '.join(data.backend_log())}")
+            data.close()
+        print(f"[{card}] IMAGE_RAW (reader, batch shape, dtype, std): {reads}")
+        if any(r[1] != (4, 32, 32, 3) or r[2] != np.uint8 or r[3] < 1 for r in reads.values()):
+            raise AssertionError(f"IMAGE_RAW batches {reads}")
+        if reads["mixed"][0] != "pil":
+            raise AssertionError("a list with PNGs must take the PIL reader")
+        window = "image_size: 16 window_stride: 16 num_colors: 3"
+        model = parse_model("""
+            name: "windows" seed: 1
+            layer { name: "input" is_input: true num_channels: 3 image_size: 16 }
+            layer { name: "conv1" num_channels: 8 activation: RECTIFIED_LINEAR }
+            layer { name: "fc2" is_output: true num_channels: 5 activation: SOFTMAX
+                    data_field: "labels" }
+            edge { source: "input" dest: "conv1" edge_type: CONV kernel_size: 3 stride: 1
+                   padding: 1 initialization: DENSE_GAUSSIAN init_wt: 0.1 }
+            edge { source: "conv1" dest: "fc2" edge_type: FC initialization: DENSE_GAUSSIAN
+                   init_wt: 0.1 }""")
+        graph = build_graph(model)
+        params = {dname: init_params(graph, seed=1, device=dname) for dname in ("cpu", dev)}
+        feats = {}
+        for dname in ("cpu", dev):
+            data = handler("SLIDING_WINDOW", tmp / "jpeg.txt", window)
+            fwd = make_forward(graph, ["fc2"], data.jitter_specs())
+            batch = data.get_batch()
+            with torch.inference_mode():
+                feats[str(dname)] = fwd(params[dname], device_batch(batch, dname))["fc2"].cpu()
+            rows = data.num_rows
+            data.close()
+        diff = (feats["cpu"] - feats[str(dev)]).abs().max().item()
+        print(f"[{card}] SLIDING_WINDOW: {rows} windows of 16x16 over 16 JPEGs; fc2 of one batch on "
+              f"the card against the CPU: max |diff| {diff}")
+        if diff > 1e-4 * max(1.0, feats["cpu"].abs().max().item()):
+            raise AssertionError("SLIDING_WINDOW features differ between the card and the CPU")
+        if h5py_imports():
+            import h5py
+
+            from convnet_tpu_torch import checkpoint as ckpt
+            from convnet_tpu_torch.cli import extract as extract_cli
+            from convnet_tpu_torch.config import model_to_text
+
+            host = {n: {k: v.numpy() for k, v in p.items()} for n, p in params["cpu"].items()}
+            path = ckpt.save(str(tmp), "windows", host, None, step=0)
+            (tmp / "windows.pbtxt").write_text(model_to_text(model))
+            (tmp / "windows_data.pbtxt").write_text(f"""
+                name: "w" batch_size: 4 data_config {{ layer_name: "input"
+                data_type: SLIDING_WINDOW file_pattern: "{tmp / 'jpeg.txt'}" {window} }}""")
+            rc = extract_cli.main([str(tmp / "windows.pbtxt"), str(tmp / "windows_data.pbtxt"),
+                                   "--checkpoint", path, "--output", str(tmp / "f.h5"),
+                                   "--layers", "fc2", "--device", str(dev)])
+            with h5py.File(tmp / "f.h5") as f:
+                got = f["fc2"][:4]
+            err = np.abs(got - feats["cpu"].numpy().reshape(4, -1)).max()
+            print(f"[{card}] extract CLI over SLIDING_WINDOW on the card: rc {rc}, first batch "
+                  f"against the CPU's forward max |diff| {err}")
+            if rc != 0 or err > 1e-4:
+                raise AssertionError("the extract CLI's SLIDING_WINDOW features differ")
+        else:
+            print(f"[{card}] extract CLI over SLIDING_WINDOW: needs h5py (the checkpoint and the "
+                  "output file), which does not import on this machine; the same forward ran on "
+                  "the card above instead")
+        data = handler("TXT", tmp / "rows.txt")
+        rows = data.get_batch()["input"]
+        want = np.loadtxt(tmp / "rows.txt", dtype=np.float32, ndmin=2)[:4]
+        data.close()
+        print(f"[{card}] TXT: batch {rows.shape} {rows.dtype}, array-equal to numpy's read "
+              f"{np.array_equal(rows, want)}")
+        if not np.array_equal(rows, want):
+            raise AssertionError("the TXT stream's rows differ from numpy's read")
+
+
+def _stacked(batches, lo, hi):
+    import torch
+
+    return {k: torch.stack([b[k] for b in batches[lo:hi]]) for k in batches[0]}
+
+
+def _same_or_close(what, a, b, card):
+    """(array-equal, the largest |a - b| over the leaves as a share of the
+    leaf's largest |b|) of two {edge: {w, b}} trees."""
+    import torch
+
+    equal, worst = True, 0.0
+    for name, p in b.items():
+        for k, v in p.items():
+            if not torch.equal(a[name][k], v):
+                equal = False
+                scale = v.abs().max().item() or 1.0
+                worst = max(worst, (a[name][k] - v).abs().max().item() / scale)
+    print(f"[{card}]   {what}: array-equal {equal}, largest difference {worst} of the largest "
+          "element")
+    return equal, worst
+
+
+def check_steps_per_launch(dev, graph, state0, jitter, batches, card):
+    """Phase 8c's comparison: from one state and the same LAUNCH_STEPS staged
+    batches, two launches of LAUNCH_K (replays of the captured step) against
+    LAUNCH_STEPS eager steps. The crop origins, flips and dropout keys of
+    every step must be array-equal (a mask is a function of its key: the
+    masks of the two keys are compared too), the parameters and momenta
+    array-equal or within UPDATE_TOL of their largest update; the launches
+    a replayed step makes (counted from the capture) must be the eager
+    step's. Returns the replayed path's facts."""
+    import torch
+
+    from convnet_tpu_torch.ops import dropout as drop
+    from convnet_tpu_torch.trainer import TrainSteps
+
+    eager, replayed = TrainSteps(graph, jitter), TrainSteps(graph, jitter)
+    a, b = clone_state(state0), clone_state(state0)
+    draws_e, draws_r = [], []
+
+    def snap(draws):
+        keys, crops = draws
+        return ({i: k.clone() for i, k in keys.items()},
+                {f: tuple(None if t is None else t.clone() for t in c) for f, c in crops.items()})
+
+    for x in batches:
+        eager.step(a, x)
+        draws_e.append(snap(eager.last_draws))
+    for lo in range(0, LAUNCH_STEPS, LAUNCH_K):
+        stacked = _stacked(batches, lo, lo + LAUNCH_K)
+        # one replay at a time, so that each step's draws can be read
+        for i in range(LAUNCH_K):
+            replayed.launch(b, {k: v[i: i + 1] for k, v in stacked.items()}, 1)
+            draws_r.append(snap(replayed.last_draws))
+    torch.cuda.synchronize()
+    for t, ((ke, ce), (kr, cr)) in enumerate(zip(draws_e, draws_r)):
+        same_keys = ke.keys() == kr.keys() and all(torch.equal(ke[i], kr[i]) for i in ke)
+        same_crops = all(all(torch.equal(p, q) if p is not None else q is None
+                             for p, q in zip(ce[f], cr[f])) for f in ce)
+        masks = all(torch.equal(drop.dropout_apply(torch.ones(4096, device=dev), 0.5, ke[i]),
+                                drop.dropout_apply(torch.ones(4096, device=dev), 0.5, kr[i]))
+                    for i in ke)
+        if not (same_keys and same_crops and masks):
+            raise AssertionError(f"step {t}: the replayed step drew other crops or masks")
+    print(f"[{card}] phase 8c: {LAUNCH_STEPS} steps as {LAUNCH_STEPS} replays against "
+          f"{LAUNCH_STEPS} eager steps: crop origins, flips and dropout keys and masks "
+          "array-equal at every step")
+    expect_launches("a replayed step (counted from its capture)", replayed.captured.launches,
+                    TRAIN_PER_STEP, 1)
+    # the launch path proper: two launches of LAUNCH_K from the same state
+    c = clone_state(state0)
+    staged = TrainSteps(graph, jitter)
+    for lo in range(0, LAUNCH_STEPS, LAUNCH_K):
+        metrics = staged.launch(c, _stacked(batches, lo, lo + LAUNCH_K), LAUNCH_K)
+    torch.cuda.synchronize()
+    if metrics["loss"].shape != (LAUNCH_K,) or c["step"] != a["step"]:
+        raise AssertionError(f"a launch's metrics {metrics['loss'].shape}, step {c['step']}")
+    results = {}
+    for what, other in (("one replay a launch", b), (f"{LAUNCH_K} replays a launch", c)):
+        for tree in ("params", "moms"):
+            results[(what, tree)] = _same_or_close(f"{what}, {tree} against the eager steps'",
+                                                   other[tree], a[tree], card)
+    for (what, tree), (equal, worst) in results.items():
+        if not equal and worst > UPDATE_TOL:
+            raise AssertionError(f"{what}: {tree} differ from the eager steps' by {worst}")
+    return {"launches_per_capture": dict(replayed.captured.launches),
+            "array_equal": {f"{w}, {t}": e for (w, t), (e, _) in results.items()},
+            "largest_difference": {f"{w}, {t}": d for (w, t), (_, d) in results.items()}}
+
+
+def launch_times(graph, state, jitter, batches, card):
+    """The train step at k = 1 (eager) and k = LAUNCH_K (replays), on both
+    train paths: device time with the launches hidden (a launch a spin),
+    host clock with a synchronize, and the card's idle share. Returns
+    {path: {k: (device ms a step, host ms a step)}}."""
+    import torch
+
+    from convnet_tpu_torch.trainer import TrainSteps
+
+    out = {}
+    stacked = _stacked(batches, 0, LAUNCH_K)
+    for path in ("train", "reference_gradient"):
+        ctx = pool_switches() if path == "reference_gradient" else contextlib.nullcontext()
+        with ctx:
+            steps = TrainSteps(graph, jitter)
+            st = clone_state(state)
+            runs = {1: lambda: steps.step(st, batches[0]),
+                    LAUNCH_K: lambda: steps.launch(st, stacked, LAUNCH_K)}
+            runs[LAUNCH_K]()  # captures
+            out[path] = {}
+            for k, fn in runs.items():
+                dev_ms = device_ms(fn, k=1, reps=ITERS) / k
+                host = []
+                for i in range(WARMUP + ITERS // k * 2):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    if i >= WARMUP:
+                        host.append((time.perf_counter() - t0) * 1e3 / k)
+                host_ms = statistics.median(host)
+                out[path][k] = (dev_ms, host_ms)
+                print(f"[{card}] AlexNet train step ({path}), batch {BATCH}, {k} a launch"
+                      f"{' (CUDA-graph replays)' if k > 1 else ' (eager)'}: device time with the "
+                      f"launches hidden {dev_ms:.4f} ms a step; host clock with synchronize "
+                      f"{host_ms:.4f} ms a step, so the card idles {1 - dev_ms / host_ms:.3f} of it")
+            del steps, st
+            torch.cuda.empty_cache()
+    return out
+
+
+def trainer_rates(dev, graph, jitter, directory, card):
+    """Trainer.train images a second over TRAINER_LAUNCH_STEPS steps at k = 1
+    and k = LAUNCH_K, on DUMMY data and on the learnable raw cache, with the
+    host stages' mean ms (the Trainer's timers). Returns
+    {data: {k: (img/s, timers)}}."""
+    import torch
+
+    from convnet_tpu_torch.config import parse_dataset_config
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.trainer import Trainer
+
+    out = {}
+    for data_name, text in (("DUMMY", dummy_imagenet_text(BATCH, DUMMY_ROWS, True)),
+                            ("RAW_CACHE", raw_cache_data_text(directory, BATCH))):
+        out[data_name] = {}
+        for k in (1, LAUNCH_K):
+            data = DataHandler(parse_dataset_config(text))
+            jit = {"input": (data.jitter_specs()["input"][0], jitter["input"][1], None)}
+            trainer = Trainer(graph, data, device=dev, jitter=jit, steps_per_launch=k,
+                              log_fn=lambda _: None)
+            trainer.train(max_iter=2 * LAUNCH_K)  # warm-up (and the capture)
+            torch.cuda.synchronize()
+            for t in trainer.timers.values():
+                t.total, t.count = 0.0, 0
+            t0 = time.perf_counter()
+            trainer.train(max_iter=2 * LAUNCH_K + TRAINER_LAUNCH_STEPS)
+            torch.cuda.synchronize()
+            ips = TRAINER_LAUNCH_STEPS * BATCH / (time.perf_counter() - t0)
+            timers = {n: t.total * 1e3 / TRAINER_LAUNCH_STEPS for n, t in trainer.timers.items()
+                      if t.count}
+            data.close()
+            out[data_name][k] = (ips, timers)
+            print(f"[{card}] Trainer.train over {data_name}, {k} steps a launch, "
+                  f"{TRAINER_LAUNCH_STEPS} steps: {ips:.1f} img/s (host clock, staging included); "
+                  f"host ms a step by stage: "
+                  + ", ".join(f"{n} {v:.4f}" for n, v in timers.items()))
+            del trainer
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_remat(dev, state, jitter, batch, card):
+    """Phase 8d: one AlexNet train step with remat on and one with it off,
+    from the same state and batch: the parameters equal, or within
+    UPDATE_TOL of their largest update; torch.cuda.max_memory_allocated of
+    each."""
+    import torch
+
+    from convnet_tpu_torch.config import read_model
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import make_train_step
+
+    peaks, states = {}, {}
+    for remat in (False, True):
+        model = read_model(str(ALEXNET))
+        model.remat = remat
+        g = build_graph(model)
+        st = clone_state(state)
+        step = make_train_step(g, jitter)
+        step(clone_state(state), batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step(st, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(dev), base)
+        states[remat] = st
+        del step
+    equal, worst = _same_or_close("remat on against off, params", states[True]["params"],
+                                  states[False]["params"], card)
+    upd = max((states[False]["params"][n][k] - state["params"][n][k]).abs().max().item()
+              for n in state["params"] for k in ("w", "b"))
+    step_bytes = {k: peak - base for k, (peak, base) in peaks.items()}
+    print(f"[{card}] phase 8d: one AlexNet step, batch {BATCH}: max_memory_allocated with remat "
+          f"off {peaks[False][0]} bytes, on {peaks[True][0]} bytes; above what was allocated "
+          f"before the step: off {step_bytes[False]}, on {step_bytes[True]}; params "
+          f"array-equal {equal}")
+    if not equal and worst > UPDATE_TOL:
+        raise AssertionError(f"remat changes the step's parameters by {worst} (largest update {upd})")
+    return {"peak_bytes": {"off": peaks[False][0], "on": peaks[True][0]},
+            "step_bytes": {"off": step_bytes[False], "on": step_bytes[True]},
+            "array_equal": equal, "largest_difference": worst}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -1767,6 +2508,7 @@ def main(argv=None) -> int:
     lrn_err = check_lrn(dev, gen, card)
     lrn_bwd_err = check_lrn_bwd(dev, gen, card)
     drop_err = check_dropout(dev, gen, card)
+    draws_err = check_step_draws(dev, card)
     pool_err = check_maxpool(dev, gen, card)
     plrn_err, plrn_bwd_err = check_pool_lrn(dev, gen, card)
     check_conv_grad(dev, gen, card)
@@ -1819,7 +2561,7 @@ def main(argv=None) -> int:
 
     # -- 4. training -----------------------------------------------------------
     from convnet_tpu_torch.data.datahandler import DataHandler
-    from convnet_tpu_torch.trainer import Trainer, make_train_step
+    from convnet_tpu_torch.trainer import Trainer, device_batch, make_train_step
 
     train_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
     val_data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, False))
@@ -1834,8 +2576,7 @@ def main(argv=None) -> int:
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
     print(f"[{card}] launches during {TRAIN_STEPS} train steps ({train_s:.3f} s): {train_launches}")
-    expect_launches("the train steps", train_launches,
-                    {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1}, TRAIN_STEPS)
+    expect_launches("the train steps", train_launches, TRAIN_PER_STEP, TRAIN_STEPS)
     moved = 0
     for name, p in trainer.state["params"].items():
         for k, v in p.items():
@@ -1865,7 +2606,7 @@ def main(argv=None) -> int:
               f"({ref_s:.3f} s): {ref_launches}")
         expect_launches("the reference-gradient train steps", ref_launches,
                         {"pool_lrn_fwd": 2, "pool_lrn_bwd": 2, "maxpool_fwd": 1, "dropout": 4,
-                         "s2d_prologue": 1}, TRAIN_STEPS)
+                         "s2d_prologue": 1, "step_draws": 1}, TRAIN_STEPS)
         for name, p in trainer.state["params"].items():
             for k, v in p.items():
                 if not torch.isfinite(v).all():
@@ -1889,13 +2630,7 @@ def main(argv=None) -> int:
     alexnet_times = time_paths(fwd, pred.params, staged, step, step_state, step_batch, card)
     with torch.inference_mode():
         plain_fwd_ms = cuda_ms(lambda: plain_alexnet(graph, params, staged["input"], spec, mean_t))
-    host = []
-    for i in range(WARMUP + ITERS):
-        t0 = time.perf_counter()
-        pred({"input": requests[0]})
-        if i >= WARMUP:
-            host.append((time.perf_counter() - t0) * 1e3)
-    req_ms = statistics.median(host)
+    req_ms = request_ms(pred, requests[0])
     print(f"[{card}] plain-composed forward, batch {BATCH}: events {plain_fwd_ms:.4f} ms")
     print(f"[{card}] Predictor, batch {BATCH}: {req_ms:.4f} ms per request, "
           f"{BATCH / req_ms * 1e3:.1f} img/s (host clock, uint8 in, numpy out)")
@@ -1915,8 +2650,34 @@ def main(argv=None) -> int:
     # -- 7. the model zoo and the CLIs ------------------------------------------
     local_launches = check_zoo_and_clis(dev, gen, card, alexnet_times, args.profile_dir)
 
+    # -- 8. stored data, several steps per launch, remat -------------------------
+    import tempfile
+
+    state0 = clone_state(trainer.state)
+    del trainer
+    torch.cuda.empty_cache()
+    data8 = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
+    batches8 = [device_batch(data8.get_batch(), dev) for _ in range(LAUNCH_STEPS)]
+    data8.close()
+    with tempfile.TemporaryDirectory() as tmp8:
+        tmp8 = Path(tmp8)
+        cache_ms = write_learnable_set(tmp8, card)
+        learned = check_learning(tmp8, card)
+        check_image_streams(dev, card)
+        launch = check_steps_per_launch(dev, graph, state0, train_jitter, batches8, card)
+        launch["step_ms"] = launch_times(graph, state0, train_jitter, batches8, card)
+        launch["trainer_img_s"] = trainer_rates(dev, graph, train_jitter, tmp8, card)
+    remat = check_remat(dev, state0, train_jitter, batches8[0], card)
+    print(json.dumps({"phase8": {"raw_cache_ms": cache_ms, "learning": learned,
+                                 "steps_per_launch": launch, "remat": remat}}, default=str))
+
     paths = {"serving": serve_launches, "train": train_launches,
-             "reference_gradient": ref_launches, "alexnet_local": local_launches}
+             "reference_gradient": ref_launches, "alexnet_local": local_launches,
+             # phase 8a: through the wrappers (the warm-up and capture steps;
+             # the wrappers do not run when the graph replays), and on the
+             # card in the traced window of replays (torch.profiler)
+             "raw_cache_k4_wrappers": learned["wrapper_counts"],
+             "raw_cache_k4_traced_replays": learned["traced"]}
 
     def kernel(name, source, replaces, also, err, parts, path):
         b_ms, b_by = bound(sum(work[t][0] for t in parts), sum(work[t][1] for t in parts))
@@ -1947,6 +2708,10 @@ def main(argv=None) -> int:
         kernel("lrn_bwd", "lrn_bwd.cu", "lrn.py:230", ["lrn.py:558", "lrn.py:455"], lrn_bwd_err,
                ["lrn_bwd rnorm1", "lrn_bwd rnorm2"], "train"),
         kernel("dropout", "dropout.cu", "dropout.py:58", [], drop_err, ["dropout"], "train"),
+        # the seed that the TPU kernel takes as a prefetched scalar (and the
+        # crops), derived on the card from the (seed, step) it holds
+        kernel("step_draws", "dropout.cu", "dropout.py:58", [], draws_err, ["step_draws"],
+               "train"),
         kernel("s2d_prologue", "s2d_prologue.cu", "s2d_relayout.py:200",
                ["prologue.py:93", "jitter_gather.py:96"], s2d_err, ["s2d_prologue"], "train"),
         kernel("maxpool_fwd", "maxpool_fwd.cu", "pool.py:87", [], pool_err, ["maxpool_fwd pool5"],

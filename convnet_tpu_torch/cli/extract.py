@@ -83,6 +83,8 @@ def main(argv=None) -> int:
         or model.batch_size
     )
     data = DataHandler(data_cfg, batch_size=bs, randomize=False)
+    for line in data.backend_log():
+        print(line)
     try:
         params, _, step = ckpt.load(args.checkpoint, expected_shapes=model_lib.param_shapes(graph))
         params = model_lib.params_from_numpy(params, device)

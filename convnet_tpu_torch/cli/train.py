@@ -3,7 +3,7 @@
 Usage:
     python -m convnet_tpu_torch.cli.train MODEL.pbtxt TRAIN_DATA.pbtxt \
         [VAL_DATA.pbtxt] [--output-dir DIR] [--max-iter N] [--batch-size N] \
-        [--device cuda|cpu]
+        [--steps-per-launch K] [--device cuda|cpu]
 
 Builds the graph from the model pbtxt (input sizes from the data config),
 resumes from the newest checkpoint in the output dir if there is one, runs
@@ -52,7 +52,8 @@ def build_argparser() -> argparse.ArgumentParser:
         "--steps-per-launch",
         type=int,
         default=1,
-        help="train steps per device launch; only 1 is ported",
+        help="train steps per launch: on a card, k replays of the step's CUDA "
+        "graph over k batches staged together (default 1: eager steps)",
     )
     p.add_argument(
         "--strict",

@@ -214,19 +214,27 @@ __device__ __forceinline__ void bias_window(const float* bias, int ch0, int c, f
   }
 }
 
-// The elementwise max of two 16-byte words of T, any NaN kept: the value
-// ATen's max pool scan (`if (y > cur || y != y) cur = y`) leaves, whichever
-// of two equal values it keeps. bf16 words are compared two values an
-// instruction, without widening them.
+// The step of ATen's max pool scan (`if (y > cur || y != y) cur = y`) for
+// the word b that comes after a, elementwise over two 16-byte words of T: b
+// where b > a or b is a NaN, else a, bit for bit (the first of -0 and +0,
+// the last NaN with its payload). Associative, so a max over columns and
+// then rows is the row-major scan's. bf16 words are compared two values an
+// instruction, without widening them, and selected by the comparison's
+// masks: __hmax2_nan keeps neither the first zero nor a NaN's payload.
 template <typename T>
 __device__ __forceinline__ uint4 max_keep(uint4 a, uint4 b) {
   if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+    const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+    const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
     uint4 out;
-    __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&out);
+    uint32_t* po = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) po[i] = __hmax2_nan(pa[i], pb[i]);
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 av = *reinterpret_cast<const __nv_bfloat162*>(pa + i);
+      const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(pb + i);
+      const uint32_t take = __hgt2_mask(bv, av) | __hneu2_mask(bv, bv);
+      po[i] = (pb[i] & take) | (pa[i] & ~take);
+    }
     return out;
   } else {
     const float* pa = reinterpret_cast<const float*>(&a);

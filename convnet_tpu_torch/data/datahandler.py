@@ -2,20 +2,24 @@
 prefetch thread (counterpart of `convnet_tpu/data/datahandler.py`).
 
 The JAX module cannot be imported without JAX (it imports
-`convnet_tpu.data.jitter`), so the port has its own. Two stream types
-are ported: DUMMY, with the same seeded draws, so that its batches are
-array-equal to the JAX handler's, and HDF5, with h5py imported only when
-such a stream is opened (the card's machine has no h5py). The other
-types raise NotImplementedError. All streams advance in lockstep over one
+`convnet_tpu.data.jitter`), so the port has its own, with all six stream
+types: DUMMY, with the same seeded draws, so that its batches are
+array-equal to the JAX handler's; HDF5, with h5py imported only when such
+a stream is opened (the card's machine has no h5py); RAW_CACHE, gathered
+by the port's g++-built C++ core (`data/native.py`), the stored-data path
+that needs neither h5py nor PIL; and IMAGE_RAW, SLIDING_WINDOW and TXT
+(`data/image_iterators.py`). A stream whose reader can take one of two
+backends names it in `backend`. All streams advance in lockstep over one
 shared index sequence, so image and label rows stay aligned.
 """
 
 from __future__ import annotations
 
+import abc
 import queue
 import threading
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,18 +38,25 @@ def _load_mean_std(path: str):
     return mean, std
 
 
-class Stream:
-    """One named data source. Subclasses define row count and reads."""
+class Stream(abc.ABC):
+    """One named data source. Subclasses define row count and reads;
+    `backend` names the reader where a stream type has more than one, and
+    `backend_reason` why a stream did not take its first choice."""
+
+    backend: Optional[str] = None
+    backend_reason: Optional[str] = None
 
     def __init__(self, cfg: pb.DataStreamConfig):
         self.cfg = cfg
 
     @property
+    @abc.abstractmethod
     def num_rows(self) -> int:
-        raise NotImplementedError
+        """Rows in the stream."""
 
+    @abc.abstractmethod
     def read_rows(self, indices: np.ndarray) -> np.ndarray:
-        raise NotImplementedError
+        """The rows at `indices`, stacked on a leading axis."""
 
     def close(self):
         """Release file handles (optional per subclass)."""
@@ -115,16 +126,44 @@ class DummyStream(Stream):
         return self._data[indices]
 
 
+class RawCacheStream(Stream):
+    """Rows of a raw cache (`data/native.py`), gathered by the port's C++
+    core; `write_raw_cache` makes one."""
+
+    backend = "native"
+
+    def __init__(self, cfg: pb.DataStreamConfig):
+        super().__init__(cfg)
+        from convnet_tpu_torch.data.native import RawCacheReader
+
+        if not cfg.file_pattern:
+            raise ValueError(f"stream {cfg.layer_name}: RAW_CACHE needs file_pattern")
+        self._reader = RawCacheReader(cfg.file_pattern)
+
+    @property
+    def num_rows(self) -> int:
+        return self._reader.num_rows
+
+    def read_rows(self, indices: np.ndarray) -> np.ndarray:
+        return self._maybe_reshape_images(self._reader.gather(indices))
+
+    def close(self):
+        self._reader.close()
+
+
 def make_stream(cfg: pb.DataStreamConfig) -> Stream:
     if cfg.data_type == DT.HDF5:
         return HDF5Stream(cfg)
+    if cfg.data_type == DT.RAW_CACHE:
+        return RawCacheStream(cfg)
     if cfg.data_type == DT.DUMMY:
         return DummyStream(cfg)
-    if cfg.data_type in DT.values():
-        raise NotImplementedError(
-            f"stream {cfg.layer_name}: data_type {DT.Name(cfg.data_type)} is not ported yet "
-            "(ROADMAP Queue A1, the data path)"
-        )
+    if cfg.data_type in (DT.IMAGE_RAW, DT.SLIDING_WINDOW, DT.TXT):
+        from convnet_tpu_torch.data import image_iterators as it
+
+        kind = {DT.IMAGE_RAW: it.RawImageStream, DT.SLIDING_WINDOW: it.SlidingWindowStream,
+                DT.TXT: it.TxtStream}[cfg.data_type]
+        return kind(cfg)
     raise ValueError(f"unknown data_type {cfg.data_type}")
 
 
@@ -302,6 +341,20 @@ class DataHandler:
             s.close()
 
     # -- metadata for the trainer ------------------------------------------
+
+    def backends(self) -> Dict[str, str]:
+        """{layer_name: reader} for the streams whose type has more than
+        one reader ("native" or "pil" for IMAGE_RAW, "native" for RAW_CACHE)."""
+        return {n: s.backend for n, s in self.streams.items() if s.backend is not None}
+
+    def backend_log(self) -> List[str]:
+        """One line a stream of `backends()`: its reader and, where it did
+        not take its first choice, why."""
+        return [
+            f"stream {n} is read by the {s.backend} reader"
+            + (f" ({s.backend_reason})" if s.backend_reason else "")
+            for n, s in self.streams.items() if s.backend is not None
+        ]
 
     def input_image_sizes(self) -> Dict[str, int]:
         """{layer_name: final (cropped) image size} for image streams."""

@@ -3,19 +3,23 @@ prologue does not take (counterpart of `convnet_tpu/data/jitter.py`).
 
 The JAX package's `JitterSpec` cannot be imported without JAX (its module
 imports jax), so the port has its own, with the same fields. Random crop
-origins and flips come from a `torch.Generator` the caller seeds; the
-draws are not the JAX package's (threefry), so parity tests inject them.
-The TPU's one-hot crop contractions are not ported: an index gather
-selects the same pixels.
+origins and flips are drawn on the device from the (seed, step) tensor
+that the device holds, by the port's Philox (`ops.dropout.step_draws`,
+keyed by the field's crc32), so a replayed CUDA graph of a train step
+draws new crops at every step; the draws are not the JAX package's
+(threefry), so parity tests inject them. The TPU's one-hot crop
+contractions are not ported: an index gather selects the same pixels.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from convnet_tpu_torch.ops.dropout import CropDraw, step_draws
 
 @dataclass(frozen=True)
 class JitterSpec:
@@ -37,21 +41,32 @@ def center_offsets(h: int, w: int, crop: int):
     return (h - crop) // 2, (w - crop) // 2
 
 
+def crop_draw(field: str, b: int, h: int, w: int, s: int, can_translate: bool,
+              can_flip: bool) -> Optional[CropDraw]:
+    """The draw of one field's crops (None when there is nothing to draw):
+    origins uniform over [0, H - S] x [0, W - S] when translating, else the
+    center crop; flips when can_flip. The key's counter word is crc32 of
+    the field's name, the same in every process (hash() is salted)."""
+    if not (can_translate or can_flip):
+        return None
+    cy, cx = center_offsets(h, w, s)
+    ry, rx = (h - s + 1, w - s + 1) if can_translate else (1, 1)
+    return CropDraw(zlib.crc32(field.encode()), 1, b, 0 if can_translate else cy, ry,
+                    0 if can_translate else cx, rx, can_flip)
+
+
 def sample_crop_flip(
-    gen: torch.Generator, b: int, h: int, w: int, s: int, can_translate: bool, can_flip: bool
-):
-    """Per-image crop origins and flips drawn from `gen`, on its device:
-    (oy, ox, flips), int32 (B,), int32 (B,), bool (B,), each None when
-    not drawn (no translation possible or wanted; no flips)."""
-    dev = gen.device
-    flips = None
-    if can_flip:
-        flips = torch.rand((b,), generator=gen, device=dev) < 0.5
-    oy = ox = None
-    if can_translate and (h > s or w > s):
-        oy = torch.randint(0, h - s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
-        ox = torch.randint(0, w - s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
-    return oy, ox, flips
+    rng: torch.Tensor, field: str, b: int, h: int, w: int, s: int, can_translate: bool,
+    can_flip: bool,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Per-image crop origins and flips of one field at one step, drawn on
+    rng's device from rng = int64 (seed, step): (oy, ox, flips), int32
+    (B,), int32 (B,), bool (B,) or None without flips; all None when
+    nothing is drawn."""
+    draw = crop_draw(field, b, h, w, s, can_translate, can_flip)
+    if draw is None:
+        return None, None, None
+    return step_draws(rng, (), draw)[1]
 
 
 def crop_flip(x: torch.Tensor, s: int, oy: torch.Tensor, ox: torch.Tensor, flips) -> torch.Tensor:
@@ -74,15 +89,13 @@ def jitter_batch(
     mean: Optional[torch.Tensor] = None,
     std: Optional[torch.Tensor] = None,
     *,
-    train: bool = False,
-    gen: Optional[torch.Generator] = None,
+    crop: Optional[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]] = None,
 ) -> torch.Tensor:
     """x (B, H, W, C) uint8 or float -> f32 (B, S, S, C), S =
     spec.image_size, cropped, then x*scale, -mean, /std.
 
-    Eval: the center crop. Train: a random crop origin (can_translate)
-    and a random horizontal flip (can_flip) per image, drawn from `gen`
-    (on x's device) by `sample_crop_flip`. mean/std broadcast against the crop (scalar,
+    crop: (oy, ox, flips) of a train step (`sample_crop_flip`); None takes
+    the eval center crop. mean/std broadcast against the crop (scalar,
     (C,) or (S, S, C)); a raw-size (H, W, C) mean or std applies before
     the crop, as in the reference."""
     b, h, w, c = x.shape
@@ -101,19 +114,8 @@ def jitter_batch(
         if mean is None and raw_std:
             x = x / std.float()
             std = None
-    if train and (spec.can_flip or spec.can_translate) and gen is None:
-        raise ValueError("train jitter needs a generator")
-    oy, ox, flips = (
-        sample_crop_flip(gen, b, h, w, s, spec.can_translate, spec.can_flip)
-        if train
-        else (None, None, None)
-    )
-    if oy is None and flips is not None:
-        cy, cx = center_offsets(h, w, s)
-        oy = torch.full((b,), cy, dtype=torch.int32, device=x.device)
-        ox = torch.full((b,), cx, dtype=torch.int32, device=x.device)
-    if oy is not None:
-        x = crop_flip(x, s, oy, ox, flips)
+    if crop is not None:
+        x = crop_flip(x, s, *crop)
     elif h > s or w > s:
         cy, cx = center_offsets(h, w, s)
         x = x[:, cy : cy + s, cx : cx + s, :]

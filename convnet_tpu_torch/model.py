@@ -21,7 +21,9 @@ The forward keeps the reference's fusion plan and cast points:
   output's dtype before its add (model.py:176), layers are stored in the
   activation dtype (model.py:433) and output pre-activations are promoted
   to f32 (model.py:404-409).
-PyTorch runs eagerly, so activations that only the fused LRN would have
+With `remat` set, a train forward wraps each weighted edge in
+torch.utils.checkpoint, which recomputes its output in the backward
+(model.py:386-395). PyTorch runs eagerly, so activations that only the fused LRN would have
 replaced (dead code that XLA drops) are never computed. In training,
 autograd differentiates the same forward: the LRN and dropout through
 their kernels' autograd Functions, the rest through ATen's and cuDNN's.
@@ -34,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from convnet_tpu_torch import checkpoint
 from convnet_tpu_torch.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
@@ -249,18 +252,16 @@ def apply_fn(
     return_layers: Optional[List[str]] = None,
     *,
     train: bool = False,
-    dropout_seed: Optional[Tuple[int, int]] = None,
+    dropout_keys: Optional[Dict[int, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Fprop. `batch` maps each input layer's data_field to a (B, H, W, C)
     tensor or an S2DInput. Returns {layer: activation} for `return_layers`
     (default: all layers) plus "<name>:preact" (B, units) f32 for every
     output layer. train=True applies each layer's dropout after its
-    activation, the mask drawn from dropout_seed = (seed, step) and the
-    layer's index among the non-input layers (model.py:306, 426-432)."""
-    if train and graph.remat:
-        raise NotImplementedError(
-            "graph.remat (recompute activations in the backward) is not ported yet"
-        )
+    activation, the mask keyed by the layer's index among the non-input
+    layers (model.py:306, 426-432): dropout_keys {index: int64 (2,) key
+    tensor}, as a train step derives them on the device
+    (`dropout_layers`)."""
     cdt = torch.bfloat16 if graph.compute_dtype == "bfloat16" else None
     adt = torch.bfloat16 if graph.activation_dtype == "bfloat16" else None
     store_dt = adt if adt is not None else (torch.float32 if cdt is not None else None)
@@ -325,12 +326,20 @@ def apply_fn(
                 fuse = e.edge_type == ET.RESPONSE_NORM and e.source in preacts
                 x_in = preacts[e.source] if fuse else acts[e.source]
                 dbias = defer_bias.get(name) == e.name
-                contrib = _edge_fprop(
-                    e, p, x_in, cdt,
-                    fuse_relu=fuse,
-                    defer_bias=dbias,
-                    bias=pending_bias.get(e.source) if fuse else None,
-                )
+                if graph.remat and train and e.has_weights:
+                    # recompute the edge's output in the backward instead of
+                    # keeping it (Model.remat; model.py:386-395)
+                    contrib = torch.utils.checkpoint.checkpoint(
+                        _edge_fprop, e, p, x_in, cdt, defer_bias=dbias,
+                        use_reentrant=False, preserve_rng_state=False,
+                    )
+                else:
+                    contrib = _edge_fprop(
+                        e, p, x_in, cdt,
+                        fuse_relu=fuse,
+                        defer_bias=dbias,
+                        bias=pending_bias.get(e.source) if fuse else None,
+                    )
                 if dbias:
                     pending_bias[name] = p["b"]
                 z = contrib if z is None else z + contrib
@@ -353,13 +362,21 @@ def apply_fn(
                     z = z + pending_bias[name].to(z.dtype)
                 a = apply_activation(z, l.activation)
                 if train and l.dropprob > 0.0:
-                    if dropout_seed is None:
-                        raise ValueError("train=True with dropout needs dropout_seed")
-                    a = dropout(a, l.dropprob, *dropout_seed, layer=drop_i)
+                    if dropout_keys is None:
+                        raise ValueError("train=True with dropout needs dropout_keys")
+                    a = dropout(a, l.dropprob, dropout_keys[drop_i])
                 acts[name] = a.to(store_dt) if store_dt is not None else a
         if (want is None or name in want) and name in acts:
             out[name] = acts[name]
     return out
+
+
+def dropout_layers(graph: Graph) -> List[int]:
+    """The indices (among the non-input layers, in topological order) of
+    the layers that apply dropout in training: the layer numbers their
+    masks are keyed by."""
+    layers = [graph.layer(n) for n in graph.topo_layer_order()]
+    return [i for i, l in enumerate(x for x in layers if not x.is_input) if l.dropprob > 0.0]
 
 
 def loss_fn(
@@ -368,12 +385,13 @@ def loss_fn(
     batch: Dict[str, torch.Tensor],
     *,
     train: bool = True,
-    dropout_seed: Optional[Tuple[int, int]] = None,
+    dropout_keys: Optional[Dict[int, torch.Tensor]] = None,
 ):
     """Mean loss over the batch and metrics (device tensors): "loss" and
     "<output>/errors" for each cross-entropy output. Targets live in
     `batch` under each output layer's data_field."""
-    outs = apply_fn(graph, params, batch, return_layers=[], train=train, dropout_seed=dropout_seed)
+    outs = apply_fn(graph, params, batch, return_layers=[], train=train,
+                    dropout_keys=dropout_keys)
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
     batch_size = None

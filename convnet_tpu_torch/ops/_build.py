@@ -40,8 +40,11 @@ _SIGNATURES = {
     # g, z, bias, dx, db, partial, max_blocks, m, c, is_bf16, relu, blocked, n,
     # alpha, beta, coef, q, stream
     "cn_lrn_bwd": [_p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _f, _f, _f, _i, _p],
-    # x, y, n, is_bf16, threshold, scale, k0, k1, group0, stream
-    "cn_dropout": [_p, _p, _i64, _i, _u32, _f, _u32, _u32, _u64, _p],
+    # x, y, n, is_bf16, threshold, scale, key, group0, stream
+    "cn_dropout": [_p, _p, _i64, _i, _u32, _f, _p, _u64, _p],
+    # state, words, n_keys, keys, crop_w2, crop_w3, b, base_y, range_y, base_x, range_x,
+    # oy, ox, flips, stream
+    "cn_step_draws": [_p, _p, _i, _p, _u32, _u32] + [_i] * 5 + [_p] * 4,
     # x, oy, ox, flip, mean, std, out, b, h, w, c, crop, s, p, scale, stream
     "cn_s2d_prologue": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
     # x, y, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream

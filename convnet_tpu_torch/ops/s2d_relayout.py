@@ -157,7 +157,9 @@ def s2d_prologue(
     if flips is not None:
         if flips.shape != (b,) or flips.device != x.device:
             raise ValueError("s2d_prologue: flips must be (B,) on x's device")
-        flips = flips.to(torch.uint8).contiguous()
+        # a bool tensor's bytes are 0 or 1: read them in place
+        flips = (flips.view(torch.uint8) if flips.dtype == torch.bool
+                 else flips.to(torch.uint8)).contiguous()
     out = torch.empty((b, p, p, stride * stride * c), dtype=torch.bfloat16, device=x.device)
     if b == 0:
         return out

@@ -9,14 +9,19 @@ for weights and biases separately:
 
 plus the gradient clip, the max-norm constraint on the last axis and
 `start_optimization_after`. Not `torch.optim.SGD`, whose momentum update
-has another form. The step counter is a host int, so the schedules are
-computed on the host, in float32 as the reference computes them on the
-device; the update runs in place on the device tensors, under no_grad.
+has another form. The schedules are computed on the host, in float32 as
+the reference computes them on the device; the update runs in place on
+the device tensors, under no_grad. An eager step passes the step counter
+as a host int. A CUDA graph of the step, which replays every host value it
+captured, reads the step's values from a device tensor instead
+(`schedule`: eps, momentum and whether the leaf updates, one row a leaf),
+filled before each replay; the f32 arithmetic is the same, so are the
+results.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -54,29 +59,62 @@ def init_momentum(params: Params) -> Params:
     }
 
 
-def _update_leaf(spec: OptimSpec, w: torch.Tensor, m: torch.Tensor, g: torch.Tensor, t: int):
-    """One update of w and its momentum m, in place."""
-    if t < spec.start_optimization_after:
+def _leaves(graph: Graph):
+    """(edge, "w" or "b", its OptimSpec) for every leaf, in schedule-row order."""
+    for e in graph.weighted_edges:
+        yield e, "w", e.weight_optimizer
+        yield e, "b", e.bias_optimizer
+
+
+def schedule(graph: Graph, t: int) -> np.ndarray:
+    """(leaves, 3) f32: eps(t), mom(t) and 1 if the leaf updates at step t
+    (0 before its start_optimization_after), one row a leaf."""
+    return np.array(
+        [(epsilon_at(spec, t), momentum_at(spec, t), float(t >= spec.start_optimization_after))
+         for _, _, spec in _leaves(graph)],
+        dtype=np.float32,
+    ).reshape(-1, 3)
+
+
+def _update_leaf(spec: OptimSpec, w: torch.Tensor, m: torch.Tensor, g: torch.Tensor, eps, mom,
+                 active=True):
+    """One update of w and its momentum m, in place. eps, mom: host floats,
+    or 0-d f32 device tensors; active: a host bool, or a 0-d device tensor
+    (1: update, 0: keep w and m)."""
+    if active is False:
         return  # frozen: w and m stay as they are
     g = g + spec.l2_decay * w
     if spec.gradient_clip > 0.0:
         norm = torch.sqrt((g * g).sum())
         g = g * torch.clamp(spec.gradient_clip / (norm + 1e-12), max=1.0)
-    inc = momentum_at(spec, t) * m - epsilon_at(spec, t) * g
+    inc = mom * m - eps * g
     new_w = w + inc
     if spec.weight_norm_limit > 0.0 and w.dim() >= 2:
         # max-norm on each output unit's incoming weights (last axis: units)
         axes = tuple(range(w.dim() - 1))
         norms = torch.sqrt((new_w * new_w).sum(dim=axes, keepdim=True))
         new_w = new_w * torch.clamp(spec.weight_norm_limit / (norms + 1e-12), max=1.0)
+    if isinstance(active, torch.Tensor):
+        on = active > 0
+        new_w, inc = torch.where(on, new_w, w), torch.where(on, inc, m)
     w.copy_(new_w)
     m.copy_(inc)
 
 
 @torch.no_grad()
-def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params, step: int) -> None:
-    """One SGD step over every weighted edge, in place on params and moms."""
-    for e in graph.weighted_edges:
-        p, m, g = params[e.name], moms[e.name], grads[e.name]
-        _update_leaf(e.weight_optimizer, p["w"], m["w"], g["w"], step)
-        _update_leaf(e.bias_optimizer, p["b"], m["b"], g["b"], step)
+def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params,
+                  step: Optional[int] = None, hyper: Optional[torch.Tensor] = None) -> None:
+    """One SGD step over every weighted edge, in place on params and moms,
+    at host step `step`, or with the schedule's values read from `hyper`
+    (`schedule`'s rows, on the device)."""
+    if (step is None) == (hyper is None):
+        raise ValueError("apply_updates takes the step or its schedule tensor, not both")
+    for row, (e, k, spec) in enumerate(_leaves(graph)):
+        p, m, g = params[e.name][k], moms[e.name][k], grads[e.name][k]
+        if hyper is None:
+            _update_leaf(spec, p, m, g, epsilon_at(spec, step), momentum_at(spec, step),
+                         step >= spec.start_optimization_after)
+        else:
+            # a leaf that never freezes needs no select
+            active = hyper[row, 2] if spec.start_optimization_after > 0 else True
+            _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active)

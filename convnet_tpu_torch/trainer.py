@@ -1,18 +1,33 @@
 """Training and eval on one device: the input prologue, the train and eval
-steps, and the step loop (counterpart of `convnet_tpu/trainer.py`).
+steps, several steps per launch, and the step loop (counterpart of
+`convnet_tpu/trainer.py`).
 
 A train step runs the jitter prologue, the forward, `torch.autograd`'s
 backward and the per-edge SGD update, eagerly; the update is in place.
-Randomness is keyed by (seed, step): each input field's crop generator by
-(seed, step, crc32(field)) and each dropout mask by (seed, step, layer),
-so a run started again from the same state replays the same stream. The
-draws are not the JAX package's (threefry).
+Its randomness comes from the device: the state's int64 tensor (seed,
+step) on the device feeds `step_draws`, which derives each dropout layer's
+key (seed, step, layer) and each input field's crop origins and flips
+(seed, step, crc32(field)) in one launch, and the step advances it. So a
+run started again from the same state replays the same stream, and the
+draws do not depend on how the steps are launched. They are not the JAX
+package's (threefry).
+
+`make_train_step(unroll=k)` runs k steps a launch over k batches stacked
+on a leading axis, with metrics of shape (k,), as the JAX package's
+`lax.scan` does. On the CPU a launch is a loop of eager steps. On a card
+one step is captured as a CUDA graph over static input buffers, after
+warm-up steps on a copy of the state; a launch copies each batch into
+those buffers and replays the graph once a step, with the optimizer's
+schedule for that step copied in from pinned memory, and reads nothing
+back. The k steps give what k single steps give. A step that cannot be
+captured raises, naming the operation that broke the capture.
 
 `Trainer` writes a checkpoint every `checkpoint_after` steps and resumes
 from the newest one in its checkpoint directory (`checkpoint.py`, the JAX
-package's HDF5 layout). `Trainer.train(profile_dir=...)` traces the
-reference's window of steps with torch.profiler. Not ported yet, and
-raising NotImplementedError rather than skipped: several steps per launch.
+package's HDF5 layout). With steps_per_launch k, display, validation and
+checkpoints fire at the first launch boundary at or past each multiple.
+`Trainer.train(profile_dir=...)` traces the reference's window of steps
+with torch.profiler.
 """
 
 from __future__ import annotations
@@ -20,8 +35,7 @@ from __future__ import annotations
 import os
 import time
 import warnings
-import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,45 +46,38 @@ from convnet_tpu_torch.graph import Graph
 from convnet_tpu_torch import model as model_lib
 from convnet_tpu_torch import optim
 from convnet_tpu_torch.data.datahandler import DataHandler
-from convnet_tpu_torch.data.jitter import (
-    JitterSpec,
-    center_offsets,
-    jitter_batch,
-    sample_crop_flip,
-)
-from convnet_tpu_torch.ops.dropout import derive_key
+from convnet_tpu_torch.data.jitter import JitterSpec, center_offsets, crop_draw, jitter_batch
+from convnet_tpu_torch.ops import launch_counts
+from convnet_tpu_torch.ops.dropout import step_draws
 from convnet_tpu_torch.ops.s2d_relayout import jitter_s2d, prologue_plan
+from convnet_tpu_torch.utils.timers import Timer, start_trace, stop_trace
 
 #: {data_field: (JitterSpec, mean, std)}, mean/std numpy arrays or None.
 JitterMap = Dict[str, Tuple[JitterSpec, Optional[np.ndarray], Optional[np.ndarray]]]
-#: {"params", "moms", "step": host int, "seed": host int}
+#: {"params", "moms", "step": host int, "seed": host int}, and once a step
+#: has run, "rng": the int64 (seed, step) tensor on the device with
+#: "rng_step", the host step it holds.
 TrainState = Dict[str, Any]
+#: A train step's random draws: ({dropout layer index: key}, {field: crop}).
+Draws = Tuple[Dict[int, torch.Tensor], Dict[str, tuple]]
+#: Warm-up steps (on a copy of the state) before a step is captured: the
+#: first runs build the kernels and settle cuDNN's and cuBLAS's choices.
+CAPTURE_WARMUP = 3
 
 
-def _as_tensor(v, device):
-    """A numpy mean or std as an f32 tensor on `device`. To a card it goes
-    through pinned memory: a copy from pageable memory would make the
-    host wait for all the work queued before it, every step."""
-    if v is None:
-        return None
-    t = torch.from_numpy(np.array(v, np.float32))
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`. To a card it goes through pinned memory
+    without blocking: a copy from pageable memory would make the host wait
+    for all the work queued before it."""
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
-    return t
+    return t.to(device)
 
 
 def device_batch(host_batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Host arrays as tensors on `device`. To a card they go through
-    pinned memory without blocking, so the copy does not wait for the work
-    in flight."""
-    device = torch.device(device)
-    out = {}
-    for k, v in host_batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t.to(device)
-    return out
+    """Host arrays as tensors on `device`, copied without blocking."""
+    return {k: _to_device(torch.from_numpy(np.ascontiguousarray(v)), device)
+            for k, v in host_batch.items()}
 
 
 def init_state(graph: Graph, seed: Optional[int] = None, device="cpu") -> TrainState:
@@ -80,126 +87,311 @@ def init_state(graph: Graph, seed: Optional[int] = None, device="cpu") -> TrainS
     return {"params": params, "moms": optim.init_momentum(params), "step": 0, "seed": seed}
 
 
-def field_generator(seed: int, step: int, field: str, device) -> torch.Generator:
-    """The crop/flip generator of one input field at one step, on
-    `device`, seeded from (seed, step, crc32(field)); crc32 rather than
-    hash() so every process draws the same stream."""
-    k0, k1 = derive_key(seed, step, step >> 32, zlib.crc32(field.encode()), 1)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((k1 << 32) | k0)
-    return gen
+def rng_tensor(state: TrainState, device) -> torch.Tensor:
+    """The state's int64 (seed, step) tensor on `device`, made on first use
+    and written again (in place) when the host step moved without it, as a
+    resume does."""
+    device = torch.device(device)
+    rng = state.get("rng")
+    if rng is None or rng.device != device:
+        rng = state["rng"] = torch.zeros(2, dtype=torch.int64, device=device)
+        state["rng_step"] = None
+    if state.get("rng_step") != state["step"]:
+        host = torch.tensor([state["seed"], state["step"]], dtype=torch.int64)
+        rng.copy_(host.pin_memory() if device.type == "cuda" else host, non_blocking=True)
+        state["rng_step"] = state["step"]
+    return rng
+
+
+class JitterTensors:
+    """Each field's mean and std as f32 tensors on a device, made once per
+    device (per-channel (C,) for the space-to-depth prologue, as given for
+    jitter_batch): a step that copied them every call would wait for the
+    card, and a CUDA graph would replay a copy from freed host memory."""
+
+    def __init__(self, jitter: Optional[JitterMap]):
+        self._jitter = jitter or {}
+        self._cache: Dict[tuple, tuple] = {}
+
+    def get(self, field: str, device, channels: Optional[int] = None):
+        key = (field, str(device), channels)
+        if key not in self._cache:
+            _, mean, std = self._jitter[field]
+
+            def tensor(v):
+                if v is None:
+                    return None
+                if channels is not None:
+                    v = np.broadcast_to(v, (channels,))
+                return _to_device(torch.from_numpy(np.array(v, np.float32)), device)
+
+            self._cache[key] = (tensor(mean), tensor(std))
+        return self._cache[key]
+
+
+def draw_step(graph: Graph, jitter: Optional[JitterMap], batch: Dict[str, torch.Tensor],
+              rng: torch.Tensor) -> Draws:
+    """One train step's draws from rng = (seed, step) on the batch's device:
+    the dropout layers' keys and each jittered field's crop origins and
+    flips. One `step_draws` launch takes the keys and the first field, one
+    more each further field."""
+    words = [(i, 0) for i in model_lib.dropout_layers(graph)]
+    fields = []
+    for field, (spec, _, _) in (jitter or {}).items():
+        b, h, w = batch[field].shape[:3]
+        d = crop_draw(field, b, h, w, spec.image_size, spec.can_translate, spec.can_flip)
+        if d is not None:
+            fields.append((field, d))
+    if not words and not fields:
+        return {}, {}
+    first = fields[0][1] if fields else None
+    keys, crop = step_draws(rng, words, first)
+    crops = {fields[0][0]: crop} if fields else {}
+    for field, d in fields[1:]:
+        crops[field] = step_draws(rng, (), d)[1]
+    return {i: keys[j] for j, (i, _) in enumerate(words)}, crops
 
 
 def preprocess(
     graph: Graph,
     jitter: Optional[JitterMap],
     batch: Dict[str, torch.Tensor],
-    train: bool = False,
-    rng: Optional[Tuple[int, int]] = None,
+    crops: Optional[Dict[str, tuple]] = None,
+    consts: Optional[JitterTensors] = None,
 ):
     """The jitter prologue for image inputs. A uint8 batch whose input
     layer feeds a conv that `prologue_plan` accepts, with a scalar or
     per-channel mean/std, goes through the one-pass space-to-depth
-    prologue; other inputs through `jitter_batch`. Eval takes the center
-    crop; train (rng = (seed, step)) draws per-image crop origins and
-    flips from each field's `field_generator`. With no jitter map, uint8
-    inputs are widened to f32."""
+    prologue; other inputs through `jitter_batch`. crops: {field: (oy, ox,
+    flips)} of a train step (`draw_step`); a field without one takes the
+    eval center crop. consts: the mean/std tensors (made here when not
+    given). With no jitter map, uint8 inputs are widened to f32."""
     if not jitter:
         return {k: v.float() if v.dtype == torch.uint8 else v for k, v in batch.items()}
+    consts = consts or JitterTensors(jitter)
+    crops = crops or {}
     out = dict(batch)
     for field, (spec, mean, std) in jitter.items():
         x = out[field]
         dev = x.device
-        gen = None
-        if train and (spec.can_translate or spec.can_flip):
-            if rng is None:
-                raise ValueError("train jitter needs rng = (seed, step)")
-            gen = field_generator(*rng, field, dev)
+        crop = crops.get(field)
         if x.dim() == 4 and x.dtype == torch.uint8 and np.ndim(mean) <= 1 and np.ndim(std) <= 1:
             layer = next((l for l in graph.input_layers if l.data_field == field), None)
             edge = prologue_plan(graph, layer.name) if layer is not None else None
             if edge is not None:
                 b, h, w, c = x.shape
-                oy = ox = flips = None
-                if gen is not None:
-                    oy, ox, flips = sample_crop_flip(
-                        gen, b, h, w, spec.image_size, spec.can_translate, spec.can_flip
-                    )
-                if oy is None:
+                if crop is not None:
+                    oy, ox, flips = crop
+                else:
                     cy, cx = center_offsets(h, w, spec.image_size)
                     oy = torch.full((b,), cy, dtype=torch.int32, device=dev)
                     ox = torch.full((b,), cx, dtype=torch.int32, device=dev)
-                per_channel = [
-                    None if v is None else _as_tensor(np.broadcast_to(v, (c,)), dev)
-                    for v in (mean, std)
-                ]
+                    flips = None
+                mean_t, std_t = consts.get(field, dev, c)
                 out[field] = jitter_s2d(
                     x, oy, ox, flips,
                     crop=spec.image_size,
                     kernel=edge.kernel_size,
                     stride=edge.stride,
                     scale=spec.scale,
-                    mean=per_channel[0],
-                    std=per_channel[1],
+                    mean=mean_t,
+                    std=std_t,
                 )
                 continue
-        out[field] = jitter_batch(
-            x, spec, _as_tensor(mean, dev), _as_tensor(std, dev), train=gen is not None, gen=gen
-        )
+        mean_t, std_t = consts.get(field, dev)
+        out[field] = jitter_batch(x, spec, mean_t, std_t, crop=crop)
     return out
 
 
 def make_forward(graph: Graph, layers: List[str], jitter: Optional[JitterMap] = None):
     """(params, batch) -> {layer: activation} for feature extraction and
     serving; the batch holds raw (uint8 or float) NHWC tensors."""
+    consts = JitterTensors(jitter)
 
     def fwd(params, batch):
         return model_lib.apply_fn(
-            graph, params, preprocess(graph, jitter, batch), return_layers=layers
+            graph, params, preprocess(graph, jitter, batch, consts=consts), return_layers=layers
         )
 
     return fwd
 
 
-def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: int = 1):
-    """(state, batch) -> metrics. One step: the train prologue, forward,
-    backward, and `optim.apply_updates`, which updates state["params"]
-    and state["moms"] in place; state["step"] advances by one. The
-    metrics ("loss", "<output>/errors") stay device tensors until the
-    caller reads them."""
-    if unroll != 1:
-        raise NotImplementedError("several steps per launch (unroll > 1) are not ported yet")
+def _step_core(graph: Graph, jitter: Optional[JitterMap]):
+    """(params, moms, rng, batch, step | hyper) -> metrics: one train step
+    that draws from and then advances rng, with the optimizer's schedule
+    at host step `step` or read from the device tensor `hyper`."""
+    consts = JitterTensors(jitter)
 
-    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
-        seed, step = state["seed"], state["step"]
-        params = state["params"]
+    def core(params, moms, rng, batch, step=None, hyper=None):
         keys = [(name, k) for name in params for k in params[name]]
         # a caller's inference_mode or no_grad would leave nothing to differentiate
         with torch.inference_mode(False), torch.enable_grad():
             for name, k in keys:
                 params[name][k].requires_grad_(True)
-            proc = preprocess(graph, jitter, batch, train=True, rng=(seed, step))
-            loss, metrics = model_lib.loss_fn(
-                graph, params, proc, train=True, dropout_seed=(seed, step)
-            )
+            dropout_keys, crops = draw_step(graph, jitter, batch, rng)
+            core.draws = (dropout_keys, crops)
+            proc = preprocess(graph, jitter, batch, crops, consts)
+            loss, metrics = model_lib.loss_fn(graph, params, proc, train=True,
+                                              dropout_keys=dropout_keys)
             flat = torch.autograd.grad(loss, [params[name][k] for name, k in keys])
         grads: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in params}
         for (name, k), g in zip(keys, flat):
             grads[name][k] = g
-        optim.apply_updates(graph, params, state["moms"], grads, step)
-        state["step"] = step + 1
+        optim.apply_updates(graph, params, moms, grads, step=step, hyper=hyper)
+        rng[1:].add_(1)
         return {k: v.detach() for k, v in metrics.items()}
 
-    return step_fn
+    return core
+
+
+def _state_device(state: TrainState) -> torch.device:
+    return next(iter(next(iter(state["params"].values())).values())).device
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph, over the state's own
+    parameter, momentum and (seed, step) tensors, static input buffers and
+    a static schedule tensor. `launches` holds the kernels' launches that
+    the capture recorded: each replay makes them again, though the
+    wrappers' counters, which count where the wrapper runs, do not move."""
+
+    def __init__(self, graph: Graph, core, state: TrainState, row: Dict[str, torch.Tensor]):
+        dev = _state_device(state)
+        self.graph = graph
+        self.rng = rng_tensor(state, dev)
+        self.tensors = self._tensors(state)
+        # row may be a device tensor or a view of pinned host memory
+        self.static = {f: torch.empty_like(v, device=dev).copy_(v, non_blocking=True)
+                       for f, v in row.items()}
+        self.hyper = _to_device(torch.from_numpy(optim.schedule(graph, state["step"])), dev)
+        scratch = {t: {n: {k: v.clone() for k, v in p.items()} for n, p in state[t].items()}
+                   for t in ("params", "moms")}
+        scratch_rng = self.rng.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP):
+                    core(scratch["params"], scratch["moms"], scratch_rng, self.static,
+                         hyper=self.hyper)
+        except RuntimeError as e:
+            raise RuntimeError(f"the train step waits for the card and cannot be captured: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del scratch, scratch_rng
+        before = launch_counts()
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.cuda_graph):
+                self.metrics = core(state["params"], state["moms"], self.rng, self.static,
+                                    hyper=self.hyper)
+        except Exception as e:
+            raise RuntimeError(f"the train step could not be captured as a CUDA graph: {e}") from e
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        self.draws = core.draws  # the graph's own tensors: each replay rewrites them
+        self.replays = 0
+
+    @staticmethod
+    def _tensors(state: TrainState) -> List[torch.Tensor]:
+        return [v for t in ("params", "moms") for p in state[t].values() for v in p.values()]
+
+    def holds(self, state: TrainState) -> bool:
+        """Whether the graph was captured over this state's tensors."""
+        return rng_tensor(state, self.rng.device) is self.rng and all(
+            a is b for a, b in zip(self._tensors(state), self.tensors)
+        )
+
+    def run(self, state: TrainState, batches: Dict[str, torch.Tensor], n: int):
+        """n replays, each after copying its batch (from the device or from
+        pinned memory) and its schedule row into the static buffers."""
+        t0 = state["step"]
+        sched = torch.from_numpy(np.stack([optim.schedule(self.graph, t0 + i) for i in range(n)]))
+        sched = sched.pin_memory()
+        rows = []
+        for i in range(n):
+            for f, buf in self.static.items():
+                buf.copy_(batches[f][i], non_blocking=True)
+            self.hyper.copy_(sched[i], non_blocking=True)
+            self.cuda_graph.replay()
+            rows.append({k: v.clone() for k, v in self.metrics.items()})
+        self.replays += n
+        state["step"] = state["rng_step"] = t0 + n
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+class TrainSteps:
+    """The eager train step of one graph and jitter map and, on a card, its
+    CUDA graph (captured at the first launch of several steps, and again
+    if the state's tensors change)."""
+
+    def __init__(self, graph: Graph, jitter: Optional[JitterMap] = None):
+        self.graph = graph
+        self._core = _step_core(graph, jitter)
+        self.captured: Optional[_StepGraph] = None
+        #: the last step's draws, (dropout keys, crops): device tensors
+        #: that the next step may overwrite
+        self.last_draws: Draws = ({}, {})
+
+    def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        """One eager step: state["step"] advances by one; the metrics
+        ("loss", "<output>/errors") stay device tensors."""
+        step = state["step"]
+        metrics = self._core(state["params"], state["moms"], rng_tensor(state, _state_device(state)),
+                             batch, step=step)
+        state["step"] = state["rng_step"] = step + 1
+        self.last_draws = self._core.draws
+        return metrics
+
+    def launch(self, state: TrainState, batches: Dict[str, torch.Tensor], n: int):
+        """n steps over batches stacked on a leading axis of n; metrics of
+        shape (n,). On a card the batches may lie in pinned host memory:
+        each replay copies its batch from there."""
+        for f, v in batches.items():
+            if v.shape[0] != n:
+                raise ValueError(f"launch of {n} steps: batch {f!r} has leading axis {v.shape[0]}")
+        if _state_device(state).type != "cuda":
+            rows = [self.step(state, {f: v[i] for f, v in batches.items()}) for i in range(n)]
+            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if self.captured is None or not self.captured.holds(state):
+            self.captured = None  # the old graph's memory goes back first
+            self.captured = _StepGraph(self.graph, self._core, state,
+                                       {f: v[0] for f, v in batches.items()})
+        metrics = self.captured.run(state, batches, n)
+        self.last_draws = self.captured.draws
+        return metrics
+
+
+def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: int = 1):
+    """unroll 1: (state, batch) -> metrics, one eager step that updates
+    state["params"] and state["moms"] in place and advances state["step"]
+    by one. unroll k > 1: (state, batches) -> metrics, k steps over batches
+    stacked on a leading axis of k, metrics of shape (k,): a loop of eager
+    steps on the CPU, k replays of the step's CUDA graph on a card. The
+    metrics stay device tensors until the caller reads them."""
+    if unroll < 1:
+        raise ValueError(f"unroll {unroll} < 1")
+    steps = TrainSteps(graph, jitter)
+    if unroll == 1:
+        return steps.step
+
+    def launch(state: TrainState, batches: Dict[str, torch.Tensor]):
+        return steps.launch(state, batches, unroll)
+
+    return launch
 
 
 def make_eval_step(graph: Graph, jitter: Optional[JitterMap] = None):
     """(params, batch) -> metrics; center crop, no dropout."""
+    consts = JitterTensors(jitter)
 
     def eval_fn(params, batch):
         with torch.no_grad():
             _, metrics = model_lib.loss_fn(
-                graph, params, preprocess(graph, jitter, batch), train=False
+                graph, params, preprocess(graph, jitter, batch, consts=consts), train=False
             )
         return metrics
 
@@ -224,7 +416,16 @@ class Trainer:
     every `checkpoint_after` (`save`), the train log
     `<checkpoint_dir>/<model>_train_log.txt` when a checkpoint directory
     is set. At construction it resumes from the newest checkpoint of the
-    model in the checkpoint directory, if there is one.
+    model in the checkpoint directory, if there is one, and logs which
+    reader each stream took where its type has two.
+
+    steps_per_launch k > 1: each launch runs k steps over k batches staged
+    together (a CUDA graph replayed k times on a card); display, validation
+    and checkpoints fire at the first launch boundary at or past each
+    multiple, as in the JAX package. `timers` time the host's stages:
+    get_batch, stack (k > 1: into cached pinned buffers), pin (k = 1),
+    copy (k = 1: enqueueing the copy to the device) and launch (enqueueing
+    the steps, and at k > 1 each step's copy out of the pinned buffers).
 
     jitter: {field: (JitterSpec, mean, std)} to use instead of the data
     handlers' `jitter_specs()` (for example a mean given without an HDF5
@@ -244,8 +445,6 @@ class Trainer:
         device="cuda",
         jitter: Optional[JitterMap] = None,
     ):
-        if steps_per_launch != 1:
-            raise NotImplementedError("steps_per_launch > 1 is not ported yet")
         _clamp_parallel(graph)
         self.graph = graph
         self.model_proto = model_proto
@@ -271,10 +470,26 @@ class Trainer:
         eval_jitter = jitter if jitter is not None else (
             val_data.jitter_specs() if val_data is not None else train_jitter
         )
-        self._train_step = make_train_step(graph, train_jitter)
+        self.steps_per_launch = max(1, int(steps_per_launch))
+        self.steps = TrainSteps(graph, train_jitter)
         self._eval_step = make_eval_step(graph, eval_jitter)
+        self.timers = {k: Timer() for k in ("get_batch", "stack", "pin", "copy", "launch")}
+        # k > 1 on a card: two sets of pinned staging buffers a launch size,
+        # taken in turn, each reused once the launch's copies out of it ran
+        self._pinned: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+        self._pinned_done: Dict[Tuple[int, int], torch.cuda.Event] = {}
+        self._turn = 0
+        self._staged_key: Optional[Tuple[int, int]] = None
         self.state = init_state(graph, device=self.device)
+        for which, data in (("train", train_data), ("val", val_data)):
+            for line in data.backend_log() if data is not None else ():
+                self.log(f"{which} data: {line}")
         self._resume()
+
+    def _launch_fn(self, n: int) -> Callable:
+        if n == 1:
+            return self.steps.step
+        return lambda state, batches: self.steps.launch(state, batches, n)
 
     def log(self, msg: str):
         self._log_fn(msg)
@@ -330,42 +545,89 @@ class Trainer:
         """A DataHandler batch as tensors on the Trainer's device."""
         return device_batch(host_batch, self.device)
 
+    def _stage(self, n: int) -> Dict[str, torch.Tensor]:
+        """Fetch n batches as one launch's input: a plain batch for n = 1
+        (on the device), stacked on a leading axis else (on a card, in
+        pinned buffers that the launch copies from, step by step)."""
+        t = self.timers
+        self._staged_key = None
+        with t["get_batch"]:
+            hosts = [self.train_data.get_batch() for _ in range(n)]
+        if self.device.type != "cuda":
+            with t["stack"]:
+                if n == 1:
+                    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in hosts[0].items()}
+                return {k: torch.from_numpy(np.stack([h[k] for h in hosts])) for k in hosts[0]}
+        if n == 1:
+            with t["pin"]:
+                pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                          for k, v in hosts[0].items()}
+            with t["copy"]:
+                return {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
+        self._turn ^= 1
+        key = (n, self._turn)
+        if key not in self._pinned:
+            self._pinned[key] = {
+                k: torch.empty((n, *v.shape), dtype=torch.from_numpy(v[:0]).dtype, pin_memory=True)
+                for k, v in hosts[0].items()
+            }
+        bufs = self._pinned[key]
+        if key in self._pinned_done:
+            self._pinned_done[key].synchronize()  # the copies out of this set have run
+        with t["stack"]:
+            for k, buf in bufs.items():
+                rows = buf.numpy()
+                for i, h in enumerate(hosts):
+                    np.copyto(rows[i], h[k])
+        self._staged_key = key
+        return bufs
+
     def train(self, max_iter: Optional[int] = None, profile_dir: Optional[str] = None):
         """The step loop up to `max_iter` steps (default: the pbtxt's).
-        profile_dir: trace steps start+5 to start+15 (past the first
-        steps' warm-up) with torch.profiler into this directory, as a
-        TensorBoard-readable Chrome trace (the reference's window,
-        `convnet_tpu/trainer.py:444-524`); a run that ends inside the
-        window writes what it traced, one that ends before it says so."""
+        profile_dir: trace about ten steps past the first steps' warm-up
+        with torch.profiler into this directory, as a TensorBoard-readable
+        Chrome trace (the reference's window, `convnet_tpu/trainer.py:444-524`,
+        which starts at the first launch boundary at or past step start +
+        max(5, k) and spans ceil(10 / k) launches); a run that ends inside
+        the window writes what it traced, one that ends before it says so."""
         g = self.graph
         total = max_iter if max_iter is not None else g.max_iter
+        k = self.steps_per_launch
         it = self.state["step"]
-        p_start, p_stop = it + 5, it + 15
+        p_start = it + max(5, k)
+        p_stop = p_start + k * -(-10 // k)
         prof = None
+        cuda = self.device.type == "cuda"
         window: List[Dict[str, torch.Tensor]] = []
         t0 = time.time()
-        next_batch = self.device_batch(self.train_data.get_batch()) if it < total else None
+        next_batch = self._stage(min(k, total - it)) if it < total else None
         while it < total:
             if profile_dir is not None:
                 if prof is None and p_start <= it < p_stop:
-                    prof = self._start_trace(profile_dir)
+                    prof = start_trace(profile_dir, cuda)
                 elif prof is not None and it >= p_stop:
-                    self._stop_trace(prof)
+                    stop_trace(prof, cuda)
                     prof = None
                     self.log(f"profile trace -> {profile_dir}")
-            metrics = self._train_step(self.state, next_batch)
-            prev, it = it, it + 1
-            # stage the next batch while this step runs on the device
+            n = min(k, total - it)
+            with self.timers["launch"]:
+                metrics = self._launch_fn(n)(self.state, next_batch)
+            if self._staged_key is not None:
+                # the launch has queued its copies out of the pinned set
+                done = self._pinned_done[self._staged_key] = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            prev, it = it, it + n
+            # stage the next launch's batches while this one runs on the device
             if it < total:
-                next_batch = self.device_batch(self.train_data.get_batch())
+                next_batch = self._stage(min(k, total - it))
             window.append(metrics)
             if g.display_after and it // g.display_after > prev // g.display_after:
-                loss = torch.stack([m["loss"].float() for m in window]).mean().item()
+                loss = torch.cat([m["loss"].float().reshape(-1) for m in window]).mean().item()
                 errs = sum(
-                    torch.stack([m[k] for m in window]).sum().item()
-                    for k in window[0] if k.endswith("/errors")
+                    torch.cat([m[key].reshape(-1) for m in window]).sum().item()
+                    for key in window[0] if key.endswith("/errors")
                 )
-                seen = len(window) * self.train_data.batch_size
+                seen = sum(m["loss"].numel() for m in window) * self.train_data.batch_size
                 dt = time.time() - t0
                 ips = seen / dt if dt > 0 else 0.0
                 self.log(
@@ -386,7 +648,7 @@ class Trainer:
                 self.save()
                 t0 = time.time()
         if prof is not None:
-            self._stop_trace(prof)
+            stop_trace(prof, cuda)
             self.log(f"profile trace -> {profile_dir} (truncated at end of run)")
         elif profile_dir is not None and it < p_start:
             self.log(
@@ -395,23 +657,6 @@ class Trainer:
                 "trace was captured"
             )
         return self.state
-
-    def _start_trace(self, profile_dir: str):
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
-        prof.start()
-        return prof
-
-    def _stop_trace(self, prof) -> None:
-        """End the trace once the traced steps' device work is done, and
-        write it."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
 
     def validate(self, num_batches: Optional[int] = None) -> Tuple[float, float]:
         """(error rate, mean loss) over num_batches validation batches
@@ -423,9 +668,7 @@ class Trainer:
         bs = self.val_data.batch_size
         tot_err = tot_loss = seen = 0.0
         for _ in range(n):
-            m = self._eval_step(
-                self.state["params"], self.device_batch(self.val_data.get_batch())
-            )
+            m = self._eval_step(self.state["params"], self.device_batch(self.val_data.get_batch()))
             tot_loss += float(m["loss"]) * bs
             tot_err += sum(float(m[k]) for k in m if k.endswith("/errors"))
             seen += bs

@@ -23,6 +23,7 @@ from convnet_tpu import models as jax_models
 from convnet_tpu.cli import extract as jax_extract
 from convnet_tpu.cli import grad_check as jax_grad_check
 from convnet_tpu.graph import build_graph
+from convnet_tpu_torch import checkpoint as ckpt
 from convnet_tpu_torch import models
 from convnet_tpu_torch.cli import extract, grad_check, train
 
@@ -117,8 +118,17 @@ def test_train_cli_clamps_a_mesh_and_refuses_several_steps_per_launch(tmp_path):
         assert _train(out, 4, "--data-parallel", "4") == 0
     with h5py.File(glob.glob(os.path.join(out, "*.h5"))[0]) as f:
         assert f.attrs["step"] == 4
-    with pytest.raises(NotImplementedError, match="steps_per_launch"):
-        _train(str(tmp_path / "spl"), 4, "--steps-per-launch", "2")
+    # --steps-per-launch, once refused, now runs; its parameters are k = 1's
+    params = []
+    for k in ("1", "2"):
+        out = str(tmp_path / f"spl{k}")
+        assert _train(out, 4, "--steps-per-launch", k) == 0
+        with h5py.File(glob.glob(os.path.join(out, "*.h5"))[0]) as f:
+            assert f.attrs["step"] == 4
+        params.append(ckpt.load(glob.glob(os.path.join(out, "*.h5"))[0])[0])
+    for name, p in params[0].items():
+        for key, v in p.items():
+            np.testing.assert_array_equal(v, params[1][name][key])
 
 
 @pytest.mark.parametrize("cli", ["train", "extract", "grad_check"])

@@ -88,12 +88,18 @@ def test_iter_epoch_reset_and_metadata():
         ours.reset()
 
 
-def test_unported_streams_raise():
-    cfg = pt_config.parse_dataset_config(
-        'name: "r" data_config { layer_name: "input" data_type: RAW_CACHE file_pattern: "x" }'
-    )
-    with pytest.raises(NotImplementedError, match="Queue A1"):
-        DataHandler(cfg)
+def test_unknown_stream_type_raises():
+    """Every data type of the schema has a stream; a value outside the
+    enum raises ValueError, and so does a config with no streams."""
+    from types import SimpleNamespace
+
+    from convnet_tpu_torch import proto as pt_pb
+    from convnet_tpu_torch.data.datahandler import make_stream
+
+    kinds = pt_pb.DataStreamConfig.DataType
+    assert set(kinds.keys()) == {"DUMMY", "HDF5", "IMAGE_RAW", "SLIDING_WINDOW", "TXT", "RAW_CACHE"}
+    with pytest.raises(ValueError, match="unknown data_type 99"):
+        make_stream(SimpleNamespace(data_type=99, layer_name="input"))
     with pytest.raises(ValueError, match="no data_config"):
         DataHandler(pt_config.parse_dataset_config('name: "empty"'))
 

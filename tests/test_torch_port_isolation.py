@@ -39,7 +39,8 @@ def test_walk_sees_the_whole_port():
     for want in ("convnet_tpu_torch/config.py", "convnet_tpu_torch/graph.py",
                  "convnet_tpu_torch/proto/__init__.py", "convnet_tpu_torch/ops/fused_pool_lrn.py",
                  "convnet_tpu_torch/cli/grad_check.py", "convnet_tpu_torch/models/zoo.py",
-                 "chip_smoke.py"):
+                 "convnet_tpu_torch/data/native.py", "convnet_tpu_torch/data/image_iterators.py",
+                 "convnet_tpu_torch/utils/timers.py", "chip_smoke.py"):
         assert want in names
     assert _forbidden("convnet_tpu.graph") and _forbidden("jax.numpy")
     assert not _forbidden("convnet_tpu_torch.graph")
@@ -56,9 +57,12 @@ def test_entry_points_load_no_jax_and_no_jax_package():
         "import convnet_tpu_torch.data.datahandler, convnet_tpu_torch.config\n"
         "import convnet_tpu_torch.cli.train, convnet_tpu_torch.cli.extract\n"
         "import convnet_tpu_torch.cli.grad_check, convnet_tpu_torch.models.zoo\n"
+        "import convnet_tpu_torch.data.native, convnet_tpu_torch.data.image_iterators\n"
+        "import convnet_tpu_torch.utils.timers\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.')\n"
-        "             or m == 'h5py' or m.startswith('h5py.'))\n"
+        "             or m == 'h5py' or m.startswith('h5py.')\n"
+        "             or m == 'PIL' or m.startswith('PIL.'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -118,8 +118,9 @@ def test_library_is_keyed_by_the_sources():
     # the shared headers are hashed too: editing one builds a new library
     assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh",
                                                                      "stage.cuh"}
-    assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_s2d_prologue",
-                                       "cn_maxpool_fwd", "cn_pool_lrn_fwd", "cn_pool_lrn_bwd"}
+    assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_step_draws",
+                                       "cn_s2d_prologue", "cn_maxpool_fwd", "cn_pool_lrn_fwd",
+                                       "cn_pool_lrn_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -506,7 +507,7 @@ def test_dropout_kernel_bit_equal_to_plain(cuda, dtype, shape, offset):
 
 def test_dropout_kernel_masks_agree_fwd_bwd(cuda):
     x = torch.randn((128, 1, 1, 4096), device=cuda, dtype=torch.bfloat16).requires_grad_()
-    y = drop.dropout(x, 0.5, seed=4, step=9, layer=12)
+    y = drop.dropout(x, 0.5, drop.dropout_key(4, 9, 12))
     (gx,) = torch.autograd.grad(y, x, torch.ones_like(y))
     assert torch.equal(y != 0, gx != 0)
     assert torch.equal(gx[gx != 0], torch.full_like(gx[gx != 0], 2.0))
@@ -778,6 +779,34 @@ def test_pool_lrn_fwd_keeps_a_nan(cuda, dtype, c, n):
     assert torch.equal(nan, torch.isnan(want))
     assert nan[1, 2:4, 2:4, 7].all() and nan[2, 5, 0, 0] and not nan[0].any()
     assert torch.equal(m[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,n", [(96, 5), (16, 3)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_pool_lrn_fwd_bit_for_bit_with_nans_and_signed_zeros(cuda, dtype, c, n, bias):
+    """The fused forward is bit for bit the max pool of the LRN kernel's y,
+    on the fast path (n = 5) and the generic one: on tie-heavy inputs with
+    planted NaNs, and on windows that hold -0 and +0 in either order (the
+    first is kept, as ATen's scan keeps it; without bias and ReLU, which map
+    -0 to +0). It once pooled bf16 with __hmax2_nan, which does not."""
+    gen = torch.Generator(device=cuda).manual_seed(c + n)
+    kw = {"bias": (0.5 * torch.randn((c,), generator=gen, device=cuda)).round(),
+          "relu": True} if bias else {}
+    z = _plant_nans(gen, _halves(gen, (3, 13, 13, c), cuda, dtype))
+    m = plrn.pool_lrn_fwd(z, n, 1e-4 / n, 0.75, 3, 2, **kw)
+    y = lrn.lrn_fwd(z.view(-1, c), n, 1e-4 / n, 0.75, **kw).view(z.shape)
+    assert _same_bits(m, pool.maxpool_reference(y, 3, 2))
+    if bias:
+        return
+    z = torch.full((2, 13, 13, c), -1.0, device=cuda, dtype=dtype)
+    for first, second in ((-0.0, 0.0), (0.0, -0.0)):
+        z[:, 0::2, 0::2] = first  # a window's first tap is at an even row and column
+        z[:, 1::2, 1::2] = second
+        y = lrn.lrn_fwd(z.view(-1, c), n, 1e-4 / n, 0.75).view(z.shape)
+        want = pool.maxpool_reference(y, 3, 2)
+        assert torch.equal(want.signbit(), torch.full_like(want, first).signbit())
+        assert _same_bits(plrn.pool_lrn_fwd(z, n, 1e-4 / n, 0.75, 3, 2), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

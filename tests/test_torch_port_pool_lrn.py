@@ -36,6 +36,7 @@ from convnet_tpu_torch import model as pt_model
 from convnet_tpu_torch import optim as pt_optim
 from convnet_tpu_torch import trainer as pt_trainer
 from convnet_tpu_torch.graph import build_graph as pt_build_graph
+from convnet_tpu_torch.ops import dropout as pt_drop
 from convnet_tpu_torch.ops import fused_pool_lrn as pt_plrn
 from convnet_tpu_torch.ops import pool as pt_pool
 from convnet_tpu_torch.ops import s2d_relayout as pt_s2d
@@ -295,10 +296,13 @@ def test_fusion_keeps_dropout_keys_and_tie_free_gradients(monkeypatch):
     params = pt_model.params_from_numpy(
         {n: {k: v.numpy() for k, v in p.items()} for n, p in pt_model.init_params(g, 1).items()})
     batch = {k: torch.from_numpy(v) for k, v in _batches(1, seed=3)[0].items()}
+    layers = pt_model.dropout_layers(g)
+    drawn, _ = pt_drop.step_draws_reference(torch.tensor([5, 2]), [(i, 0) for i in layers])
+    keys = dict(zip(layers, drawn))
 
     def loss_and_grads():
         leaves = [params[e.name][k].requires_grad_() for e in g.weighted_edges for k in ("w", "b")]
-        loss, _ = pt_model.loss_fn(g, params, batch, train=True, dropout_seed=(5, 2))
+        loss, _ = pt_model.loss_fn(g, params, batch, train=True, dropout_keys=keys)
         return loss, torch.autograd.grad(loss, leaves)
 
     l0, g0 = loss_and_grads()

@@ -221,17 +221,16 @@ def test_philox_known_answers():
 
 def test_dropout_is_deterministic_in_seed_step_layer():
     x = torch.ones(16, 1, 1, 256)
-    a = pt_drop.dropout(x, 0.5, seed=3, step=7, layer=12)
-    assert torch.equal(a, pt_drop.dropout(x, 0.5, seed=3, step=7, layer=12))
-    for other in ({"seed": 4, "step": 7, "layer": 12}, {"seed": 3, "step": 8, "layer": 12},
-                  {"seed": 3, "step": 7, "layer": 13}):
-        assert not torch.equal(a, pt_drop.dropout(x, 0.5, **other))
+    a = pt_drop.dropout(x, 0.5, pt_drop.dropout_key(3, 7, 12))
+    assert torch.equal(a, pt_drop.dropout(x, 0.5, pt_drop.dropout_key(3, 7, 12)))
+    for other in ((4, 7, 12), (3, 8, 12), (3, 7, 13)):
+        assert not torch.equal(a, pt_drop.dropout(x, 0.5, pt_drop.dropout_key(*other)))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_dropout_backward_mask_equals_forward_mask(dtype):
     x = (torch.randn(32, 1, 1, 512) + 3.0).to(TORCH_DT[dtype]).requires_grad_()
-    y = pt_drop.dropout(x, 0.5, seed=1, step=2, layer=3)
+    y = pt_drop.dropout(x, 0.5, pt_drop.dropout_key(1, 2, 3))
     g = torch.randn_like(y)
     (gx,) = torch.autograd.grad(y, x, g)
     assert torch.equal(gx != 0, y != 0)
@@ -250,7 +249,7 @@ def test_dropout_keep_rate(rate):
 
 def test_dropout_rate_zero_is_identity():
     x = torch.randn(4, 1, 1, 8)
-    assert pt_drop.dropout(x, 0.0, seed=0) is x
+    assert pt_drop.dropout(x, 0.0, pt_drop.dropout_key(0, 0, 0)) is x
 
 
 @pytest.mark.parametrize("rate", [0.5, 0.3, 0.1])
@@ -407,31 +406,50 @@ def test_crop_flip_equals_reference_gather():
 
 
 def test_train_jitter_batch_draws_from_the_generator():
+    """jitter_batch crops where the device draw (sample_crop_flip, from an
+    int64 (seed, step) tensor) says; the same state draws the same crops,
+    and a draw of flips alone keeps the center crop."""
     x = torch.from_numpy(np.random.default_rng(17).integers(0, 256, (16, 12, 12, 3), dtype=np.uint8))
     spec = pt_jitter.JitterSpec(image_size=9, can_translate=True, can_flip=True, scale=1 / 255)
-    a = pt_jitter.jitter_batch(x, spec, train=True, gen=torch.Generator().manual_seed(1))
-    b = pt_jitter.jitter_batch(x, spec, train=True, gen=torch.Generator().manual_seed(1))
+    rng = torch.tensor([1, 0])
+    crop = pt_jitter.sample_crop_flip(rng, "input", 16, 12, 12, 9, True, True)
+    a = pt_jitter.jitter_batch(x, spec, crop=crop)
+    b = pt_jitter.jitter_batch(x, spec, crop=pt_jitter.sample_crop_flip(rng, "input", 16, 12, 12, 9,
+                                                                        True, True))
     assert a.shape == (16, 9, 9, 3) and torch.equal(a, b)
-    oy, ox, flips = pt_jitter.sample_crop_flip(torch.Generator().manual_seed(1), 16, 12, 12, 9,
-                                               True, True)
-    assert 0 <= int(oy.min()) and int(oy.max()) <= 3 and flips.dtype == torch.bool
+    oy, ox, flips = crop
+    assert oy.dtype == ox.dtype == torch.int32 and flips.dtype == torch.bool
+    assert 0 <= int(oy.min()) and int(oy.max()) <= 3 and 0 <= int(ox.min()) and int(ox.max()) <= 3
     want = pt_jitter.crop_flip(x, 9, oy, ox, flips).float() / 255
     torch.testing.assert_close(a, want * 1.0, rtol=0, atol=1e-7)
     eval_crop = pt_jitter.jitter_batch(x, spec)
     assert not torch.equal(a, eval_crop)
-    with pytest.raises(ValueError, match="generator"):
-        pt_jitter.jitter_batch(x, spec, train=True)
+    oy, ox, flips = pt_jitter.sample_crop_flip(rng, "input", 16, 12, 12, 9, False, True)
+    assert (oy == 1).all() and (ox == 1).all() and flips.any() and not flips.all()
+    assert pt_jitter.sample_crop_flip(rng, "input", 16, 12, 12, 9, False, False) == (None,) * 3
 
 
 def test_field_generator_is_keyed_by_seed_step_field():
-    def draw(*args):
-        return torch.randint(0, 1 << 30, (4,), generator=pt_trainer.field_generator(*args, "cpu"))
+    """A field's crops are keyed by (seed, step, crc32(field)), and a
+    dropout key drawn on the device equals the host's dropout_key."""
+    def draw(seed, step, field):
+        oy, ox, flips = pt_jitter.sample_crop_flip(torch.tensor([seed, step]), field, 64, 40, 40, 9,
+                                                   True, True)
+        return torch.cat([oy.long(), ox.long(), flips.long()])
 
     a = draw(0, 5, "input")
     assert torch.equal(a, draw(0, 5, "input"))
-    for other in ((1, 5, "input"), (0, 6, "input"), (0, 5, "image")):
+    for other in ((1, 5, "input"), (0, 6, "input"), (0, 5, "image"), (0, 5 + (1 << 32), "input")):
         assert not torch.equal(a, draw(*other))
     assert zlib.crc32(b"input") != zlib.crc32(b"image")
+    keys, crops = pt_drop.step_draws(torch.tensor([5, 7]), [(2, 0), (9, 0)])
+    assert crops is None and keys.shape == (2, 2)
+    assert tuple(keys[0].tolist()) == pt_drop.dropout_key(5, 7, 2)
+    assert tuple(keys[1].tolist()) == pt_drop.dropout_key(5, 7, 9)
+    # a key tensor draws the mask its host pair draws
+    x = torch.ones(1000)
+    assert torch.equal(pt_drop.dropout_apply(x, 0.5, keys[0]),
+                       pt_drop.dropout_apply(x, 0.5, pt_drop.dropout_key(5, 7, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -645,12 +663,25 @@ def test_trainer_over_dummy_data(tmp_path):
 
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
+    """Several steps per launch and remat, which the port once refused,
+    now run; a launch of fewer than one step raises."""
     g = _train_graph("bfloat16")
     cfg = pt_config.parse_dataset_config(DATA.format(pipeline="false"))
     data = DataHandler(cfg)
-    with pytest.raises(NotImplementedError, match="steps_per_launch"):
-        pt_trainer.Trainer(g, data, device="cpu", steps_per_launch=2)
-    text = TRAIN_NET.format(dtype="bfloat16", adtype="bfloat16", crop=CROP, dropprob=0.0, data=1)
+    with pytest.raises(ValueError, match="unroll"):
+        pt_trainer.make_train_step(g, unroll=0)
+    tr = pt_trainer.Trainer(g, data, device="cpu", steps_per_launch=2)
+    assert tr.steps_per_launch == 2
+    tr.train(max_iter=3)
+    assert tr.state["step"] == 3
+    text = TRAIN_NET.format(dtype="float32", adtype="", crop=CROP, dropprob=0.0, data=1)
+    plain = pt_build_graph(pt_config.parse_model(text))
     remat = pt_build_graph(pt_config.parse_model(text.replace("seed: 3", "seed: 3 remat: true")))
-    with pytest.raises(NotImplementedError, match="remat"):
-        pt_model.loss_fn(remat, pt_model.init_params(remat), {})
+    assert remat.remat and not plain.remat
+    batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
+    proc = pt_trainer.preprocess(remat, {"input": (pt_jitter.JitterSpec(image_size=CROP), None, None)},
+                                 batch)
+    params = pt_model.init_params(remat)
+    losses = [pt_model.loss_fn(gr, params, proc, train=True)[0].item() for gr in (plain, remat)]
+    assert losses[0] == losses[1]
+    data.close()
