@@ -122,6 +122,37 @@ any failure raises and the script exits non-zero:
    remat on and off from one state: parameters equal or within
    UPDATE_TOL; max_memory_allocated of each. A JSON line holds phase 8's
    numbers.
+9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
+   examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
+   128, uint8 256x256 images with random 224 crops and flips, dropout 0.5)
+   in worlds of ranks that share this card over gloo with CUDA tensors,
+   each rank a process started with "spawn": meshes 2x1 and 1x2 (2 ranks)
+   and 2x2 (4 ranks: the pbtxt's 4x2 clamped, with the JAX package's
+   warning). Each takes 3 steps from seed-0 params over 3 global batches
+   and is held to one device's 3 steps on this card: every rank launches
+   lrn_fwd 2, lrn_bwd 2, dropout 4, s2d_prologue 1 (bf16; f32 crops in
+   plain PyTorch) and step_draws 1 times a step; its sharded leaves are
+   1/n of the full ones; its crops, flips and dropout masks (each
+   dropout call's key and element offset, as the model made them) are
+   array-equal to one device's rows. In f32 the gathered momenta are
+   within UPDATE_TOL of their largest element and the params within
+   UPDATE_TOL of their largest update plus 2 ulps. In bf16 one device's
+   own steps move by up to 0.15 of the largest momentum when it computes
+   each half of the batch in turn (cuDNN sums another batch in another
+   order, and max pools then route gradients through other winners), so
+   each mesh is held to twice that distance, measured in the same run, and
+   the 2x1 mesh array-equal to that in-turn computation. Several steps a
+   launch over gloo must raise, naming the backend. (b) A world of one over NCCL in this
+   process and make_mesh(1, 1), so the gradient all-reduce really runs:
+   phase 8c's replays against eager steps with that mesh (the capture
+   holds the all-reduce), the AlexNet step's times at 1 and 4 a launch
+   beside phase 8c's (the all-reduce's own cost on one card, no scaling
+   figure), and a Trainer on that mesh at 4 a launch. (c) The train CLI
+   in a world of 2 ranks over gloo on this card, torchrun's environment
+   set by hand: a few alexnet_2tower steps, rank 0's log alone (and its
+   checkpoints where h5py imports). A JSON line holds phase 9's numbers;
+   the kernels' line counts each 9a mesh's rank 0 launches. A failing
+   rank fails the phase.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
@@ -706,6 +737,27 @@ def check_dropout(dev, gen, card):
             raise AssertionError(f"keep fraction {frac} is more than 4 sigma from 0.5")
         if any(torch.equal(o != 0, keep) for o in other):
             raise AssertionError("another step or layer drew the same mask")
+    # a batch split over a mesh's data axis: each rank's rows through
+    # dropout at their element offset, forward and backward, are the rows
+    # of the whole batch through it (inputs of a generator of their own,
+    # so the shared one's later draws stay as they were)
+    own = torch.Generator(device=dev)
+    own.manual_seed(10)
+    x = (torch.rand((BATCH, 1, 1, 4096), generator=own, device=dev) + 0.5).to(torch.bfloat16)
+    xw = x.clone().requires_grad_()
+    yw = drop.dropout(xw, 0.5, key)
+    (gw,) = torch.autograd.grad(yw, xw, torch.ones_like(yw))
+    for data in (2, 4):
+        b = BATCH // data
+        for d in range(data):
+            xr = x[d * b:(d + 1) * b].clone().requires_grad_()
+            yr = drop.dropout(xr, 0.5, key, d * b * 4096)
+            (gr,) = torch.autograd.grad(yr, xr, torch.ones_like(yr))
+            if not (torch.equal(yr, yw[d * b:(d + 1) * b]) and torch.equal(gr, gw[d * b:(d + 1) * b])):
+                raise AssertionError(f"dropout of rows {d * b}.. at their offset differs from the "
+                                     "whole batch's rows")
+    print(f"[{card}] dropout at an element offset: each data rank's rows of ({BATCH},1,1,4096) "
+          "bf16, at data 2 and 4, forward and backward array-equal to the whole batch's rows")
     return worst
 
 
@@ -749,6 +801,24 @@ def check_step_draws(dev, card):
           f"{4 * BATCH} images flipped")
     if origins - set(range(RAW - CROP + 1)) or not 0.35 < flipped / (4 * BATCH) < 0.65:
         raise AssertionError("step_draws' crops fall outside their range or its flips are skewed")
+    # a data rank's rows (row0 = d * BATCH / data): its draw is those rows of
+    # the whole batch's, and the plain version's
+    state = torch.tensor([42, 3], dtype=torch.int64, device=dev)
+    whole = drop.step_draws(state, words, draw)
+    for data in (2, 4):
+        b = BATCH // data
+        for d in range(data):
+            part = crop_draw("input", b, RAW, RAW, CROP, True, True, d * b)
+            keys, crops = drop.step_draws(state, words, part)
+            want_keys, want_crops = drop.step_draws_reference(state, words, part)
+            same = torch.equal(keys, whole[0]) and torch.equal(keys, want_keys) and all(
+                torch.equal(a, w[d * b:(d + 1) * b]) and torch.equal(a, p)
+                for a, w, p in zip(crops, whole[1], want_crops))
+            if not same:
+                raise AssertionError(f"step_draws of rows {d * b}.. differs from the whole "
+                                     "batch's rows or from its plain version")
+    print(f"[{card}] step_draws of a data rank's rows (data 2 and 4): array-equal to the whole "
+          "batch's rows and to the plain version")
     return 0.0
 
 
@@ -2252,7 +2322,8 @@ def _same_or_close(what, a, b, card):
     return equal, worst
 
 
-def check_steps_per_launch(dev, graph, state0, jitter, batches, card):
+def check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=None,
+                           phase="phase 8c"):
     """Phase 8c's comparison: from one state and the same LAUNCH_STEPS staged
     batches, two launches of LAUNCH_K (replays of the captured step) against
     LAUNCH_STEPS eager steps. The crop origins, flips and dropout keys of
@@ -2260,13 +2331,15 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card):
     masks of the two keys are compared too), the parameters and momenta
     array-equal or within UPDATE_TOL of their largest update; the launches
     a replayed step makes (counted from the capture) must be the eager
-    step's. Returns the replayed path's facts."""
+    step's. mesh: the steps of that mesh's rank (phase 9b: a 1x1 mesh over
+    NCCL, whose collectives the capture holds). Returns the replayed path's
+    facts."""
     import torch
 
     from convnet_tpu_torch.ops import dropout as drop
     from convnet_tpu_torch.trainer import TrainSteps
 
-    eager, replayed = TrainSteps(graph, jitter), TrainSteps(graph, jitter)
+    eager, replayed = TrainSteps(graph, jitter, mesh), TrainSteps(graph, jitter, mesh)
     a, b = clone_state(state0), clone_state(state0)
     draws_e, draws_r = [], []
 
@@ -2294,14 +2367,14 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card):
                     for i in ke)
         if not (same_keys and same_crops and masks):
             raise AssertionError(f"step {t}: the replayed step drew other crops or masks")
-    print(f"[{card}] phase 8c: {LAUNCH_STEPS} steps as {LAUNCH_STEPS} replays against "
+    print(f"[{card}] {phase}: {LAUNCH_STEPS} steps as {LAUNCH_STEPS} replays against "
           f"{LAUNCH_STEPS} eager steps: crop origins, flips and dropout keys and masks "
           "array-equal at every step")
     expect_launches("a replayed step (counted from its capture)", replayed.captured.launches,
                     TRAIN_PER_STEP, 1)
     # the launch path proper: two launches of LAUNCH_K from the same state
     c = clone_state(state0)
-    staged = TrainSteps(graph, jitter)
+    staged = TrainSteps(graph, jitter, mesh)
     for lo in range(0, LAUNCH_STEPS, LAUNCH_K):
         metrics = staged.launch(c, _stacked(batches, lo, lo + LAUNCH_K), LAUNCH_K)
     torch.cuda.synchronize()
@@ -2320,21 +2393,24 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card):
             "largest_difference": {f"{w}, {t}": d for (w, t), (_, d) in results.items()}}
 
 
-def launch_times(graph, state, jitter, batches, card):
-    """The train step at k = 1 (eager) and k = LAUNCH_K (replays), on both
-    train paths: device time with the launches hidden (a launch a spin),
-    host clock with a synchronize, and the card's idle share. Returns
-    {path: {k: (device ms a step, host ms a step)}}."""
+def launch_times(graph, state, jitter, batches, card, mesh=None,
+                 paths=("train", "reference_gradient")):
+    """The train step at k = 1 (eager) and k = LAUNCH_K (replays), on the
+    train paths `paths` (under `mesh`, that mesh's rank's step): device
+    time with the launches hidden (a launch a spin), host clock with a
+    synchronize, and the card's idle share. Returns {path: {k: (device ms a
+    step, host ms a step)}}."""
     import torch
 
     from convnet_tpu_torch.trainer import TrainSteps
 
     out = {}
     stacked = _stacked(batches, 0, LAUNCH_K)
-    for path in ("train", "reference_gradient"):
+    where = "" if mesh is None else f", {mesh.data}x{mesh.model} mesh over {mesh.backend}"
+    for path in paths:
         ctx = pool_switches() if path == "reference_gradient" else contextlib.nullcontext()
         with ctx:
-            steps = TrainSteps(graph, jitter)
+            steps = TrainSteps(graph, jitter, mesh)
             st = clone_state(state)
             runs = {1: lambda: steps.step(st, batches[0]),
                     LAUNCH_K: lambda: steps.launch(st, stacked, LAUNCH_K)}
@@ -2351,7 +2427,7 @@ def launch_times(graph, state, jitter, batches, card):
                         host.append((time.perf_counter() - t0) * 1e3 / k)
                 host_ms = statistics.median(host)
                 out[path][k] = (dev_ms, host_ms)
-                print(f"[{card}] AlexNet train step ({path}), batch {BATCH}, {k} a launch"
+                print(f"[{card}] AlexNet train step ({path}{where}), batch {BATCH}, {k} a launch"
                       f"{' (CUDA-graph replays)' if k > 1 else ' (eager)'}: device time with the "
                       f"launches hidden {dev_ms:.4f} ms a step; host clock with synchronize "
                       f"{host_ms:.4f} ms a step, so the card idles {1 - dev_ms / host_ms:.3f} of it")
@@ -2442,6 +2518,479 @@ def check_remat(dev, state, jitter, batch, card):
     return {"peak_bytes": {"off": peaks[False][0], "on": peaks[True][0]},
             "step_bytes": {"off": step_bytes[False], "on": step_bytes[True]},
             "array_equal": equal, "largest_difference": worst}
+
+
+# -- phase 9: the mesh path ----------------------------------------------------
+
+TOWERS = REPO / "examples" / "imagenet" / "alexnet_2tower.pbtxt"
+MESH_STEPS = 3
+# a world of ranks that is not done within this many seconds fails the phase
+MESH_TIMEOUT_S = 420
+# phase 9a's bars, as tree_errors measures them. A rank's convs run at
+# another batch or channel count than one device's, so cuDNN sums in
+# another order, a value rounds the other way, and a max pool picks another
+# winner among near-equal values, which routes that window's gradient
+# elsewhere. f32 (TF32 off): UPDATE_TOL of one device's step, as for the
+# plain-composed step. bf16: one device computing each data rank's rows in
+# turn (rows_in_turn_steps) differs from its own batch-128 step by that
+# effect alone (0.146 of the largest momentum on an NVIDIA H100 80GB HBM3
+# at 700 W), so a mesh's bf16 step is held to MESH_BF16_FLOOR times that
+# distance, measured in the same run; and the 2x1 mesh, whose ranks'
+# convs run at that same batch, array-equal to it.
+MESH_DTYPES = ("bfloat16", "float32")
+MESH_BF16_FLOOR = 2.0
+# a step's launches by precision: an f32 model's uint8 input takes the
+# plain crop, not the prologue kernel, which writes bf16 (prologue_plan)
+MESH_PER_STEP = {"bfloat16": TRAIN_PER_STEP, "float32": dict(TRAIN_PER_STEP, s2d_prologue=0)}
+
+
+def mesh_batches():
+    """MESH_STEPS global batches of uint8 RAW x RAW x 3 images and 1000-class
+    labels, the same in every process (a numpy seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    return [{"input": rng.integers(0, 256, (BATCH, RAW, RAW, 3), dtype=np.uint8),
+             "labels": rng.integers(0, 1000, BATCH).astype(np.int32)} for _ in range(MESH_STEPS)]
+
+
+def towers_graph(dtype: str):
+    """Full-width alexnet_2tower in its own bf16, or in f32."""
+    from convnet_tpu_torch.config import read_model
+    from convnet_tpu_torch.graph import build_graph
+
+    model = read_model(str(TOWERS))
+    if dtype == "float32":
+        model.ClearField("compute_dtype")
+        model.ClearField("activation_dtype")
+    return build_graph(model)
+
+
+def towers_steps(dev, mesh, dtype):
+    """MESH_STEPS train steps of full-width alexnet_2tower (in dtype, random
+    crops and flips, dropout 0.5) from init_params' seed 0 over
+    mesh_batches(), on this mesh's rank or (mesh None) on one device.
+    Returns its facts: each
+    step's crops and the dropout masks of its rows (from the key and element
+    offset of each dropout call the model made), the kernels' launches, the
+    local leaf shapes, the host seconds of the steps, and the gathered params
+    and momenta (numpy, on rank 0 only); and the TrainSteps and state."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch import model as model_lib
+    from convnet_tpu_torch.data.jitter import JitterSpec
+    from convnet_tpu_torch.ops import dropout as drop
+    from convnet_tpu_torch.parallel.mesh import batch_rows, gather_params, param_shardings
+    from convnet_tpu_torch.trainer import TrainSteps, device_batch, init_state
+
+    graph = towers_graph(dtype)
+    spec = JitterSpec(image_size=CROP, can_translate=True, can_flip=True, scale=1 / 255)
+    jitter = {"input": (spec, np.full((3,), MEAN, np.float32), None)}
+    state = init_state(graph, seed=0, device=dev, mesh=mesh)
+    steps = TrainSteps(graph, jitter, mesh)
+    calls = []
+    real = model_lib.dropout
+
+    def recording(x, rate, key, offset=0):
+        calls.append((key.clone(), rate, offset, tuple(x.shape)))
+        return real(x, rate, key, offset)
+
+    model_lib.dropout = recording
+    crops = []
+    rows = batch_rows(mesh, BATCH)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        for batch in mesh_batches():
+            steps.step(state, device_batch({k: v[rows] for k, v in batch.items()}, dev))
+            crops.append(tuple(None if t is None else t.cpu().numpy()
+                               for t in steps.last_draws[1]["input"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        model_lib.dropout = real
+    masks = [(drop.dropout_apply(torch.ones(shape, device=dev), rate, key, offset) != 0).cpu().numpy()
+             for key, rate, offset, shape in calls]
+    specs = param_shardings(graph, mesh.model) if mesh is not None else None
+    lead = mesh is None or mesh.rank == 0
+    trees = {t: gather_params(state[t], specs, mesh) for t in ("params", "moms")}
+    return {
+        "launches": launches, "crops": crops, "masks": masks, "seconds": seconds,
+        "local_shapes": {n: {k: tuple(v.shape) for k, v in p.items()}
+                         for n, p in state["params"].items()},
+        "params": trees["params"] if lead else None, "moms": trees["moms"] if lead else None,
+        "coords": None if mesh is None else (mesh.d, mesh.m),
+        "shape": None if mesh is None else (mesh.data, mesh.model),
+    }, steps, state
+
+
+def rows_in_turn_steps(dev, data):
+    """One device's MESH_STEPS bf16 alexnet_2tower steps as towers_steps
+    takes them, but each batch's rows split into `data` parts computed in
+    turn, as the data ranks of a data x 1 mesh compute them (each part's
+    crops and dropout bits those rows' of the whole batch, its loss divided
+    by `data`, the gradients summed in rank order), with no process group.
+    Returns the params and momenta (numpy)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch import model as model_lib
+    from convnet_tpu_torch import optim
+    from convnet_tpu_torch.data.jitter import JitterSpec
+    from convnet_tpu_torch.trainer import (
+        JitterTensors,
+        device_batch,
+        draw_step,
+        init_state,
+        preprocess,
+        rng_tensor,
+    )
+
+    graph = towers_graph("bfloat16")
+    spec = JitterSpec(image_size=CROP, can_translate=True, can_flip=True, scale=1 / 255)
+    jitter = {"input": (spec, np.full((3,), MEAN, np.float32), None)}
+    consts = JitterTensors(jitter)
+    state = init_state(graph, seed=0, device=dev)
+    params, moms = state["params"], state["moms"]
+    keys = [(n, k) for n in params for k in params[n]]
+    b = BATCH // data
+    for step, batch in enumerate(mesh_batches()):
+        rng = rng_tensor(state, dev)
+        total = None
+        for d in range(data):
+            # what apply_fn and draw_step read of a data rank's mesh
+            rank = types.SimpleNamespace(d=d, data=data, model=1, m=0)
+            part = device_batch({k: v[d * b:(d + 1) * b] for k, v in batch.items()}, dev)
+            with torch.enable_grad():
+                for n, k in keys:
+                    params[n][k].requires_grad_(True)
+                drop_keys, crops = draw_step(graph, jitter, part, rng, rank)
+                proc = preprocess(graph, jitter, part, crops, consts)
+                loss, _ = model_lib.loss_fn(graph, params, proc, train=True,
+                                            dropout_keys=drop_keys, mesh=rank)
+                grads = torch.autograd.grad(loss / data, [params[n][k] for n, k in keys])
+            total = list(grads) if total is None else [a + g for a, g in zip(total, grads)]
+        tree = {n: {} for n in params}
+        for (n, k), g in zip(keys, total):
+            tree[n][k] = g
+        optim.apply_updates(graph, params, moms, tree, step=step)
+        rng[1:].add_(1)
+        state["step"] = state["rng_step"] = step + 1
+
+    def host(t):
+        return {n: {k: v.detach().float().cpu().numpy() for k, v in p.items()} for n, p in t.items()}
+
+    return {"params": host(params), "moms": host(moms)}
+
+
+def mesh_rank(rank, world, init, results, shape):
+    """One rank of phase 9a: a gloo world on the card (CUDA tensors), the
+    mesh `shape` or (None) alexnet_2tower's own, clamped to the world; its
+    towers_steps in bf16 and in f32. Rank 0 of a 2x1 mesh also checks that
+    several steps a launch over gloo raise, naming the backend."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from convnet_tpu_torch.parallel.mesh import make_mesh, mesh_for_graph
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if shape is None:
+                mesh = mesh_for_graph(towers_graph("bfloat16"))
+            else:
+                mesh = make_mesh(*shape)
+        out = {"warnings": [str(w.message) for w in caught]}
+        for dtype in MESH_DTYPES:
+            out[dtype], steps, state = towers_steps(dev, mesh, dtype)
+            torch.cuda.empty_cache()
+        if shape == (2, 1) and rank == 0:
+            staged = {"input": torch.zeros((4, 1, RAW, RAW, 3), dtype=torch.uint8, device=dev),
+                      "labels": torch.zeros((4, 1), dtype=torch.int32, device=dev)}
+            try:
+                steps.launch(state, staged, 4)
+                out["k4_over_gloo"] = "ran"
+            except ValueError as e:
+                out["k4_over_gloo"] = str(e)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def spawn_ranks(fn, world, *args):
+    """fn(rank, world, init, results, *args) in `world` processes started
+    with "spawn" (each imports this script, not its main); their results in
+    rank order. A rank that fails fails the call; every process is gone when
+    it returns."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results = mp.get_context("spawn").Queue()
+        ctx = mp.start_processes(fn, args=(world, f"file://{tmp}/init", results, *args),
+                                 nprocs=world, start_method="spawn", join=False)
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        got = {}
+        try:
+            while len(got) < world:  # drain the queue before joining
+                try:
+                    rank, out = results.get(timeout=1)
+                    got[rank] = out
+                except queue.Empty:
+                    ctx.join(timeout=0)  # raises once a rank has failed
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"a world of {world} ranks ran past {MESH_TIMEOUT_S} s")
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"a world of {world} ranks ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+    return [got[r] for r in range(world)]
+
+
+def tree_errors(p0, want, got, want_m, got_m, rel):
+    """check_train_parity's bar over numpy trees: the largest momentum
+    error as a share of its largest element (at most rel), and the largest
+    parameter error over its tolerance (rel of the largest update plus 2
+    ulps of the largest element; at most 1)."""
+    import numpy as np
+
+    worst_m = worst_p = 0.0
+    for name, p in want.items():
+        for k, w in p.items():
+            m_scale = np.abs(want_m[name][k]).max()
+            if m_scale:
+                worst_m = max(worst_m, np.abs(got_m[name][k] - want_m[name][k]).max() / m_scale)
+            big = np.float32(np.abs(p0[name][k]).max())
+            ulp = float(np.nextafter(big, np.float32(np.inf)) - big)
+            tol = rel * np.abs(w - p0[name][k]).max() + 2 * ulp
+            worst_p = max(worst_p, np.abs(got[name][k] - w).max() / tol)
+    return float(worst_m), float(worst_p)
+
+
+def check_mesh_ranks(dev, card):
+    """Phase 9a: full-width alexnet_2tower over gloo worlds of ranks that
+    share this card, on meshes 2x1, 1x2 and (a world of 4, the pbtxt's 4x2
+    clamped with the JAX package's warning) 2x2, each against one device's
+    MESH_STEPS steps on this card from the same params and batches, in bf16
+    and in f32: each rank's launches MESH_PER_STEP a step, its sharded
+    leaves 1/n of the full ones, its crops, flips and dropout masks
+    array-equal to one device's rows. f32: the gathered momenta within
+    UPDATE_TOL of their largest element and the params within UPDATE_TOL of
+    their largest update plus 2 ulps. bf16: within MESH_BF16_FLOOR times
+    the distance of rows_in_turn_steps(2) from one device's step, and the
+    2x1 mesh array-equal to rows_in_turn_steps(2). Returns the phase's
+    facts."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.model import init_params, param_shapes
+    from convnet_tpu_torch.parallel.mesh import param_shardings
+
+    graph = towers_graph("bfloat16")
+    p0 = {n: {k: v.numpy() for k, v in p.items()} for n, p in init_params(graph, seed=0).items()}
+    single = {}
+    for dtype in MESH_DTYPES:
+        single[dtype] = towers_steps(dev, None, dtype)[0]
+        torch.cuda.empty_cache()
+        print(f"[{card}] phase 9a: alexnet_2tower ({dtype}), batch {BATCH}, {MESH_STEPS} steps "
+              f"on one device: launches {single[dtype]['launches']}, host clock "
+              f"{single[dtype]['seconds']:.3f} s")
+        expect_launches("one device's alexnet_2tower steps", single[dtype]["launches"],
+                        MESH_PER_STEP[dtype], MESH_STEPS)
+    in_turn = rows_in_turn_steps(dev, 2)
+    torch.cuda.empty_cache()
+    floor = tree_errors(p0, single["bfloat16"]["params"], in_turn["params"],
+                        single["bfloat16"]["moms"], in_turn["moms"], UPDATE_TOL)
+    bars = {"float32": (UPDATE_TOL, 1.0),
+            "bfloat16": (MESH_BF16_FLOOR * floor[0], MESH_BF16_FLOOR * floor[1])}
+    print(f"[{card}] phase 9a: one device computing each half of the batch in turn against its "
+          f"own batch-{BATCH} bf16 steps: largest momentum difference {floor[0]} of its largest "
+          f"element, largest param difference {floor[1]} of UPDATE_TOL's tolerance; bf16 bars "
+          f"{bars['bfloat16']}")
+    full = param_shapes(graph)
+    report = {"bf16_in_turn_vs_one_device": floor, "meshes": {}}
+    for world, shape in ((2, (2, 1)), (2, (1, 2)), (4, None)):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, world, shape)
+        wall = time.perf_counter() - t0
+        data, model = ranks[0]["bfloat16"]["shape"]
+        name = f"{data}x{model}"
+        if shape is None:
+            want = (f"model requests a 4x2 mesh but only {world} device(s) are available — "
+                    f"clamped to {name}")
+            if (data, model) != (2, 2) or ranks[0]["warnings"] != [want]:
+                raise AssertionError(f"alexnet_2tower's mesh in a world of {world}: {name}, "
+                                     f"warnings {ranks[0]['warnings']}")
+        specs = param_shardings(graph, model)
+        b = BATCH // data
+        facts = report["meshes"][name] = {"world_s": wall}
+        for dtype in MESH_DTYPES:
+            ref = single[dtype]
+            for r, rank_out in enumerate(ranks):
+                out = rank_out[dtype]
+                d, m = out["coords"]
+                if (d, m) != divmod(r, model):
+                    raise AssertionError(f"rank {r} sits at {(d, m)}")
+                expect_launches(f"rank {r} of the {name} mesh ({dtype})", out["launches"],
+                                MESH_PER_STEP[dtype], MESH_STEPS)
+                for n, leaves in full.items():
+                    for k, shp in leaves.items():
+                        local = list(shp)
+                        if specs[n][k] is not None:
+                            local[specs[n][k]] //= model
+                        if out["local_shapes"][n][k] != tuple(local):
+                            raise AssertionError(f"rank {r}: {n}/{k} is "
+                                                 f"{out['local_shapes'][n][k]}, not {tuple(local)}")
+                for t in range(MESH_STEPS):
+                    for got, want in zip(out["crops"][t], ref["crops"][t]):
+                        if not np.array_equal(got, want[d * b:(d + 1) * b]):
+                            raise AssertionError(f"rank {r}, step {t}: other crops or flips")
+                if len(out["masks"]) != len(ref["masks"]) or not all(
+                        np.array_equal(got, want[d * b:(d + 1) * b])
+                        for got, want in zip(out["masks"], ref["masks"])):
+                    raise AssertionError(f"rank {r}: other dropout masks than one device's rows")
+            lead = ranks[0][dtype]
+            m_err, p_err = tree_errors(p0, ref["params"], lead["params"], ref["moms"],
+                                       lead["moms"], UPDATE_TOL)
+            seconds = [o[dtype]["seconds"] for o in ranks]
+            print(f"[{card}] phase 9a: {name} mesh ({dtype}), {world} ranks over gloo on this "
+                  f"card: per rank launches {lead['launches']}; crops, flips and "
+                  f"{len(ref['masks'])} dropout masks array-equal to one device's rows; largest "
+                  f"momentum difference {m_err} of its largest element (bar {bars[dtype][0]}), "
+                  f"largest param difference {p_err} of UPDATE_TOL's tolerance (bar "
+                  f"{bars[dtype][1]}); ranks' seconds for {MESH_STEPS} steps "
+                  f"{[round(x, 3) for x in seconds]} (host clock: a correctness run's, ranks "
+                  f"sharing one card), world {wall:.1f} s")
+            if m_err > bars[dtype][0] or p_err > bars[dtype][1]:
+                raise AssertionError(f"the {name} mesh's {dtype} steps differ from one device's")
+            facts[dtype] = {"launches_per_rank": [o[dtype]["launches"] for o in ranks],
+                            "momentum_err": m_err, "param_err_over_tol": p_err,
+                            "rank_seconds": seconds}
+            if (name, dtype) == ("2x1", "bfloat16"):
+                equal = all(np.array_equal(lead[t][n][k], in_turn[t][n][k])
+                            for t in ("params", "moms") for n in full for k in full[n])
+                print(f"[{card}] phase 9a: 2x1 mesh (bfloat16) against one device computing each "
+                      f"rank's rows in turn: params and momenta array-equal {equal}")
+                if not equal:
+                    raise AssertionError("the 2x1 mesh differs from one device computing its "
+                                         "ranks' rows in turn")
+                facts[dtype]["array_equal_to_rows_in_turn"] = equal
+        if shape == (2, 1):
+            said = ranks[0]["k4_over_gloo"]
+            print(f"[{card}] phase 9a: 4 steps a launch over gloo on a card: {said}")
+            if "gloo" not in said:
+                raise AssertionError("several steps a launch over gloo did not raise")
+        del ranks
+    return report
+
+
+def check_nccl_mesh(dev, graph, state0, jitter, batches, card):
+    """Phase 9b: a world of one over NCCL (this process, this card) and
+    make_mesh(1, 1): its gradient all-reduce really runs, and is captured
+    with the step at k = LAUNCH_K. The replayed steps against eager ones as
+    phase 8c requires; the step's times at 1 and LAUNCH_K a launch beside
+    phase 8c's unsharded ones; and Trainer(mesh=...) trains LAUNCH_STEPS
+    steps at LAUNCH_K a launch over DUMMY data."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.parallel.mesh import make_mesh
+    from convnet_tpu_torch.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0, world_size=1,
+                                device_id=dev)
+        try:
+            mesh = make_mesh(1, 1)
+            facts = check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=mesh,
+                                           phase="phase 9b (1x1 mesh over nccl)")
+            facts["step_ms"] = launch_times(graph, state0, jitter, batches, card, mesh=mesh,
+                                            paths=("train",))
+            data = DataHandler(dummy_imagenet(BATCH, DUMMY_ROWS, True))
+            tr = Trainer(graph, data, device=dev, jitter=jitter, mesh=mesh,
+                         steps_per_launch=LAUNCH_K, log_fn=lambda _: None)
+            reset_launches()
+            tr.train(max_iter=LAUNCH_STEPS)
+            torch.cuda.synchronize()
+            data.close()
+            if tr.state["step"] != LAUNCH_STEPS or not all(
+                    torch.isfinite(v).all() for p in tr.state["params"].values()
+                    for v in p.values()):
+                raise AssertionError("the Trainer on a 1x1 nccl mesh did not train")
+            expect_launches("the 1x1 nccl mesh's captured step", tr.steps.captured.launches,
+                            TRAIN_PER_STEP, 1)
+            print(f"[{card}] phase 9b: Trainer(mesh=make_mesh(1, 1)) over nccl took "
+                  f"{LAUNCH_STEPS} steps at {LAUNCH_K} a launch (CUDA-graph replays holding the "
+                  "all-reduce); parameters finite")
+            del tr
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return facts
+
+
+def cli_rank(rank, world, init, results, argv, port):
+    """One rank of phase 9c: torchrun's environment by hand (a localhost
+    port), then the train CLI with --backend gloo on the card."""
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+    from convnet_tpu_torch.cli import train
+
+    results.put((rank, train.main(argv)))
+
+
+def check_cli_ranks(card):
+    """Phase 9c: the train CLI in a world of 2 ranks over gloo on this card
+    (alexnet_2tower's 4x2 clamped to 1x2), a few steps over DUMMY data from
+    a temp copy of the model that logs every 2 steps (checkpoints where h5py
+    imports): rank 0's log alone, with finite losses."""
+    import math
+    import socket
+    import tempfile
+
+    from convnet_tpu_torch.config import model_to_text, read_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model = read_model(str(TOWERS))
+        model.display_after = 2
+        model.checkpoint_after = 4 if h5py_imports() else 0
+        (tmp / "towers.pbtxt").write_text(model_to_text(model))
+        (tmp / "data.pbtxt").write_text(dummy_imagenet_text(BATCH, DUMMY_ROWS, True))
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        argv = [str(tmp / "towers.pbtxt"), str(tmp / "data.pbtxt"), "--output-dir", str(tmp / "out"),
+                "--max-iter", "4", "--backend", "gloo", "--device", "cuda"]
+        rcs = spawn_ranks(cli_rank, 2, argv, port)
+        log = (tmp / "out" / "alexnet_2tower_train_log.txt").read_text().splitlines()
+        ckpts = sorted(p.name for p in (tmp / "out").glob("*.h5"))
+    losses = [float(l.split()[3]) for l in log if l.startswith("step ")]
+    print(f"[{card}] phase 9c: the train CLI on 2 ranks over gloo on this card: exit codes {rcs}; "
+          f"rank 0's log {log}; checkpoints {ckpts if h5py_imports() else 'not written: h5py does not import on this machine'}")
+    if rcs != [0, 0] or len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("the train CLI on 2 ranks did not train")
+    if h5py_imports() and len(ckpts) != 2:
+        raise AssertionError(f"the train CLI on 2 ranks wrote checkpoints {ckpts}")
+    return {"exit_codes": rcs, "logged_losses": losses, "checkpoints": ckpts}
 
 
 def main(argv=None) -> int:
@@ -2671,6 +3220,17 @@ def main(argv=None) -> int:
     print(json.dumps({"phase8": {"raw_cache_ms": cache_ms, "learning": learned,
                                  "steps_per_launch": launch, "remat": remat}}, default=str))
 
+    # -- 9. the mesh path: ranks sharing the card, and a 1x1 mesh over nccl -----
+    mesh_ranks = check_mesh_ranks(dev, card)
+    nccl = check_nccl_mesh(dev, graph, state0, train_jitter, batches8, card)
+    print(f"[{card}] phase 9b beside phase 8c: the AlexNet train step (device ms, host ms) at "
+          f"1 and {LAUNCH_K} a launch, one device {launch['step_ms']['train']}, 1x1 mesh over "
+          f"nccl {nccl['step_ms']['train']}: the gradient all-reduce's own cost on one card, "
+          "no scaling figure")
+    cli_ranks = check_cli_ranks(card)
+    print(json.dumps({"phase9": {"mesh_ranks": mesh_ranks, "nccl_1x1": nccl,
+                                 "train_cli_2_ranks": cli_ranks}}, default=str))
+
     paths = {"serving": serve_launches, "train": train_launches,
              "reference_gradient": ref_launches, "alexnet_local": local_launches,
              # phase 8a: through the wrappers (the warm-up and capture steps;
@@ -2678,6 +3238,10 @@ def main(argv=None) -> int:
              # card in the traced window of replays (torch.profiler)
              "raw_cache_k4_wrappers": learned["wrapper_counts"],
              "raw_cache_k4_traced_replays": learned["traced"]}
+    # phase 9a: each rank's launches over its MESH_STEPS steps (every rank's
+    # the same, checked)
+    for name, facts in mesh_ranks["meshes"].items():
+        paths[f"alexnet_2tower_mesh_{name}_rank0"] = facts["bfloat16"]["launches_per_rank"][0]
 
     def kernel(name, source, replaces, also, err, parts, path):
         b_ms, b_by = bound(sum(work[t][0] for t in parts), sum(work[t][1] for t in parts))
@@ -2722,6 +3286,15 @@ def main(argv=None) -> int:
                ["pool_lrn_bwd rnorm1", "pool_lrn_bwd rnorm2"], "reference_gradient"),
     ]
     print(card)
+    # phase 9a: the largest differences of each mesh's steps from one
+    # device's (momentum share, param error over tolerance), beside the
+    # kernels that the mesh path runs
+    mesh_diffs = {name: {dt: (f[dt]["momentum_err"], f[dt]["param_err_over_tol"])
+                         for dt in MESH_DTYPES}
+                  for name, f in mesh_ranks["meshes"].items()}
+    for k in kernels:
+        if paths["alexnet_2tower_mesh_2x2_rank0"][k["name"]]:
+            k["mesh_step_max_differences"] = mesh_diffs
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

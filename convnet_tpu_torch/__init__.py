@@ -6,7 +6,10 @@ same `.pbtxt` models through PyTorch. Two slices are ported: serving,
 (trainer.py) over a `DataHandler` (data/datahandler.py) with the
 reference's per-edge SGD (optim.py); every edge type of the JAX package,
 so every example model; and the three CLIs (`cli/`: train, extract,
-grad_check) and the model zoo (`models/`). Convolutions, pooling and GEMMs and
+grad_check) and the model zoo (`models/`); and a model's `parallel {}`
+mesh over ranks of a `torch.distributed` process group (`parallel/`: the
+data axis as a gradient all-reduce, the model axis as the JAX package's
+channel and column split). Convolutions, pooling and GEMMs and
 their gradients go to cuDNN, cuBLAS and ATen through `torch.nn.functional`
 and autograd, as the JAX package left them to XLA; the Pallas kernels of
 those paths are hand-written CUDA kernels here (`csrc/`, bound in

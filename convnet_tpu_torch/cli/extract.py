@@ -8,24 +8,38 @@ Usage:
     python -m convnet_tpu_torch.cli.extract MODEL.pbtxt DATA.pbtxt \
         --checkpoint CKPT.h5 --output OUT.h5 --layers fc7 [fc6 ...] \
         [--device cuda|cpu]
+    torchrun --nproc-per-node N -m convnet_tpu_torch.cli.extract ...
+
+Under torchrun the ranks form the model's `parallel {}` mesh (clamped to
+the world with a warning), the batch is rounded up to a multiple of its
+data axis, each rank computes its rows, and rank 0 gathers them and
+writes them in order.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnet_tpu_torch import checkpoint as ckpt
 from convnet_tpu_torch import config
 from convnet_tpu_torch import model as model_lib
-from convnet_tpu_torch.cli import add_device_argument, resolve_device
+from convnet_tpu_torch.cli import add_device_argument, init_distributed, resolve_device
 from convnet_tpu_torch.data.datahandler import DataHandler
 from convnet_tpu_torch.data.datawriter import DataWriter
 from convnet_tpu_torch.graph import build_graph
-from convnet_tpu_torch.trainer import _clamp_parallel, device_batch, make_forward
+from convnet_tpu_torch.parallel.mesh import (
+    batch_rows,
+    mesh_for_graph,
+    param_shardings,
+    shard_params,
+)
+from convnet_tpu_torch.trainer import device_batch, make_forward
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -62,6 +76,15 @@ def main(argv=None) -> int:
     if args.strict:
         config.set_strict(True)
     device = resolve_device(args.device)
+    joined = init_distributed(device, None)
+    try:
+        return _extract(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _extract(args, device) -> int:
     if args.config:
         fe = config.read_feature_extractor_config(args.config)
         args.output = args.output or fe.output_file
@@ -75,25 +98,44 @@ def main(argv=None) -> int:
     graph = build_graph(model, sizes)
     for name in args.layers:
         graph.layer(name)  # raises KeyError for unknown layers
-    _clamp_parallel(graph)
-    # batch size priority: the flag, then the data config's own, then the model's
+    mesh = mesh_for_graph(graph)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    # batch size priority: the flag, then the data config's own, then the
+    # model's, padded up to a multiple of the mesh's data axis (iter_epoch
+    # pads the last batch anyway, so every row is still extracted once)
     bs = (
         args.batch_size
         or (data_cfg.batch_size if data_cfg.HasField("batch_size") else 0)
         or model.batch_size
     )
+    if mesh is not None and bs % mesh.data:
+        bs += mesh.data - bs % mesh.data
+        say(f"batch size rounded up to {bs} (multiple of mesh data axis {mesh.data})")
     data = DataHandler(data_cfg, batch_size=bs, randomize=False)
     for line in data.backend_log():
-        print(line)
+        say(line)
+    rows = batch_rows(mesh, bs)
     try:
         params, _, step = ckpt.load(args.checkpoint, expected_shapes=model_lib.param_shapes(graph))
         params = model_lib.params_from_numpy(params, device)
-        print(f"loaded {args.checkpoint} (step {step})")
-        fwd = make_forward(graph, args.layers, data.jitter_specs())
+        if mesh is not None:
+            params = shard_params(params, param_shardings(graph, mesh.model), mesh)
+        say(f"loaded {args.checkpoint} (step {step})")
+        fwd = make_forward(graph, args.layers, data.jitter_specs(), mesh)
         dims = {name: int(np.prod(graph.shapes[name])) for name in args.layers}
         t = {"gather": 0.0, "dispatch": 0.0, "readback": 0.0, "write": 0.0}
         done = 0
-        with DataWriter(args.output, dims) as writer:
+
+        def all_rows(x):
+            """The data group's rows of x in order (this rank's without a mesh)."""
+            if mesh is None or mesh.data == 1:
+                return x
+            parts = [torch.empty_like(x) for _ in range(mesh.data)]
+            dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+            return torch.cat(parts)
+
+        with DataWriter(args.output, dims) if lead else contextlib.nullcontext() as writer:
             # Every row once: iter_epoch pads the last batch, whose padded
             # rows are trimmed before writing. Double-buffered: batch i+1's
             # copy in, forward and copy out are queued on the device before
@@ -108,11 +150,13 @@ def main(argv=None) -> int:
                     ready.synchronize()
                 t["readback"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
-                writer.append({name: host[name][:valid].float().numpy() for name in args.layers})
+                if lead:
+                    writer.append({name: host[name][:valid].float().numpy()
+                                   for name in args.layers})
                 t["write"] += time.perf_counter() - t0
                 done += valid
                 if done % (50 * data.batch_size) < data.batch_size:
-                    print(f"extracted {done}/{data.num_rows} rows")
+                    say(f"extracted {done}/{data.num_rows} rows")
 
             it = data.iter_epoch()
             while True:
@@ -124,10 +168,11 @@ def main(argv=None) -> int:
                 batch, valid = item
                 t0 = time.perf_counter()
                 with torch.inference_mode():
-                    out = fwd(params, device_batch(batch, device))
+                    out = fwd(params, device_batch({k: v[rows] for k, v in batch.items()}, device))
                     # to pinned host memory without blocking; the event
                     # marks when the copies are done
-                    host = {name: out[name].to("cpu", non_blocking=True) for name in args.layers}
+                    host = {name: all_rows(out[name]).to("cpu", non_blocking=True)
+                            for name in args.layers}
                 ready = None
                 if device.type == "cuda":
                     ready = torch.cuda.Event()
@@ -143,8 +188,8 @@ def main(argv=None) -> int:
     if args.timing:
         width = max(len(k) for k in t)
         for k, v in t.items():
-            print(f"  {k:{width}s} {v:8.2f} s")
-    print(f"wrote {args.output}")
+            say(f"  {k:{width}s} {v:8.2f} s")
+    say(f"wrote {args.output}")
     return 0
 
 

@@ -4,19 +4,30 @@ Usage:
     python -m convnet_tpu_torch.cli.train MODEL.pbtxt TRAIN_DATA.pbtxt \
         [VAL_DATA.pbtxt] [--output-dir DIR] [--max-iter N] [--batch-size N] \
         [--steps-per-launch K] [--device cuda|cpu]
+    torchrun --nproc-per-node N -m convnet_tpu_torch.cli.train ... \
+        [--data-parallel D] [--model-parallel M] [--backend nccl|gloo]
 
 Builds the graph from the model pbtxt (input sizes from the data config),
 resumes from the newest checkpoint in the output dir if there is one, runs
-the train loop on one device and, when the model sets checkpoint_after,
-saves a checkpoint at the end.
+the train loop and, when the model sets checkpoint_after, saves a
+checkpoint at the end. Under torchrun the ranks form the model's `parallel
+{}` mesh (clamped to the world with a warning); rank 0 logs and writes the
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from convnet_tpu_torch import config
-from convnet_tpu_torch.cli import add_device_argument, resolve_device
+from convnet_tpu_torch.cli import (
+    add_backend_argument,
+    add_device_argument,
+    init_distributed,
+    resolve_device,
+)
 from convnet_tpu_torch.data.datahandler import DataHandler
 from convnet_tpu_torch.graph import build_graph
 from convnet_tpu_torch.trainer import Trainer
@@ -39,21 +50,23 @@ def build_argparser() -> argparse.ArgumentParser:
         "--data-parallel",
         type=int,
         default=None,
-        help="override Model.parallel.data (the port runs on one device and "
-        "clamps a larger mesh to 1x1 with a warning)",
+        help="override Model.parallel.data (batch-sharding ways; a mesh larger "
+        "than the world of ranks is clamped with a warning)",
     )
     p.add_argument(
         "--model-parallel",
         type=int,
         default=None,
-        help="override Model.parallel.model (clamped to 1 likewise)",
+        help="override Model.parallel.model (unit- and channel-sharding ways; "
+        "clamped likewise)",
     )
     p.add_argument(
         "--steps-per-launch",
         type=int,
         default=1,
         help="train steps per launch: on a card, k replays of the step's CUDA "
-        "graph over k batches staged together (default 1: eager steps)",
+        "graph over k batches staged together (default 1: eager steps; a mesh "
+        "on cards needs the nccl backend for k > 1)",
     )
     p.add_argument(
         "--strict",
@@ -62,6 +75,7 @@ def build_argparser() -> argparse.ArgumentParser:
         "parsing leniently with a warning",
     )
     add_device_argument(p)
+    add_backend_argument(p)
     return p
 
 
@@ -70,6 +84,15 @@ def main(argv=None) -> int:
     if args.strict:
         config.set_strict(True)
     device = resolve_device(args.device)
+    joined = init_distributed(device, args.backend)
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> int:
     model = config.read_model(args.model)
     if args.batch_size:
         model.batch_size = args.batch_size

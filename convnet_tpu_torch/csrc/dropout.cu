@@ -115,10 +115,12 @@ int launch(const void* x, void* y, int64_t n, uint32_t threshold, float scale, c
 // A train step's random words, from the (seed, step) that the card holds.
 // Key i is derive_key(seed, step, step >> 32, words[2i], words[2i + 1]):
 // Philox keyed by (seed lo, seed hi) at that counter, its first two output
-// words. With crops (b > 0), image j of one input field takes Philox, keyed
-// by that field's key (counter words crop_w2, crop_w3), at counter (j, 0,
-// 0, 0): oy = base_y + (bits0 * range_y) >> 32, ox likewise from bits1, a
-// flip from the top bit of bits2. The scaling by a multiply-high is the
+// words. With crops (b > 0), image t of one input field, row row0 + t of
+// the global batch, takes Philox, keyed by that field's key (counter words
+// crop_w2, crop_w3), at counter (row0 + t, 0, 0, 0): a rank that holds rows
+// row0 .. row0 + b - 1 of a batch split over ranks draws what one device
+// draws for them. oy = base_y + (bits0 * range_y) >> 32, ox likewise from
+// bits1, a flip from the top bit of bits2. The scaling by a multiply-high is the
 // plain version's; range <= 2^31 gives each origin a share within 2^-31 of
 // uniform. One thread a key and one an image: a few microseconds, once a
 // step.
@@ -128,7 +130,7 @@ struct KeyWords {
 };
 struct CropDraw {
   uint32_t w2, w3;
-  int b, base_y, range_y, base_x, range_x;
+  int row0, b, base_y, range_y, base_x, range_x;
 };
 
 __device__ __forceinline__ void derive_key(uint32_t out[2], uint64_t seed, uint64_t step,
@@ -155,7 +157,7 @@ __global__ void step_draws_kernel(const int64_t* __restrict__ state, KeyWords wo
   if (t < crop.b) {
     uint32_t k[2];
     derive_key(k, seed, step, crop.w2, crop.w3);
-    uint32_t c[4] = {static_cast<uint32_t>(t), 0u, 0u, 0u};
+    uint32_t c[4] = {static_cast<uint32_t>(crop.row0 + t), 0u, 0u, 0u};
     philox4x32_10(c, k[0], k[1]);
     oy[t] = crop.base_y + static_cast<int32_t>((static_cast<uint64_t>(c[0]) * crop.range_y) >> 32);
     ox[t] = crop.base_x + static_cast<int32_t>((static_cast<uint64_t>(c[1]) * crop.range_x) >> 32);
@@ -180,18 +182,19 @@ extern "C" int cn_dropout(const void* x, void* y, int64_t n, int is_bf16, uint32
 
 // state: int64 (seed, step) on the device. words: 2 * n_keys host words
 // (n_keys <= 16). keys: int64 (n_keys, 2) on the device, or null when
-// n_keys is 0. b > 0 draws one field's crops: oy, ox int32 (b,), flips
-// uint8 (b,) or null for no flips; range_y, range_x in [1, 2^31).
+// n_keys is 0. b > 0 draws one field's crops for global rows row0 ..
+// row0 + b - 1: oy, ox int32 (b,), flips uint8 (b,) or null for no flips;
+// range_y, range_x in [1, 2^31); row0 >= 0 and row0 + b <= 2^31.
 extern "C" int cn_step_draws(const int64_t* state, const uint32_t* words, int n_keys,
-                             int64_t* keys, uint32_t crop_w2, uint32_t crop_w3, int b,
+                             int64_t* keys, uint32_t crop_w2, uint32_t crop_w3, int row0, int b,
                              int base_y, int range_y, int base_x, int range_x, int32_t* oy,
                              int32_t* ox, uint8_t* flips, void* stream) {
-  if (n_keys < 0 || n_keys > kMaxKeys || b < 0 || (n_keys == 0 && b == 0) ||
-      (b > 0 && (range_y < 1 || range_x < 1)))
+  if (n_keys < 0 || n_keys > kMaxKeys || b < 0 || (n_keys == 0 && b == 0) || row0 < 0 ||
+      b > 2147483647 - row0 || (b > 0 && (range_y < 1 || range_x < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   KeyWords kw{};
   for (int i = 0; i < 2 * n_keys; ++i) kw.w[i] = words[i];
-  const CropDraw crop{crop_w2, crop_w3, b, base_y, range_y, base_x, range_x};
+  const CropDraw crop{crop_w2, crop_w3, row0, b, base_y, range_y, base_x, range_x};
   const int work = n_keys > b ? n_keys : b;
   const int threads = work < kThreads ? ((work + 31) / 32) * 32 : kThreads;
   const unsigned blocks = static_cast<unsigned>((work + threads - 1) / threads);

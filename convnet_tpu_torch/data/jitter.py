@@ -42,17 +42,18 @@ def center_offsets(h: int, w: int, crop: int):
 
 
 def crop_draw(field: str, b: int, h: int, w: int, s: int, can_translate: bool,
-              can_flip: bool) -> Optional[CropDraw]:
+              can_flip: bool, row0: int = 0) -> Optional[CropDraw]:
     """The draw of one field's crops (None when there is nothing to draw):
     origins uniform over [0, H - S] x [0, W - S] when translating, else the
-    center crop; flips when can_flip. The key's counter word is crc32 of
-    the field's name, the same in every process (hash() is salted)."""
+    center crop; flips when can_flip; for rows row0 .. row0 + b - 1 of the
+    global batch. The key's counter word is crc32 of the field's name, the
+    same in every process (hash() is salted)."""
     if not (can_translate or can_flip):
         return None
     cy, cx = center_offsets(h, w, s)
     ry, rx = (h - s + 1, w - s + 1) if can_translate else (1, 1)
     return CropDraw(zlib.crc32(field.encode()), 1, b, 0 if can_translate else cy, ry,
-                    0 if can_translate else cx, rx, can_flip)
+                    0 if can_translate else cx, rx, can_flip, row0)
 
 
 def sample_crop_flip(

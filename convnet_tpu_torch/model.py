@@ -23,7 +23,18 @@ The forward keeps the reference's fusion plan and cast points:
   to f32 (model.py:404-409).
 With `remat` set, a train forward wraps each weighted edge in
 torch.utils.checkpoint, which recomputes its output in the backward
-(model.py:386-395). PyTorch runs eagerly, so activations that only the fused LRN would have
+(model.py:386-395).
+
+Under a mesh (`parallel/mesh.py`) the batch holds this rank's rows. An edge
+whose weights the model axis shards computes its slice of the output
+channels or columns from its local weights, reading its input through
+`copy_to_model` and handing its output to `gather_from_model`, so the LRN,
+pools, dropout and losses see full channels, as XLA's gathers give the JAX
+package. A grouped conv takes the input channels of the groups its
+filters lie in. A bias deferred into an LRN is gathered beside the conv's
+output. Dropout draws the bits of the rank's rows of the global batch.
+The LRN -> max pool fusion is off under any mesh, as in the JAX package
+(model.py:275). PyTorch runs eagerly, so activations that only the fused LRN would have
 replaced (dead code that XLA drops) are never computed. In training,
 autograd differentiates the same forward: the LRN and dropout through
 their kernels' autograd Functions, the rest through ATen's and cuDNN's.
@@ -31,6 +42,7 @@ their kernels' autograd Functions, the rest through ATen's and cuDNN's.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -56,6 +68,12 @@ from convnet_tpu_torch.ops.lrn import (
 from convnet_tpu_torch.ops.local import local_conv2d, local_weight_shape
 from convnet_tpu_torch.ops.pool import maxpool2d
 from convnet_tpu_torch.ops.resample import downsample, rgb_to_yuv, upsample
+from convnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    copy_to_model,
+    edge_is_sharded,
+    gather_from_model,
+)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -245,6 +263,27 @@ def _edge_fprop(e: EdgeSpec, p, x, cdt, fuse_relu=False, defer_bias=False, bias=
     raise ValueError(f"edge {e.name}: unknown edge type {t}")
 
 
+def _model_input(e: EdgeSpec, x, mesh: Mesh):
+    """A model-sharded edge's input on this rank, and the edge as the rank
+    computes it. The input's gradient is summed over the model group
+    (copy_to_model): the rank's output slice gives only its share. A
+    grouped conv's filters on this rank lie in g/n whole groups (n | g) or
+    within one group (g | n): the rank reads those groups' input channels
+    and runs a conv of that many groups."""
+    if not isinstance(x, S2DInput):  # the prologue's input has no gradient
+        x = copy_to_model(x, mesh)
+    g, n = e.num_groups, mesh.model
+    if g == 1:
+        return x, e
+    cin = x.shape[3]
+    if g % n == 0:
+        lo, width, groups = mesh.m * cin // n, cin // n, g // n
+    else:
+        group = mesh.m * g // n
+        lo, width, groups = group * cin // g, cin // g, 1
+    return x.narrow(3, lo, width), dataclasses.replace(e, num_groups=groups)
+
+
 def apply_fn(
     graph: Graph,
     params: Params,
@@ -253,6 +292,7 @@ def apply_fn(
     *,
     train: bool = False,
     dropout_keys: Optional[Dict[int, torch.Tensor]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """Fprop. `batch` maps each input layer's data_field to a (B, H, W, C)
     tensor or an S2DInput. Returns {layer: activation} for `return_layers`
@@ -261,7 +301,8 @@ def apply_fn(
     activation, the mask keyed by the layer's index among the non-input
     layers (model.py:306, 426-432): dropout_keys {index: int64 (2,) key
     tensor}, as a train step derives them on the device
-    (`dropout_layers`)."""
+    (`dropout_layers`). mesh: the rank's mesh (None on one device); params
+    then hold this rank's shards and batch its rows."""
     cdt = torch.bfloat16 if graph.compute_dtype == "bfloat16" else None
     adt = torch.bfloat16 if graph.activation_dtype == "bfloat16" else None
     store_dt = adt if adt is not None else (torch.float32 if cdt is not None else None)
@@ -283,7 +324,7 @@ def apply_fn(
 
     defer_bias = _bias_deferral_plan(graph)
     pending_bias: Dict[str, torch.Tensor] = {}
-    fuse_pool_lrn = train and pool_lrn_fusion_wanted()
+    fuse_pool_lrn = train and pool_lrn_fusion_wanted() and mesh is None
     # LRN layer -> (its edge, the edge's input, whether the ReLU is fused)
     deferred_lrn: Dict[str, Tuple[EdgeSpec, torch.Tensor, bool]] = {}
     drop_i = -1  # the layer counter the dropout masks are keyed by
@@ -326,22 +367,28 @@ def apply_fn(
                 fuse = e.edge_type == ET.RESPONSE_NORM and e.source in preacts
                 x_in = preacts[e.source] if fuse else acts[e.source]
                 dbias = defer_bias.get(name) == e.name
+                sharded = edge_is_sharded(graph, mesh, e.name)
+                e_run = e
+                if sharded:
+                    x_in, e_run = _model_input(e, x_in, mesh)
                 if graph.remat and train and e.has_weights:
                     # recompute the edge's output in the backward instead of
                     # keeping it (Model.remat; model.py:386-395)
                     contrib = torch.utils.checkpoint.checkpoint(
-                        _edge_fprop, e, p, x_in, cdt, defer_bias=dbias,
+                        _edge_fprop, e_run, p, x_in, cdt, defer_bias=dbias,
                         use_reentrant=False, preserve_rng_state=False,
                     )
                 else:
                     contrib = _edge_fprop(
-                        e, p, x_in, cdt,
+                        e_run, p, x_in, cdt,
                         fuse_relu=fuse,
                         defer_bias=dbias,
                         bias=pending_bias.get(e.source) if fuse else None,
                     )
+                if sharded:
+                    contrib = gather_from_model(contrib, mesh)
                 if dbias:
-                    pending_bias[name] = p["b"]
+                    pending_bias[name] = gather_from_model(p["b"], mesh) if sharded else p["b"]
                 z = contrib if z is None else z + contrib
             if l.is_output:
                 z = z.to(torch.promote_types(z.dtype, torch.float32))
@@ -364,7 +411,9 @@ def apply_fn(
                 if train and l.dropprob > 0.0:
                     if dropout_keys is None:
                         raise ValueError("train=True with dropout needs dropout_keys")
-                    a = dropout(a, l.dropprob, dropout_keys[drop_i])
+                    # the bits of the rank's rows of the global batch
+                    offset = mesh.d * a.numel() if mesh is not None else 0
+                    a = dropout(a, l.dropprob, dropout_keys[drop_i], offset)
                 acts[name] = a.to(store_dt) if store_dt is not None else a
         if (want is None or name in want) and name in acts:
             out[name] = acts[name]
@@ -386,12 +435,14 @@ def loss_fn(
     *,
     train: bool = True,
     dropout_keys: Optional[Dict[int, torch.Tensor]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Mean loss over the batch and metrics (device tensors): "loss" and
     "<output>/errors" for each cross-entropy output. Targets live in
-    `batch` under each output layer's data_field."""
+    `batch` under each output layer's data_field. Under a mesh, over this
+    rank's rows."""
     outs = apply_fn(graph, params, batch, return_layers=[], train=train,
-                    dropout_keys=dropout_keys)
+                    dropout_keys=dropout_keys, mesh=mesh)
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
     batch_size = None

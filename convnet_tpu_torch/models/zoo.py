@@ -53,5 +53,6 @@ def alexnet_local(image_size: Optional[int] = None) -> Graph:
 
 def alexnet_2tower(image_size: Optional[int] = None) -> Graph:
     """The two-tower AlexNet: conv2, conv4 and conv5 as grouped convs
-    (num_groups: 2). The port runs both towers on one card."""
+    (num_groups: 2). Its `parallel { data: 4 model: 2 }` puts one tower on
+    each rank of the model axis; on one device both towers run there."""
     return _example("imagenet/alexnet_2tower.pbtxt", image_size)

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "cn_lrn_bwd": [_p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _f, _f, _f, _i, _p],
     # x, y, n, is_bf16, threshold, scale, key, group0, stream
     "cn_dropout": [_p, _p, _i64, _i, _u32, _f, _p, _u64, _p],
-    # state, words, n_keys, keys, crop_w2, crop_w3, b, base_y, range_y, base_x, range_x,
+    # state, words, n_keys, keys, crop_w2, crop_w3, row0, b, base_y, range_y, base_x, range_x,
     # oy, ox, flips, stream
-    "cn_step_draws": [_p, _p, _i, _p, _u32, _u32] + [_i] * 5 + [_p] * 4,
+    "cn_step_draws": [_p, _p, _i, _p, _u32, _u32] + [_i] * 6 + [_p] * 4,
     # x, oy, ox, flip, mean, std, out, b, h, w, c, crop, s, p, scale, stream
     "cn_s2d_prologue": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
     # x, y, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream

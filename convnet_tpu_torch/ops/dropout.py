@@ -172,24 +172,29 @@ def dropout_apply(x: torch.Tensor, rate: float, key: Key, offset: int = 0) -> to
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rate, key):
-        ctx.rate, ctx.key = rate, key
-        return dropout_apply(x.contiguous(), rate, key)
+    def forward(ctx, x, rate, key, offset):
+        ctx.rate, ctx.key, ctx.offset = rate, key, offset
+        return dropout_apply(x.contiguous(), rate, key, offset)
 
     @staticmethod
     def backward(ctx, g):
-        # the same key draws the same mask: nothing was stored
-        return dropout_apply(g.contiguous(), ctx.rate, ctx.key), None, None
+        # the same key and offset draw the same mask: nothing was stored
+        return dropout_apply(g.contiguous(), ctx.rate, ctx.key, ctx.offset), None, None, None
 
 
-def dropout(x: torch.Tensor, rate: float, key: Key) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Key, offset: int = 0) -> torch.Tensor:
     """y = x * mask / (1 - rate), the mask drawn from `key` (an int64 (2,)
     tensor, as step_draws derives it on the device, or `dropout_key`'s
-    pair of ints) in both the forward and the backward. rate 0 is the
-    identity."""
+    pair of ints) in both the forward and the backward; element i of x
+    takes the bits of element offset + i (a multiple of 4), so a rank that
+    holds rows of a larger batch draws what one device draws for them.
+    rate 0 is the identity."""
     if rate <= 0.0:
         return x
-    return _Dropout.apply(x, float(rate), key)
+    if offset % 4:
+        raise ValueError(f"dropout: element offset {offset} is not a multiple of 4 (the "
+                         "mask's bits come four to a counter)")
+    return _Dropout.apply(x, float(rate), key, int(offset))
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +205,9 @@ def dropout(x: torch.Tensor, rate: float, key: Key) -> torch.Tensor:
 class CropDraw(NamedTuple):
     """One input field's crop draw: its key's counter words (w2, w3), the
     batch b, and per axis the origin base + a uniform draw from
-    [0, range); flips: whether to draw flips."""
+    [0, range); flips: whether to draw flips; row0: the global batch row
+    of image 0, whose counter the draw of image t takes as row0 + t, so a
+    rank that holds rows row0 .. row0 + b - 1 draws their crops."""
 
     w2: int
     w3: int
@@ -210,6 +217,7 @@ class CropDraw(NamedTuple):
     base_x: int
     range_x: int
     flips: bool
+    row0: int = 0
 
 
 def _uniform(bits, base: int, n: int) -> torch.Tensor:
@@ -232,7 +240,7 @@ def step_draws_reference(
         return keys, None
     fk = philox4x32((*ctr, crop.w2 & _M32, crop.w3 & _M32), key)[:2]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    j = torch.arange(crop.b, dtype=torch.int64, device=dev)
+    j = torch.arange(crop.row0, crop.row0 + crop.b, dtype=torch.int64, device=dev)
     bits = philox4x32((j, zero, zero, zero), fk)
     flips = (bits[2] >> 31).bool() if crop.flips else None
     return keys, (_uniform(bits[0], crop.base_y, crop.range_y),
@@ -246,7 +254,8 @@ def step_draws(
     device, in one launch on the card. Returns (keys, crops): keys, int64
     (len(words), 2), row i derive_key(seed, step, step >> 32, *words[i]);
     crops, with `crop`, (oy int32 (b,), ox int32 (b,), flips bool (b,) or
-    None) drawn from that field's key, else None. A CPU state takes the
+    None) drawn from that field's key for global rows crop.row0 ..
+    crop.row0 + b - 1, else None. A CPU state takes the
     plain version."""
     if state.shape != (2,) or state.dtype != torch.int64:
         raise TypeError("step_draws: state must be an int64 (seed, step) tensor")
@@ -254,6 +263,8 @@ def step_draws(
         raise ValueError(f"step_draws: {len(words)} keys, at most {MAX_KEYS}")
     if crop is not None and not (0 < crop.range_y < 2**31 and 0 < crop.range_x < 2**31):
         raise ValueError(f"step_draws: crop ranges {crop.range_y}, {crop.range_x}")
+    if crop is not None and not (0 <= crop.row0 and crop.row0 + crop.b <= 2**31):
+        raise ValueError(f"step_draws: crop rows {crop.row0} .. {crop.row0 + crop.b - 1}")
     if state.device.type == "cpu":
         return step_draws_reference(state, words, crop)
     if state.device.type != "cuda":
@@ -281,7 +292,7 @@ def step_draws(
     with torch.cuda.device(dev):
         rc = _build.library().cn_step_draws(
             state.data_ptr(), ctypes.addressof(host_words), len(words),
-            keys.data_ptr() if words else None, c.w2 & _M32, c.w3 & _M32, b,
+            keys.data_ptr() if words else None, c.w2 & _M32, c.w3 & _M32, c.row0, b,
             c.base_y, c.range_y, c.base_x, c.range_x,
             None if oy is None else oy.data_ptr(), None if ox is None else ox.data_ptr(),
             None if flips is None else flips.data_ptr(),

@@ -21,10 +21,11 @@ results.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnet_tpu_torch.graph import DECAY, Graph, OptimSpec
 
@@ -77,15 +78,19 @@ def schedule(graph: Graph, t: int) -> np.ndarray:
 
 
 def _update_leaf(spec: OptimSpec, w: torch.Tensor, m: torch.Tensor, g: torch.Tensor, eps, mom,
-                 active=True):
+                 active=True, group=None):
     """One update of w and its momentum m, in place. eps, mom: host floats,
     or 0-d f32 device tensors; active: a host bool, or a 0-d device tensor
-    (1: update, 0: keep w and m)."""
+    (1: update, 0: keep w and m); group: the process group over which w is
+    sharded (the clip's norm is the whole leaf's), or None."""
     if active is False:
         return  # frozen: w and m stay as they are
     g = g + spec.l2_decay * w
     if spec.gradient_clip > 0.0:
-        norm = torch.sqrt((g * g).sum())
+        sq = (g * g).sum()
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        norm = torch.sqrt(sq)
         g = g * torch.clamp(spec.gradient_clip / (norm + 1e-12), max=1.0)
     inc = mom * m - eps * g
     new_w = w + inc
@@ -103,18 +108,23 @@ def _update_leaf(spec: OptimSpec, w: torch.Tensor, m: torch.Tensor, g: torch.Ten
 
 @torch.no_grad()
 def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params,
-                  step: Optional[int] = None, hyper: Optional[torch.Tensor] = None) -> None:
+                  step: Optional[int] = None, hyper: Optional[torch.Tensor] = None,
+                  sharded: Optional[Dict[Tuple[str, str], object]] = None) -> None:
     """One SGD step over every weighted edge, in place on params and moms,
     at host step `step`, or with the schedule's values read from `hyper`
-    (`schedule`'s rows, on the device)."""
+    (`schedule`'s rows, on the device). sharded: {(edge, leaf): process
+    group} of the leaves that hold a shard of the parameter (a mesh's
+    model axis)."""
+    sharded = sharded or {}
     if (step is None) == (hyper is None):
         raise ValueError("apply_updates takes the step or its schedule tensor, not both")
     for row, (e, k, spec) in enumerate(_leaves(graph)):
         p, m, g = params[e.name][k], moms[e.name][k], grads[e.name][k]
         if hyper is None:
             _update_leaf(spec, p, m, g, epsilon_at(spec, step), momentum_at(spec, step),
-                         step >= spec.start_optimization_after)
+                         step >= spec.start_optimization_after, sharded.get((e.name, k)))
         else:
             # a leaf that never freezes needs no select
             active = hyper[row, 2] if spec.start_optimization_after > 0 else True
-            _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active)
+            _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active,
+                         sharded.get((e.name, k)))

@@ -1,6 +1,6 @@
-"""Training and eval on one device: the input prologue, the train and eval
-steps, several steps per launch, and the step loop (counterpart of
-`convnet_tpu/trainer.py`).
+"""Training and eval: the input prologue, the train and eval steps, several
+steps per launch, and the step loop (counterpart of
+`convnet_tpu/trainer.py`), on one device or over a mesh of ranks.
 
 A train step runs the jitter prologue, the forward, `torch.autograd`'s
 backward and the per-edge SGD update, eagerly; the update is in place.
@@ -28,17 +28,31 @@ package's HDF5 layout). With steps_per_launch k, display, validation and
 checkpoints fire at the first launch boundary at or past each multiple.
 `Trainer.train(profile_dir=...)` traces the reference's window of steps
 with torch.profiler.
+
+Under a mesh (`parallel/mesh.py`; the Trainer takes the model's `parallel
+{}` block over the default process group, as the JAX Trainer does) every
+rank reads the same batches and keeps its rows of each (`batch_rows`); it
+draws the crops of those rows and the dropout bits of their elements, so
+the ranks together draw what one device draws. The model-sharded edges'
+collectives run inside the forward and backward (`model.apply_fn`). A
+train step then all-reduces the gradients over the rank's data group, and
+the loss (averaged) and error counts (summed) with them, in one flat
+buffer a dtype: the loss is divided by the data axis before the backward,
+so the sum is the global batch's mean gradient. Checkpoints hold the full
+parameters in the single-device layout: every rank gathers, rank 0 writes,
+and a resume shards what it loads, so a checkpoint moves between meshes.
+Rank 0 logs.
 """
 
 from __future__ import annotations
 
 import os
 import time
-import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnet_tpu_torch import checkpoint as ckpt
 from convnet_tpu_torch.config import model_to_text
@@ -50,6 +64,16 @@ from convnet_tpu_torch.data.jitter import JitterSpec, center_offsets, crop_draw,
 from convnet_tpu_torch.ops import launch_counts
 from convnet_tpu_torch.ops.dropout import step_draws
 from convnet_tpu_torch.ops.s2d_relayout import jitter_s2d, prologue_plan
+from convnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    batch_rows,
+    gather_params,
+    mesh_for_graph,
+    param_shardings,
+    shard_params,
+    state_shardings,
+)
 from convnet_tpu_torch.utils.timers import Timer, start_trace, stop_trace
 
 #: {data_field: (JitterSpec, mean, std)}, mean/std numpy arrays or None.
@@ -80,10 +104,14 @@ def device_batch(host_batch: Dict[str, np.ndarray], device) -> Dict[str, torch.T
             for k, v in host_batch.items()}
 
 
-def init_state(graph: Graph, seed: Optional[int] = None, device="cpu") -> TrainState:
-    """Params from the pbtxt's init modes, zero momenta, step 0."""
+def init_state(graph: Graph, seed: Optional[int] = None, device="cpu",
+               mesh: Optional[Mesh] = None) -> TrainState:
+    """Params from the pbtxt's init modes, zero momenta, step 0; under a
+    mesh, this rank's shards of them."""
     seed = graph.seed if seed is None else seed
     params = model_lib.init_params(graph, seed, device)
+    if mesh is not None:
+        params = shard_params(params, param_shardings(graph, mesh.model), mesh)
     return {"params": params, "moms": optim.init_momentum(params), "step": 0, "seed": seed}
 
 
@@ -130,16 +158,18 @@ class JitterTensors:
 
 
 def draw_step(graph: Graph, jitter: Optional[JitterMap], batch: Dict[str, torch.Tensor],
-              rng: torch.Tensor) -> Draws:
+              rng: torch.Tensor, mesh: Optional[Mesh] = None) -> Draws:
     """One train step's draws from rng = (seed, step) on the batch's device:
     the dropout layers' keys and each jittered field's crop origins and
-    flips. One `step_draws` launch takes the keys and the first field, one
-    more each further field."""
+    flips (under a mesh, those of the rank's rows of the global batch). One
+    `step_draws` launch takes the keys and the first field, one more each
+    further field."""
     words = [(i, 0) for i in model_lib.dropout_layers(graph)]
     fields = []
     for field, (spec, _, _) in (jitter or {}).items():
         b, h, w = batch[field].shape[:3]
-        d = crop_draw(field, b, h, w, spec.image_size, spec.can_translate, spec.can_flip)
+        row0 = mesh.d * b if mesh is not None else 0
+        d = crop_draw(field, b, h, w, spec.image_size, spec.can_translate, spec.can_flip, row0)
         if d is not None:
             fields.append((field, d))
     if not words and not fields:
@@ -203,24 +233,42 @@ def preprocess(
     return out
 
 
-def make_forward(graph: Graph, layers: List[str], jitter: Optional[JitterMap] = None):
+def make_forward(graph: Graph, layers: List[str], jitter: Optional[JitterMap] = None,
+                 mesh: Optional[Mesh] = None):
     """(params, batch) -> {layer: activation} for feature extraction and
-    serving; the batch holds raw (uint8 or float) NHWC tensors."""
+    serving; the batch holds raw (uint8 or float) NHWC tensors. Under a
+    mesh: this rank's params and rows, and the activations of those rows."""
     consts = JitterTensors(jitter)
 
     def fwd(params, batch):
         return model_lib.apply_fn(
-            graph, params, preprocess(graph, jitter, batch, consts=consts), return_layers=layers
+            graph, params, preprocess(graph, jitter, batch, consts=consts), return_layers=layers,
+            mesh=mesh,
         )
 
     return fwd
 
 
-def _step_core(graph: Graph, jitter: Optional[JitterMap]):
+def _reduce_over_data(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor],
+                      mesh: Mesh):
+    """Sum the gradients (of the loss already divided by the data axis) and
+    the metrics over the rank's data group, one all-reduce a dtype: "loss"
+    comes back as the global batch's mean, the error counts as sums."""
+    names = list(metrics)
+    packed = torch.stack([metrics[k].float() / mesh.data if k == "loss" else metrics[k].float()
+                          for k in names])
+    *grads, packed = all_reduce_sum([*grads, packed], mesh.data_group)
+    return grads, {k: v.to(metrics[k].dtype) for k, v in zip(names, packed)}
+
+
+def _step_core(graph: Graph, jitter: Optional[JitterMap], mesh: Optional[Mesh] = None):
     """(params, moms, rng, batch, step | hyper) -> metrics: one train step
     that draws from and then advances rng, with the optimizer's schedule
-    at host step `step` or read from the device tensor `hyper`."""
+    at host step `step` or read from the device tensor `hyper`; under a
+    mesh, on this rank's shards and rows, with the gradients and metrics
+    reduced over its data group."""
     consts = JitterTensors(jitter)
+    sharded = _sharded_leaves(graph, mesh)
 
     def core(params, moms, rng, batch, step=None, hyper=None):
         keys = [(name, k) for name in params for k in params[name]]
@@ -228,20 +276,35 @@ def _step_core(graph: Graph, jitter: Optional[JitterMap]):
         with torch.inference_mode(False), torch.enable_grad():
             for name, k in keys:
                 params[name][k].requires_grad_(True)
-            dropout_keys, crops = draw_step(graph, jitter, batch, rng)
+            dropout_keys, crops = draw_step(graph, jitter, batch, rng, mesh)
             core.draws = (dropout_keys, crops)
             proc = preprocess(graph, jitter, batch, crops, consts)
             loss, metrics = model_lib.loss_fn(graph, params, proc, train=True,
-                                              dropout_keys=dropout_keys)
+                                              dropout_keys=dropout_keys, mesh=mesh)
+            if mesh is not None:
+                loss = loss / mesh.data
             flat = torch.autograd.grad(loss, [params[name][k] for name, k in keys])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            flat, metrics = _reduce_over_data(list(flat), metrics, mesh)
         grads: Dict[str, Dict[str, torch.Tensor]] = {name: {} for name in params}
         for (name, k), g in zip(keys, flat):
             grads[name][k] = g
-        optim.apply_updates(graph, params, moms, grads, step=step, hyper=hyper)
+        optim.apply_updates(graph, params, moms, grads, step=step, hyper=hyper,
+                            sharded=sharded)
         rng[1:].add_(1)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return core
+
+
+def _sharded_leaves(graph: Graph, mesh: Optional[Mesh]):
+    """{(edge, leaf): the model group} of the leaves the model axis shards
+    (a clipped gradient's norm is summed over that group)."""
+    if mesh is None or mesh.model == 1:
+        return {}
+    ps = param_shardings(graph, mesh.model)
+    return {(n, k): mesh.model_group for n, p in ps.items() for k, ax in p.items() if ax is not None}
 
 
 def _state_device(state: TrainState) -> torch.device:
@@ -326,11 +389,13 @@ class _StepGraph:
 class TrainSteps:
     """The eager train step of one graph and jitter map and, on a card, its
     CUDA graph (captured at the first launch of several steps, and again
-    if the state's tensors change)."""
+    if the state's tensors change). Under a mesh, the step of this rank."""
 
-    def __init__(self, graph: Graph, jitter: Optional[JitterMap] = None):
+    def __init__(self, graph: Graph, jitter: Optional[JitterMap] = None,
+                 mesh: Optional[Mesh] = None):
         self.graph = graph
-        self._core = _step_core(graph, jitter)
+        self.mesh = mesh
+        self._core = _step_core(graph, jitter, mesh)
         self.captured: Optional[_StepGraph] = None
         #: the last step's draws, (dropout keys, crops): device tensors
         #: that the next step may overwrite
@@ -356,6 +421,11 @@ class TrainSteps:
         if _state_device(state).type != "cuda":
             rows = [self.step(state, {f: v[i] for f, v in batches.items()}) for i in range(n)]
             return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if self.mesh is not None and self.mesh.backend != "nccl":
+            raise ValueError(
+                f"{n} steps a launch replay the step as a CUDA graph, which cannot hold the "
+                f"{self.mesh.backend} backend's collectives: run the mesh over nccl, or one "
+                "step a launch")
         if self.captured is None or not self.captured.holds(state):
             self.captured = None  # the old graph's memory goes back first
             self.captured = _StepGraph(self.graph, self._core, state,
@@ -365,16 +435,20 @@ class TrainSteps:
         return metrics
 
 
-def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: int = 1):
+def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: int = 1,
+                    mesh: Optional[Mesh] = None):
     """unroll 1: (state, batch) -> metrics, one eager step that updates
     state["params"] and state["moms"] in place and advances state["step"]
     by one. unroll k > 1: (state, batches) -> metrics, k steps over batches
     stacked on a leading axis of k, metrics of shape (k,): a loop of eager
-    steps on the CPU, k replays of the step's CUDA graph on a card. The
-    metrics stay device tensors until the caller reads them."""
+    steps on the CPU, k replays of the step's CUDA graph on a card (under a
+    mesh, over nccl only). The metrics stay device tensors until the caller
+    reads them. Under a mesh the state holds this rank's shards (`init_state`
+    with the mesh) and a batch this rank's rows (`batch_rows`); the metrics
+    are the global batch's."""
     if unroll < 1:
         raise ValueError(f"unroll {unroll} < 1")
-    steps = TrainSteps(graph, jitter)
+    steps = TrainSteps(graph, jitter, mesh)
     if unroll == 1:
         return steps.step
 
@@ -384,30 +458,23 @@ def make_train_step(graph: Graph, jitter: Optional[JitterMap] = None, unroll: in
     return launch
 
 
-def make_eval_step(graph: Graph, jitter: Optional[JitterMap] = None):
-    """(params, batch) -> metrics; center crop, no dropout."""
+def make_eval_step(graph: Graph, jitter: Optional[JitterMap] = None,
+                   mesh: Optional[Mesh] = None):
+    """(params, batch) -> metrics; center crop, no dropout. Under a mesh:
+    this rank's params and rows, and the global batch's metrics."""
     consts = JitterTensors(jitter)
 
     def eval_fn(params, batch):
         with torch.no_grad():
             _, metrics = model_lib.loss_fn(
-                graph, params, preprocess(graph, jitter, batch, consts=consts), train=False
+                graph, params, preprocess(graph, jitter, batch, consts=consts), train=False,
+                mesh=mesh,
             )
+            if mesh is not None:
+                metrics = _reduce_over_data([], metrics, mesh)[1]
         return metrics
 
     return eval_fn
-
-
-def _clamp_parallel(graph: Graph) -> None:
-    """The port runs on one device: a `parallel {}` block asking for more
-    is clamped, with the warning `parallel/mesh.py:59-82` gives."""
-    data, model = graph.parallel_data, graph.parallel_model
-    if data * model > 1:
-        warnings.warn(
-            f"model requests a {data}x{model} mesh but the port runs on one device — "
-            "clamped to 1x1",
-            stacklevel=3,
-        )
 
 
 class Trainer:
@@ -431,7 +498,13 @@ class Trainer:
     handlers' `jitter_specs()` (for example a mean given without an HDF5
     mean file). model_proto: the model's message; when given, `save`
     rewrites `<checkpoint_dir>/<model>.pbtxt` with the checkpoint's
-    timestamp recorded."""
+    timestamp recorded.
+
+    mesh: the ranks' mesh (`make_mesh`); by default the model's `parallel
+    {}` block over the default process group (`mesh_for_graph`: clamped to
+    the world with a warning, None in a world of one). Every rank builds
+    the same data handlers (the same seed, so the same shuffle) and keeps
+    its rows of each batch."""
 
     def __init__(
         self,
@@ -444,9 +517,16 @@ class Trainer:
         steps_per_launch: int = 1,
         device="cuda",
         jitter: Optional[JitterMap] = None,
+        mesh: Optional[Mesh] = None,
     ):
-        _clamp_parallel(graph)
         self.graph = graph
+        self.mesh = mesh if mesh is not None else mesh_for_graph(graph)
+        if self.mesh is not None and train_data.batch_size % self.mesh.data:
+            raise ValueError(
+                f"batch_size {train_data.batch_size} not divisible by the "
+                f"mesh's data axis ({self.mesh.data} ways)"
+            )
+        self._shardings = state_shardings(graph, self.mesh.model if self.mesh else 1)
         self.model_proto = model_proto
         self.train_data = train_data
         self.val_data = val_data
@@ -471,8 +551,8 @@ class Trainer:
             val_data.jitter_specs() if val_data is not None else train_jitter
         )
         self.steps_per_launch = max(1, int(steps_per_launch))
-        self.steps = TrainSteps(graph, train_jitter)
-        self._eval_step = make_eval_step(graph, eval_jitter)
+        self.steps = TrainSteps(graph, train_jitter, self.mesh)
+        self._eval_step = make_eval_step(graph, eval_jitter, self.mesh)
         self.timers = {k: Timer() for k in ("get_batch", "stack", "pin", "copy", "launch")}
         # k > 1 on a card: two sets of pinned staging buffers a launch size,
         # taken in turn, each reused once the launch's copies out of it ran
@@ -480,7 +560,7 @@ class Trainer:
         self._pinned_done: Dict[Tuple[int, int], torch.cuda.Event] = {}
         self._turn = 0
         self._staged_key: Optional[Tuple[int, int]] = None
-        self.state = init_state(graph, device=self.device)
+        self.state = init_state(graph, device=self.device, mesh=self.mesh)
         for which, data in (("train", train_data), ("val", val_data)):
             for line in data.backend_log() if data is not None else ():
                 self.log(f"{which} data: {line}")
@@ -492,6 +572,10 @@ class Trainer:
         return lambda state, batches: self.steps.launch(state, batches, n)
 
     def log(self, msg: str):
+        """Rank 0's message to log_fn and the train log (the other ranks'
+        are dropped)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         self._log_fn(msg)
         if self._log_path:
             with open(self._log_path, "a") as f:
@@ -500,33 +584,35 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
 
     def _resume(self):
+        """Every rank loads the full checkpoint and keeps its shards of it."""
         path = ckpt.latest(self.checkpoint_dir, self.graph.name)
         if not path:
             return
-        shapes = {
-            name: {"w": tuple(p["w"].shape), "b": tuple(p["b"].shape)}
-            for name, p in self.state["params"].items()
-        }
-        params, moms, step = ckpt.load(path, expected_shapes=shapes)
+        params, moms, step = ckpt.load(path, expected_shapes=model_lib.param_shapes(self.graph))
         expect = {e.name for e in self.graph.weighted_edges}
         if set(params) != expect:
             raise ValueError(f"checkpoint {path} edges {sorted(params)} != model {sorted(expect)}")
-        self.state["params"] = model_lib.params_from_numpy(params, self.device)
-        if moms is not None:
-            self.state["moms"] = model_lib.params_from_numpy(moms, self.device)
+        for t, tree in (("params", params), ("moms", moms)):
+            if tree is not None:
+                self.state[t] = shard_params(model_lib.params_from_numpy(tree, self.device),
+                                             self._shardings[t], self.mesh)
         self.state["step"] = step
         self.log(f"resumed from {path} at step {step}")
 
-    def save(self) -> str:
+    def save(self) -> Optional[str]:
         """Write the params, momenta and step as a checkpoint (f32, on the
-        host) and return its path; with a model_proto, also rewrite
-        `<model>.pbtxt` beside it with the checkpoint's timestamp."""
-        def host(tree):
-            return {n: {k: v.detach().float().cpu().numpy() for k, v in p.items()}
-                    for n, p in tree.items()}
-
-        path = ckpt.save(self.checkpoint_dir, self.graph.name, host(self.state["params"]),
-                         host(self.state["moms"]), step=self.state["step"])
+        host, the full parameters) and return its path; with a model_proto,
+        also rewrite `<model>.pbtxt` beside it with the checkpoint's
+        timestamp. Under a mesh every rank must call it: each gathers the
+        sharded leaves, rank 0 writes (the others return None), and all
+        wait until the file is there."""
+        host = {t: gather_params(self.state[t], self._shardings[t], self.mesh)
+                for t in ("params", "moms")}
+        if self.mesh is not None and self.mesh.rank != 0:
+            dist.barrier()
+            return None
+        path = ckpt.save(self.checkpoint_dir, self.graph.name, host["params"], host["moms"],
+                         step=self.state["step"])
         if self.model_proto is not None:
             # the tag is the file name without the model prefix, not a split
             # on "_": a collision-suffixed name ("<ts>_1.h5") keeps "<ts>_1",
@@ -537,22 +623,32 @@ class Trainer:
             with open(os.path.join(self.checkpoint_dir, f"{self.graph.name}.pbtxt"), "w") as f:
                 f.write(model_to_text(self.model_proto))
         self.log(f"checkpoint -> {path}")
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     # -- loops --------------------------------------------------------------
 
+    def _rows(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of a global batch (all of them on one device)."""
+        if self.mesh is None:
+            return host_batch
+        return {k: v[batch_rows(self.mesh, len(v))] for k, v in host_batch.items()}
+
     def device_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A DataHandler batch as tensors on the Trainer's device."""
-        return device_batch(host_batch, self.device)
+        """A DataHandler batch (under a mesh, this rank's rows of it) as
+        tensors on the Trainer's device."""
+        return device_batch(self._rows(host_batch), self.device)
 
     def _stage(self, n: int) -> Dict[str, torch.Tensor]:
-        """Fetch n batches as one launch's input: a plain batch for n = 1
-        (on the device), stacked on a leading axis else (on a card, in
-        pinned buffers that the launch copies from, step by step)."""
+        """Fetch n batches (this rank's rows of each) as one launch's input:
+        a plain batch for n = 1 (on the device), stacked on a leading axis
+        else (on a card, in pinned buffers that the launch copies from, step
+        by step)."""
         t = self.timers
         self._staged_key = None
         with t["get_batch"]:
-            hosts = [self.train_data.get_batch() for _ in range(n)]
+            hosts = [self._rows(self.train_data.get_batch()) for _ in range(n)]
         if self.device.type != "cuda":
             with t["stack"]:
                 if n == 1:
@@ -660,7 +756,8 @@ class Trainer:
 
     def validate(self, num_batches: Optional[int] = None) -> Tuple[float, float]:
         """(error rate, mean loss) over num_batches validation batches
-        (default: validate_batches, else the whole set)."""
+        (default: validate_batches, else the whole set); under a mesh each
+        rank evaluates its rows and the eval step sums over the data group."""
         if self.val_data is None:
             raise ValueError("validate() needs val_data")
         n = num_batches or self.graph.validate_batches or self.val_data.num_batches

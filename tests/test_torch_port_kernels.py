@@ -513,6 +513,48 @@ def test_dropout_kernel_masks_agree_fwd_bwd(cuda):
     assert torch.equal(gx[gx != 0], torch.full_like(gx[gx != 0], 2.0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_offset_through_autograd(cuda, dtype):
+    """A rank's rows through dropout(..., offset), forward and backward,
+    are the rows of the whole batch through dropout(...): the element
+    offset of a batch split over a mesh's data axis."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, f, data = 128, 4096, 4
+    x = torch.randn((b, f), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((b, f), generator=gen, device=cuda).to(dtype)
+    key = torch.tensor(drop.dropout_key(7, 3, 12), dtype=torch.int64, device=cuda)
+    xw = x.clone().requires_grad_()
+    yw = drop.dropout(xw, 0.5, key)
+    (dw,) = torch.autograd.grad(yw, xw, g)
+    rows = b // data
+    before = drop.LAUNCHES
+    for d in range(data):
+        xr = x[d * rows:(d + 1) * rows].clone().requires_grad_()
+        yr = drop.dropout(xr, 0.5, key, offset=d * rows * f)
+        (dr,) = torch.autograd.grad(yr, xr, g[d * rows:(d + 1) * rows])
+        assert torch.equal(yr, yw[d * rows:(d + 1) * rows].detach())
+        assert torch.equal(dr, dw[d * rows:(d + 1) * rows])
+    assert drop.LAUNCHES == before + 2 * data
+
+
+@pytest.mark.parametrize("data", [2, 4])
+def test_step_draws_kernel_rows_of_the_global_draw(cuda, data):
+    """The step-draws kernel's crops for rows row0 .. row0 + b - 1 are those
+    rows of one draw for the whole batch, and the plain version's."""
+    from convnet_tpu_torch.data.jitter import crop_draw
+
+    state = torch.tensor([11, 5], dtype=torch.int64, device=cuda)
+    whole = drop.step_draws(state, [(3, 0)], crop_draw("input", 128, 256, 256, 224, True, True))
+    b = 128 // data
+    for d in range(data):
+        draw = crop_draw("input", b, 256, 256, 224, True, True, d * b)
+        keys, crops = drop.step_draws(state, [(3, 0)], draw)
+        plain = drop.step_draws_reference(state, [(3, 0)], draw)
+        assert torch.equal(keys, whole[0]) and torch.equal(keys, plain[0])
+        for got, w, p in zip(crops, whole[1], plain[1]):
+            assert torch.equal(got, w[d * b:(d + 1) * b]) and torch.equal(got, p)
+
+
 def test_f32_conv_gradients_exact(cuda):
     """conv2's shape in f32: with TF32 left on for dgrad/wgrad the
     gradients would miss a float64 computation by about 1e-3."""
