@@ -58,11 +58,13 @@ any failure raises and the script exits non-zero:
    s2d_prologue 1 and step_draws 1 times; the parameters stay finite; three steps from one
    state must agree with a step composed from the plain versions with
    autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
-   gradient. Then, where h5py imports (else one line says the phase was
-   not run): the trained state through a checkpoint save -> load round
-   trip, params and momenta array-equal, and the shipped digits network
-   served from examples/digits/digits_pretrained.h5 through
-   Predictor.from_checkpoint at top-1 error < 0.05 (where sklearn imports).
+   gradient. Then (5b) the trained state through a checkpoint save ->
+   load round trip, written and read by the port's own HDF5 module
+   (convnet_tpu_torch/hdf5.py; no h5py), params and momenta array-equal,
+   the seconds of each printed; and the shipped digits network, a file
+   h5py wrote, served from examples/digits/digits_pretrained.h5 through
+   Predictor.from_checkpoint: finite softmax rows, and top-1 error < 0.05
+   (where sklearn imports).
 6. Timing. Every kernel, its plain version and, where one PyTorch call
    computes the same function, that call, by device time with the
    launches hidden (device_ms: up to 20 calls over two input sets queued
@@ -87,8 +89,9 @@ any failure raises and the script exits non-zero:
    (bf16, batch 128), 10 steps through the train CLI
    (convnet_tpu_torch.cli.train.main, in this process) over DUMMY
    ImageNet-shaped data with --profile-dir, from a temp copy of the model
-   that logs a loss every 5 steps (and, where h5py does not import, sets
-   checkpoint_after: 0): each step must launch lrn_fwd 2, lrn_bwd 2,
+   that logs a loss every 5 steps (the model's own checkpoint_after, so
+   the CLI writes its 2.28 GB checkpoint at its end): each step must
+   launch lrn_fwd 2, lrn_bwd 2,
    dropout 4, s2d_prologue 1 and step_draws 1 times, every parameter (the 224M-element
    LOCAL weight too) move and stay finite, the logged losses be finite
    and a trace be written; then its train step's times beside AlexNet's.
@@ -96,32 +99,61 @@ any failure raises and the script exits non-zero:
    tol 2e-3) over a small conv -> LRN -> max pool -> LOCAL ->
    CONV_ONETOONE -> FC model: no failure, and the LRN kernels launched.
    (d) conv_autoencoder, 5 train steps over DUMMY 32x32x3 data: finite
-   losses, every parameter moved. (e) where h5py imports, fc7 from (b)'s
-   checkpoint through the extract CLI (else one line says it was not run).
+   losses, every parameter moved. (e) fc7 from (b)'s checkpoint through
+   the extract CLI, read back with hdf5.py: 256 finite rows.
 8. Stored data, several steps per launch, remat. (a) A learnable set
    (1280 uint8 256x256x3 images over 10 classes, each class its colour
    offset and stripes, plus noise; int32 labels), written with the port's
-   write_raw_cache (the C++ gather's host ms per batch printed beside the
-   plain memmap read's), trains full-width AlexNet through the train CLI
+   write_raw_cache and as two HDF5 files by hdf5.py (contiguous, and
+   chunked by 128 rows), with compute_mean's full-pixel and per-channel
+   mean files (the host ms per batch of the C++ gather, the plain memmap
+   read and DataHandler.get_batch over the raw cache and both HDF5 files
+   printed), trains full-width AlexNet (scale 1/255, no mean) through the
+   train CLI
    at --steps-per-launch 4 for 600 steps, logging every 20: the last
    logged loss must fall below ln 10 and the last window's train error
    below 0.5 (the pbtxt's eps first, then x2, x4 and x8 from the same
    state; the eps used is printed); the CLI's --profile-dir traces its
    window of replays, and each replayed step must launch there, counted
-   by kernel name in the trace, what an eager step does (and so by its
-   capture's count). (b) Where PIL imports:
+   by kernel name in the trace and tied to its cudaGraphLaunch by the
+   trace's correlation id, what an eager step does (and so by its
+   capture's count): exactly so for every replay inside the window, at
+   most so for the first and the last, which the profiler's start and
+   stop may cut. (b) Where PIL imports:
    JPEG and mixed JPEG/PNG lists through IMAGE_RAW (each reader printed),
-   SLIDING_WINDOW's features on the card against the CPU (through the
-   extract CLI where h5py imports) and a TXT stream. (c) From one state
+   SLIDING_WINDOW's features on the card against the CPU, and through the
+   extract CLI, and a TXT stream. (c) From one state
    and 8 staged batches, replays of the captured step against eager
    steps: each step's crops, flips and dropout keys and masks
    array-equal, parameters and momenta array-equal or within UPDATE_TOL;
    the step's time at 1 and 4 a launch on both train paths, and
    Trainer.train's img/s over 48 steps at 1 and 4 a launch on DUMMY and
-   on the raw cache, with its host stages' ms. (d) One AlexNet step with
-   remat on and off from one state: parameters equal or within
-   UPDATE_TOL; max_memory_allocated of each. A JSON line holds phase 8's
-   numbers.
+   on the raw cache (each with the phase's mean) and on the contiguous
+   HDF5 file (with the per-channel mean file, so the input prologue
+   kernel takes the file's affine), with its host stages' ms. (d) One AlexNet
+   step with remat on and off from one state: parameters equal or within
+   UPDATE_TOL; max_memory_allocated of each. (e) HDF5 end to end:
+   full-width AlexNet (bf16, batch 128) through the train CLI over the
+   contiguous HDF5 file with the full-pixel mean file (random crops and
+   flips; the jitter takes the plain path, as the JAX package's does for
+   a full-pixel mean), 15 steps writing two checkpoints (step 10's and the
+   CLI's at its end), then a second CLI run on the same directory to step
+   20 that must resume at step 15 with params array-equal to the newest
+   checkpoint; then fc7 through the extract CLI from the newest checkpoint
+   over the chunked HDF5 file, written by the port's DataWriter and read
+   back with hdf5.py: 1280 finite rows, within 1e-2 of the largest |fc7|
+   of a Predictor's fc7 of the same rows, and the extract's rows/s. (f) The
+   normalize path: AlexNet from seed-0 params over the contiguous HDF5
+   file with the per-channel mean and std (the prologue kernel takes the
+   file's affine); 3 steps against the plain-composed step (UPDATE_TOL),
+   then at eps x1, x0.5 and x0.25 of the pbtxt's (and over (a)'s 1/255
+   set at x1), 400 steps of the kernel path (eager, TRAIN_PER_STEP
+   launches a step) and of the plain-composed path side by side on the
+   same batches, each path's losses and first non-finite step printed
+   (one path diverging alone would be a kernel fault; both, the
+   dynamics); at x0.25 the kernel path must stay finite and meet (a)'s
+   bars on the normalized set. A JSON line holds
+   phase 8's numbers (and phase 5b's checkpoint seconds).
 9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
    examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
    128, uint8 256x256 images with random 224 crops and flips, dropout 0.5)
@@ -149,8 +181,8 @@ any failure raises and the script exits non-zero:
    beside phase 8c's (the all-reduce's own cost on one card, no scaling
    figure), and a Trainer on that mesh at 4 a launch. (c) The train CLI
    in a world of 2 ranks over gloo on this card, torchrun's environment
-   set by hand: a few alexnet_2tower steps, rank 0's log alone (and its
-   checkpoints where h5py imports). A JSON line holds phase 9's numbers;
+   set by hand: a few alexnet_2tower steps, rank 0's log alone and its
+   two checkpoints. A JSON line holds phase 9's numbers;
    the kernels' line counts each 9a mesh's rank 0 launches. A failing
    rank fails the phase.
 
@@ -490,7 +522,8 @@ def clone_state(state):
             "step": state["step"], "seed": state["seed"]}
 
 
-def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=False):
+def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=False,
+                       std_t=None):
     """PARITY_STEPS steps of the port's train step and of the plain-
     composed one from the same state, keys and batches (fused: the
     reference-gradient path, under pool_switches()). Each momentum
@@ -511,7 +544,7 @@ def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=
     losses, plain_losses = [], []
     for b in batches:
         losses.append(step(port, b)["loss"].item())
-        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t, fused).item())
+        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t, fused, std_t).item())
     print(f"[{card}] {PARITY_STEPS} train steps: port losses {losses}, plain-composed {plain_losses}")
     for name in start["params"]:
         for k in ("w", "b"):
@@ -1097,25 +1130,20 @@ DIGITS = REPO / "examples" / "digits"
 CKPT_DIR = REPO / "build" / "chip_smoke_checkpoint"
 
 
-def check_checkpoints(dev, graph, state, card) -> None:
-    """Phase 5b, when h5py imports: the trained AlexNet state through a
-    save -> load round trip (params and momenta array-equal), and the
-    shipped digits network served from its checkpoint through
-    Predictor.from_checkpoint on the card (top-1 error < 0.05 on the
-    held-out rows of sklearn's bundled digits, tests/test_checkpoint.py's
-    split; skipped with a line when sklearn does not import)."""
+def check_checkpoints(dev, graph, state, card) -> dict:
+    """Phase 5b: the trained AlexNet state through a save -> load round trip
+    (params and momenta array-equal; the seconds of each, the port's HDF5
+    writer and reader on this machine's disk), and the shipped digits
+    network, a file h5py wrote, served from its checkpoint through
+    Predictor.from_checkpoint on the card: finite softmax rows on a fixed
+    batch, and top-1 error < 0.05 on the held-out rows of sklearn's bundled
+    digits (tests/test_checkpoint.py's split; skipped with a line when
+    sklearn does not import)."""
     import shutil
 
     import numpy as np
     import torch
 
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        print(f"[{card}] checkpoint phase: needs h5py, which does not import on this machine; "
-              "not run (the round trip and the digits network are tested on the CPU in "
-              "tests/test_torch_port_checkpoint.py)")
-        return
     from convnet_tpu_torch import checkpoint as ckpt
     from convnet_tpu_torch.config import read_model
     from convnet_tpu_torch.graph import build_graph
@@ -1128,9 +1156,13 @@ def check_checkpoints(dev, graph, state, card) -> None:
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     try:
-        path = ckpt.save(str(CKPT_DIR), graph.name, host(state["params"]), host(state["moms"]),
-                         step=state["step"])
+        params_h, moms_h = host(state["params"]), host(state["moms"])
+        t0 = time.perf_counter()
+        path = ckpt.save(str(CKPT_DIR), graph.name, params_h, moms_h, step=state["step"])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         params, moms, step = ckpt.load(path, expected_shapes=param_shapes(graph))
+        load_s = time.perf_counter() - t0
         for name, tree in (("params", params), ("moms", moms)):
             loaded = params_from_numpy(tree, dev)
             for edge, p in state[name].items():
@@ -1139,23 +1171,33 @@ def check_checkpoints(dev, graph, state, card) -> None:
                         raise AssertionError(f"checkpoint round trip changed {name} {edge}/{k}")
         if step != state["step"]:
             raise AssertionError(f"checkpoint round trip step {step} != {state['step']}")
+        size = Path(path).stat().st_size
         print(f"[{card}] checkpoint round trip of the trained AlexNet state at step {step}: "
-              f"params and momenta array-equal ({Path(path).stat().st_size} bytes)")
+              f"params and momenta array-equal ({size} bytes); save {save_s:.3f} s, load "
+              f"{load_s:.3f} s (host clock: numpy arrays to the file and back, page cache warm)")
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    facts = {"bytes": size, "save_s": save_s, "load_s": load_s}
+    dg = build_graph(read_model(str(DIGITS / "digits.pbtxt")), {"input": 8})
+    pred = Predictor.from_checkpoint(dg, str(DIGITS / "digits_pretrained.h5"), batch_size=128,
+                                     device=dev)
+    probe = np.random.default_rng(0).uniform(0, 1, (128, 8, 8, 1)).astype(np.float32)
+    probs = pred({"input": probe})["output"].reshape(128, -1)
+    if probs.shape != (128, 10) or not np.isfinite(probs).all() or \
+            np.abs(probs.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError(f"the digits network's outputs {probs.shape} are not softmax rows")
+    print(f"[{card}] digits network from examples/digits/digits_pretrained.h5 (written by h5py, "
+          "read by the port's hdf5.py) through Predictor.from_checkpoint: 128 softmax rows of 10")
     try:
         from sklearn.datasets import load_digits
     except ImportError:
         print(f"[{card}] digits network from its checkpoint: needs sklearn's bundled digits, "
               "which do not import on this machine; not run")
-        return
-    dg = build_graph(read_model(str(DIGITS / "digits.pbtxt")), {"input": 8})
+        return facts
     d = load_digits()
     images = (d.images * (255.0 / 16.0)).astype(np.uint8)[..., None]
     held_out = np.random.RandomState(0).permutation(len(images))[1500:]
     x = images[held_out].astype(np.float32) * (1.0 / 255.0)
-    pred = Predictor.from_checkpoint(dg, str(DIGITS / "digits_pretrained.h5"), batch_size=128,
-                                     device=dev)
     labels = np.concatenate([pred.predict_labels({"input": x[i: i + 128]})
                              for i in range(0, len(x), 128)])
     err = float(np.mean(labels != d.target[held_out]))
@@ -1163,6 +1205,8 @@ def check_checkpoints(dev, graph, state, card) -> None:
           f"error {err} on {len(x)} held-out images")
     if err >= 0.05:
         raise AssertionError(f"the shipped digits network misclassifies {err} of the held-out rows")
+    facts["digits_top1_error"] = err
+    return facts
 
 
 def check_conv_grad(dev, gen, card):
@@ -1284,7 +1328,7 @@ def plain_logits(graph, params, x, dropout_seed=None, fused=False):
     return (fc(x, params[fe.name]["w"], bf) + params[fe.name]["b"].to(bf)).float()
 
 
-def plain_prologue(graph, x_u8, spec, mean_t, oy, ox, flips):
+def plain_prologue(graph, x_u8, spec, mean_t, oy, ox, flips, std_t=None):
     """conv1's S2DInput from the prologue kernel's plain version."""
     from convnet_tpu_torch.ops.conv import S2DInput
     from convnet_tpu_torch.ops.s2d_relayout import relayout_geometry, s2d_prologue_reference
@@ -1293,7 +1337,7 @@ def plain_prologue(graph, x_u8, spec, mean_t, oy, ox, flips):
     xs = s2d_prologue_reference(
         x_u8, oy, ox, flips, crop=spec.image_size, stride=c1.stride,
         p=relayout_geometry(spec.image_size, c1.kernel_size, c1.stride),
-        scale=spec.scale, mean=mean_t,
+        scale=spec.scale, mean=mean_t, std=std_t,
     )
     return S2DInput(xs, c1.stride)
 
@@ -1311,7 +1355,7 @@ def plain_alexnet(graph, params, x_u8, spec, mean_t):
     return plain_logits(graph, params, plain_prologue(graph, x_u8, spec, mean_t, oy, ox, None))
 
 
-def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
+def plain_train_step(graph, state, batch, spec, mean_t, fused=False, std_t=None):
     """One AlexNet train step composed from the plain versions: the same
     crops, flips and dropout masks as the port's step (drawn from the
     same keys), autograd for the backward, the port's optimizer. fused:
@@ -1329,7 +1373,7 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False):
     rng = torch.tensor([seed, step], dtype=torch.int64, device=x.device)
     draw = crop_draw("input", b, h, w, spec.image_size, spec.can_translate, spec.can_flip)
     oy, ox, flips = step_draws_reference(rng, (), draw)[1]
-    xs = plain_prologue(graph, x, spec, mean_t, oy, ox, flips)
+    xs = plain_prologue(graph, x, spec, mean_t, oy, ox, flips, std_t)
     params = state["params"]
     keys = [(n, k) for n in params for k in ("w", "b")]
     with torch.enable_grad():
@@ -1696,14 +1740,6 @@ edge { source: "mix3" dest: "output" edge_type: FC initialization: DENSE_GAUSSIA
 """
 
 
-def h5py_imports() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
 def check_local(dev, gen, card, profile_dir=None):
     """Phase 7a: LOCAL at alexnet_local's conv4 in f32 and bf16, forward,
     dx and dw against float64 on the card (the bf16 case on the bf16-rounded
@@ -1823,8 +1859,10 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
     width, 10 steps through the train CLI over DUMMY ImageNet-shaped data,
     with a trace of steps 5-10 (--profile-dir); (c) grad_check through its
     CLI on the card in f32 (eps 1e-3, tol 2e-3) over GRAD_CHECK_MODEL; (d)
-    conv_autoencoder, 5 train steps over DUMMY 32x32x3 data; (e) where h5py
-    imports, fc7 extracted from (b)'s checkpoint through the extract CLI.
+    conv_autoencoder, 5 train steps over DUMMY 32x32x3 data; (e) fc7
+    extracted from (b)'s checkpoint (the one the CLI writes at its end, the
+    model's own checkpoint_after) through the extract CLI, read back with
+    the port's hdf5.py.
     With profile_dir, torch.profiler tables of LOCAL and of five
     alexnet_local steps go there. Returns the alexnet_local run's
     launches."""
@@ -1834,6 +1872,7 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
     import numpy as np
     import torch
 
+    from convnet_tpu_torch import hdf5
     from convnet_tpu_torch.cli import extract as extract_cli
     from convnet_tpu_torch.cli import grad_check as grad_check_cli
     from convnet_tpu_torch.cli import train as train_cli
@@ -1850,12 +1889,6 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
         model = read_model(str(ALEXNET_LOCAL))
         # widths untouched; a loss line every 5 steps for the log
         model.display_after = 5
-        have_h5py = h5py_imports()
-        if not have_h5py:
-            model.checkpoint_after = 0
-            print(f"[{card}] alexnet_local through the train CLI: h5py does not import on this "
-                  "machine, so the model's copy sets checkpoint_after: 0 (no checkpoint is "
-                  "written) and phase 7e is not run")
         (tmp / "alexnet_local.pbtxt").write_text(model_to_text(model))
         (tmp / "train.pbtxt").write_text(dummy_imagenet_text(BATCH, DUMMY_ROWS, True))
         out, prof = tmp / "run", tmp / "profile"
@@ -1947,24 +1980,21 @@ def check_zoo_and_clis(dev, gen, card, alexnet_times, profile_dir=None):
         expect_trained("conv_autoencoder", state["params"], p_init, card)
 
         # -- (e) --
-        if not have_h5py:
-            print(f"[{card}] extract phase: needs h5py, which does not import on this machine; "
-                  "not run (the train -> extract round trip is tested on the CPU in "
-                  "tests/test_torch_port_cli.py)")
-        else:
-            import h5py
-
-            ckpts = sorted(out.glob("alexnet_local_*.h5"))
-            (tmp / "val.pbtxt").write_text(dummy_imagenet_text(BATCH, 2 * BATCH, False))
-            feats = tmp / "fc7.h5"
-            rc = extract_cli.main([str(tmp / "alexnet_local.pbtxt"), str(tmp / "val.pbtxt"),
-                                   "--checkpoint", str(ckpts[-1]), "--output", str(feats),
-                                   "--layers", "fc7"])
-            with h5py.File(feats) as f:
-                fc7 = f["fc7"][...]
-            print(f"[{card}] extract CLI: fc7 {fc7.shape}, finite {bool(np.isfinite(fc7).all())}")
-            if rc != 0 or fc7.shape != (2 * BATCH, 4096) or not np.isfinite(fc7).all():
-                raise AssertionError(f"extract gave rc {rc}, fc7 {fc7.shape}")
+        ckpts = sorted(out.glob("alexnet_local_*.h5"))
+        if len(ckpts) != 1:
+            raise AssertionError(f"the train CLI wrote checkpoints {ckpts}")
+        (tmp / "val.pbtxt").write_text(dummy_imagenet_text(BATCH, 2 * BATCH, False))
+        feats = tmp / "fc7.h5"
+        rc = extract_cli.main([str(tmp / "alexnet_local.pbtxt"), str(tmp / "val.pbtxt"),
+                               "--checkpoint", str(ckpts[-1]), "--output", str(feats),
+                               "--layers", "fc7"])
+        with hdf5.File(feats) as f:
+            fc7 = f["fc7"][...]
+        print(f"[{card}] extract CLI from alexnet_local's checkpoint {ckpts[-1].name} "
+              f"({ckpts[-1].stat().st_size} bytes): fc7 {fc7.shape}, finite "
+              f"{bool(np.isfinite(fc7).all())}")
+        if rc != 0 or fc7.shape != (2 * BATCH, 4096) or not np.isfinite(fc7).all():
+            raise AssertionError(f"extract gave rc {rc}, fc7 {fc7.shape}")
     return local_launches
 
 
@@ -2006,8 +2036,9 @@ def learnable_set(n: int, classes: int, seed: int = 0):
 
 def raw_cache_data_text(directory: Path, batch: int, pipeline: bool = True) -> str:
     """Two RAW_CACHE streams over learnable_set's files: random CROP crops
-    and flips, scale 1/255. (The schema gives a mean only through an HDF5
-    mean file, which needs h5py.)"""
+    and flips, scale 1/255. (Normalized by the per-channel mean file
+    instead, AlexNet diverges at the pbtxt's eps on the kernel path and on
+    the plain-composed one alike: phase 8f.)"""
     return f"""
         name: "learnable" batch_size: {batch} randomize_cpu: true
         pipeline_loads: {str(pipeline).lower()}
@@ -2020,21 +2051,76 @@ def raw_cache_data_text(directory: Path, batch: int, pipeline: bool = True) -> s
     """
 
 
+def hdf5_data_text(data: Path, mean: Path, batch: int, randomize: bool,
+                   pipeline: bool = True) -> str:
+    """Two HDF5 streams over one of learnable_set's HDF5 files (images
+    "data", labels "labels"): CROP crops, random with flips where
+    `randomize` (train) and centred otherwise (extract), and the mean and
+    std of a compute_mean file (normalize)."""
+    jitter = "can_translate: true can_flip: true" if randomize else ""
+    return f"""
+        name: "learnable_hdf5" batch_size: {batch} randomize_cpu: {str(randomize).lower()}
+        pipeline_loads: {str(pipeline).lower()}
+        data_config {{ layer_name: "input" data_type: HDF5 file_pattern: "{data}"
+                      dataset_name: "data" raw_image_size: {RAW} image_size: {CROP}
+                      num_colors: 3 {jitter} mean_file: "{mean}" normalize: true }}
+        data_config {{ layer_name: "labels" data_type: HDF5 file_pattern: "{data}"
+                      dataset_name: "labels" }}
+    """
+
+
+# phase 8's HDF5 copies of the learnable set: one contiguous, one chunked by
+# HDF5_CHUNK rows (tools/make_hdf5_dataset.py's chunk), written a chunk at a
+# time; and compute_mean's full-pixel and per-channel mean files
+HDF5_CHUNK = 128
+
+
 def write_learnable_set(directory: Path, card):
-    """Phase 8a's data, written with the port's write_raw_cache; prints the
-    reader's backend and its host milliseconds per batch."""
+    """Phase 8's data: learnable_set written as a raw cache with the port's
+    write_raw_cache, and as two HDF5 files with the port's hdf5.py
+    (images.h5 contiguous, images_chunked.h5 chunked), with the full-pixel
+    (mean_pixel.h5) and per-channel (mean_channel.h5) mean files of the
+    port's compute_mean tool. Prints each reader's host milliseconds per
+    batch: the C++ gather and the plain memmap read of the raw cache, and
+    DataHandler.get_batch over the raw cache and both HDF5 files."""
     import numpy as np
 
+    from convnet_tpu_torch import hdf5
     from convnet_tpu_torch.config import parse_dataset_config
     from convnet_tpu_torch.data.datahandler import DataHandler
     from convnet_tpu_torch.data.native import (
         RawCacheReader, raw_cache_gather_reference, write_raw_cache)
+    from convnet_tpu_torch.tools import compute_mean
 
     t0 = time.perf_counter()
     images, labels = learnable_set(LEARN_ROWS, LEARN_CLASSES)
     write_raw_cache(str(directory / "images.cache"), images)
     write_raw_cache(str(directory / "labels.cache"), labels)
     made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with hdf5.File(directory / "images.h5", "w") as f:
+        f.create_dataset("data", data=images)
+        f.create_dataset("labels", data=labels)
+    contiguous_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with hdf5.File(directory / "images_chunked.h5", "w") as f:
+        ds = f.create_appendable("data", (RAW, RAW, 3), np.uint8, chunk_rows=HDF5_CHUNK)
+        for i in range(0, LEARN_ROWS, 64):
+            ds.append(images[i: i + 64])
+        f.create_dataset("labels", data=labels)
+    chunked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, flags in (("mean_pixel.h5", []), ("mean_channel.h5", ["--per-channel"])):
+        compute_mean.main([str(directory / "images.h5"), str(directory / name), "--chunk", "128",
+                           *flags])
+    mean_s = time.perf_counter() - t0
+    with hdf5.File(directory / "images_chunked.h5") as f, \
+            hdf5.File(directory / "mean_pixel.h5") as m:
+        if not (np.array_equal(f["data"][...], images) and np.array_equal(f["labels"][...], labels)):
+            raise AssertionError("the chunked HDF5 copy differs from the rows written")
+        want = images.astype(np.float64).mean(0)
+        if np.abs(m["mean"][...] - want).max() > 1e-3:
+            raise AssertionError("compute_mean's full-pixel mean differs from numpy's")
     size = (directory / "images.cache").stat().st_size
     reader = RawCacheReader(str(directory / "images.cache"))
     idx = np.random.default_rng(1).integers(0, LEARN_ROWS, (20, BATCH))
@@ -2044,18 +2130,30 @@ def write_learnable_set(directory: Path, card):
     plain_ms = statistics.median(
         _ms(lambda i=i: raw_cache_gather_reference(str(directory / "images.cache"), i)) for i in idx)
     reader.close()
-    data = DataHandler(parse_dataset_config(raw_cache_data_text(directory, BATCH, False)))
-    backends = data.backends()
-    data.get_batch()
-    batch_ms = statistics.median(_ms(data.get_batch) for _ in range(20))
-    data.close()
+    batch_ms = {}
+    for name, text in (
+            ("RAW_CACHE", raw_cache_data_text(directory, BATCH, False)),
+            ("HDF5 contiguous", hdf5_data_text(directory / "images.h5",
+                                               directory / "mean_channel.h5", BATCH, True, False)),
+            ("HDF5 chunked", hdf5_data_text(directory / "images_chunked.h5",
+                                            directory / "mean_channel.h5", BATCH, True, False))):
+        data = DataHandler(parse_dataset_config(text))
+        first = data.get_batch()
+        if not np.array_equal(first["input"], images[data._order[:BATCH]]):
+            raise AssertionError(f"{name}: the first batch differs from the rows written")
+        batch_ms[name] = statistics.median(_ms(data.get_batch) for _ in range(20))
+        data.close()
     print(f"[{card}] learnable set: {LEARN_ROWS} images {RAW}x{RAW}x3 over {LEARN_CLASSES} classes, "
-          f"raw cache {size} bytes, made and written in {made_s:.3f} s; readers {backends}; host "
-          f"ms per {BATCH}-row batch ({BATCH * RAW * RAW * 3} bytes, page cache warm): C++ gather "
-          f"{gather_ms:.4f}, numpy memmap gather (the plain version) {plain_ms:.4f}, "
-          f"DataHandler.get_batch without prefetch {batch_ms:.4f}")
+          f"raw cache {size} bytes, made and written in {made_s:.3f} s; HDF5 written by the port's "
+          f"hdf5.py in {contiguous_s:.3f} s contiguous, {chunked_s:.3f} s chunked by {HDF5_CHUNK} "
+          f"rows; compute_mean's two mean files in {mean_s:.3f} s. Host ms per {BATCH}-row batch "
+          f"({BATCH * RAW * RAW * 3} bytes, page cache warm): C++ gather {gather_ms:.4f}, numpy "
+          f"memmap gather (the plain version) {plain_ms:.4f}; DataHandler.get_batch without "
+          f"prefetch: " + ", ".join(f"{k} {v:.4f}" for k, v in batch_ms.items()))
     del images, labels
-    return {"gather_ms": gather_ms, "plain_gather_ms": plain_ms, "get_batch_ms": batch_ms}
+    return {"gather_ms": gather_ms, "plain_gather_ms": plain_ms, "get_batch_ms": batch_ms,
+            "hdf5_write_s": {"contiguous": contiguous_s, "chunked": chunked_s},
+            "compute_mean_s": mean_s}
 
 
 # each wrapper's main kernel, as torch.profiler names it in a trace
@@ -2069,27 +2167,47 @@ TRACE_KERNELS = {
 
 
 def traced_launches(trace_dir: Path):
-    """From the Chrome traces torch.profiler wrote into trace_dir: the
-    card's launches of each wrapper's kernel (kernel events by name, those
-    of a CUDA graph's replays included) and the host's cudaGraphLaunch
-    calls."""
+    """From the Chrome traces torch.profiler wrote into trace_dir, one dict
+    for each of the host's cudaGraphLaunch calls, in the order they were
+    made: the card's launches of each wrapper's kernel (kernel events by
+    name) that the trace ties to that call by its correlation id."""
     import re
 
-    counts = dict.fromkeys(TRACE_KERNELS, 0)
-    graph_launches = 0
+    replays = []
     files = sorted(trace_dir.glob("*.pt.trace.json"))
     if not files:
         raise AssertionError(f"no torch.profiler trace in {trace_dir}")
     for f in files:
-        for ev in json.loads(f.read_text()).get("traceEvents", []):
-            name, cat = ev.get("name", ""), ev.get("cat", "")
-            if cat == "kernel":
+        events = json.loads(f.read_text()).get("traceEvents", [])
+        launches = sorted((ev.get("ts", 0), ev["args"]["correlation"]) for ev in events
+                          if ev.get("cat") == "cuda_runtime"
+                          and ev.get("name") == "cudaGraphLaunch")
+        by_launch = {c: dict.fromkeys(TRACE_KERNELS, 0) for _, c in launches}
+        for ev in events:
+            counts = by_launch.get(ev.get("args", {}).get("correlation"))
+            if ev.get("cat") == "kernel" and counts is not None:
                 for k, pat in TRACE_KERNELS.items():
-                    if re.search(pat, name):
+                    if re.search(pat, ev.get("name", "")):
                         counts[k] += 1
-            elif cat == "cuda_runtime" and name == "cudaGraphLaunch":
-                graph_launches += 1
-    return counts, graph_launches
+        replays += [by_launch[c] for _, c in launches]
+    return replays
+
+
+def expect_traced_replays(replays, per_call):
+    """Raise unless every replay inside the traced window launched each
+    kernel per_call[k] times (0 for a kernel not named), and the first and
+    the last, which the profiler's start and stop may cut, no more than
+    that; returns the launches summed over the replays."""
+    if len(replays) < 3:
+        raise AssertionError(f"the trace holds {len(replays)} cudaGraphLaunch calls, "
+                             "fewer than 3")
+    for i, got in enumerate(replays[1:-1], 1):
+        expect_launches(f"replay {i} of the {len(replays)} traced", got, per_call, 1)
+    for i in (0, len(replays) - 1):
+        if any(n > per_call.get(k, 0) for k, n in replays[i].items()):
+            raise AssertionError(f"replay {i} of the {len(replays)} traced launched "
+                                 f"{replays[i]}, more than a step's {per_call}")
+    return {k: sum(r[k] for r in replays) for k in replays[0]}
 
 
 def _ms(fn) -> float:
@@ -2134,7 +2252,7 @@ def check_learning(directory: Path, card):
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             counted = read_launches()
-            traced, graph_launches = traced_launches(Path(out) / "trace")
+            replays = traced_launches(Path(out) / "trace")
             log = (Path(out) / "alexnet_train_log.txt").read_text()
         trainer = cap.made[0]
         steps = [(int(a), float(b), float(c)) for a, b, c in
@@ -2149,17 +2267,16 @@ def check_learning(directory: Path, card):
         captured = trainer.steps.captured
         facts = {"eps_factor": factor, "eps": eps, "seconds": run_s, "log": steps,
                  "per_capture": dict(captured.launches), "replays": captured.replays,
-                 "wrapper_counts": counted, "traced": traced,
-                 "traced_graph_launches": graph_launches,
+                 "wrapper_counts": counted, "traced_graph_launches": len(replays),
+                 "traced_edges": [replays[0], replays[-1]] if replays else [],
                  "timers_ms": {k: t.mean * 1e3 for k, t in trainer.timers.items() if t.count}}
-        print(f"[{card}]   kernels launched in the traced window of {graph_launches} replays "
-              f"(torch.profiler, by kernel name): {traced}; through the wrappers in the whole "
-              f"run (the warm-up and the capture): {counted}")
+        print(f"[{card}]   kernels launched in the traced window of {len(replays)} replays "
+              f"(torch.profiler, by kernel name and the replay's correlation id): first "
+              f"{replays[:1]}, last {replays[-1:]}; through the wrappers in the whole run (the "
+              f"warm-up and the capture): {counted}")
         expect_launches("the step's capture", captured.launches, TRAIN_PER_STEP, 1)
-        if not graph_launches:
-            raise AssertionError("the trace of the replays holds no cudaGraphLaunch")
-        expect_launches(f"the traced window of {graph_launches} replays", traced, TRAIN_PER_STEP,
-                        graph_launches)
+        facts["traced"] = expect_traced_replays(replays, TRAIN_PER_STEP)
+        print(f"[{card}]   summed over the traced replays: {facts['traced']}")
         if captured.replays != LEARN_STEPS:
             raise AssertionError(f"{captured.replays} replays for {LEARN_STEPS} steps")
         expect_trained(f"AlexNet after {LEARN_STEPS} steps", trainer.state["params"],
@@ -2181,10 +2298,10 @@ def check_learning(directory: Path, card):
 def check_image_streams(dev, card):
     """Phase 8b, where PIL imports: 16 JPEGs and 4 PNGs of mixed sizes
     through IMAGE_RAW (a JPEG-only list and the mixed one, each reader's
-    backend printed), SLIDING_WINDOW through the extract CLI (where h5py
-    imports; else the same forward on the card over the stream) and TXT
-    through a DataHandler; the card's forward of one batch against the
-    CPU's read of the same files."""
+    backend printed), SLIDING_WINDOW through a forward on the card and the
+    CPU and through the extract CLI (its checkpoint and output written by
+    the port's hdf5.py) and TXT through a DataHandler; the card's forward
+    of one batch against the CPU's read of the same files."""
     try:
         from PIL import Image
     except ImportError:
@@ -2262,33 +2379,27 @@ def check_image_streams(dev, card):
               f"the card against the CPU: max |diff| {diff}")
         if diff > 1e-4 * max(1.0, feats["cpu"].abs().max().item()):
             raise AssertionError("SLIDING_WINDOW features differ between the card and the CPU")
-        if h5py_imports():
-            import h5py
+        from convnet_tpu_torch import checkpoint as ckpt
+        from convnet_tpu_torch import hdf5
+        from convnet_tpu_torch.cli import extract as extract_cli
+        from convnet_tpu_torch.config import model_to_text
 
-            from convnet_tpu_torch import checkpoint as ckpt
-            from convnet_tpu_torch.cli import extract as extract_cli
-            from convnet_tpu_torch.config import model_to_text
-
-            host = {n: {k: v.numpy() for k, v in p.items()} for n, p in params["cpu"].items()}
-            path = ckpt.save(str(tmp), "windows", host, None, step=0)
-            (tmp / "windows.pbtxt").write_text(model_to_text(model))
-            (tmp / "windows_data.pbtxt").write_text(f"""
-                name: "w" batch_size: 4 data_config {{ layer_name: "input"
-                data_type: SLIDING_WINDOW file_pattern: "{tmp / 'jpeg.txt'}" {window} }}""")
-            rc = extract_cli.main([str(tmp / "windows.pbtxt"), str(tmp / "windows_data.pbtxt"),
-                                   "--checkpoint", path, "--output", str(tmp / "f.h5"),
-                                   "--layers", "fc2", "--device", str(dev)])
-            with h5py.File(tmp / "f.h5") as f:
-                got = f["fc2"][:4]
-            err = np.abs(got - feats["cpu"].numpy().reshape(4, -1)).max()
-            print(f"[{card}] extract CLI over SLIDING_WINDOW on the card: rc {rc}, first batch "
-                  f"against the CPU's forward max |diff| {err}")
-            if rc != 0 or err > 1e-4:
-                raise AssertionError("the extract CLI's SLIDING_WINDOW features differ")
-        else:
-            print(f"[{card}] extract CLI over SLIDING_WINDOW: needs h5py (the checkpoint and the "
-                  "output file), which does not import on this machine; the same forward ran on "
-                  "the card above instead")
+        host = {n: {k: v.numpy() for k, v in p.items()} for n, p in params["cpu"].items()}
+        path = ckpt.save(str(tmp), "windows", host, None, step=0)
+        (tmp / "windows.pbtxt").write_text(model_to_text(model))
+        (tmp / "windows_data.pbtxt").write_text(f"""
+            name: "w" batch_size: 4 data_config {{ layer_name: "input"
+            data_type: SLIDING_WINDOW file_pattern: "{tmp / 'jpeg.txt'}" {window} }}""")
+        rc = extract_cli.main([str(tmp / "windows.pbtxt"), str(tmp / "windows_data.pbtxt"),
+                               "--checkpoint", path, "--output", str(tmp / "f.h5"),
+                               "--layers", "fc2", "--device", str(dev)])
+        with hdf5.File(tmp / "f.h5") as f:
+            got, written = f["fc2"][:4], f["fc2"].shape
+        err = np.abs(got - feats["cpu"].numpy().reshape(4, -1)).max()
+        print(f"[{card}] extract CLI over SLIDING_WINDOW on the card: rc {rc}, {written} rows "
+              f"written; first batch against the CPU's forward max |diff| {err}")
+        if rc != 0 or err > 1e-4 or written != (rows, 5):
+            raise AssertionError("the extract CLI's SLIDING_WINDOW features differ")
         data = handler("TXT", tmp / "rows.txt")
         rows = data.get_batch()["input"]
         want = np.loadtxt(tmp / "rows.txt", dtype=np.float32, ndmin=2)[:4]
@@ -2438,32 +2549,43 @@ def launch_times(graph, state, jitter, batches, card, mesh=None,
 
 def trainer_rates(dev, graph, jitter, directory, card):
     """Trainer.train images a second over TRAINER_LAUNCH_STEPS steps at k = 1
-    and k = LAUNCH_K, on DUMMY data and on the learnable raw cache, with the
-    host stages' mean ms (the Trainer's timers). Returns
-    {data: {k: (img/s, timers)}}."""
+    and k = LAUNCH_K, on DUMMY data and the learnable set's raw cache (each
+    with the phase's mean) and on its contiguous HDF5 file (with the
+    per-channel mean file), with the host stages' mean ms (the Trainer's
+    timers) and, at k = 1, the wrappers' launches over the timed steps.
+    Returns ({data: {k: (img/s, timers)}}, {path: launches})."""
     import torch
 
     from convnet_tpu_torch.config import parse_dataset_config
     from convnet_tpu_torch.data.datahandler import DataHandler
     from convnet_tpu_torch.trainer import Trainer
 
-    out = {}
+    out, launches = {}, {}
     for data_name, text in (("DUMMY", dummy_imagenet_text(BATCH, DUMMY_ROWS, True)),
-                            ("RAW_CACHE", raw_cache_data_text(directory, BATCH))):
+                            ("RAW_CACHE", raw_cache_data_text(directory, BATCH)),
+                            ("HDF5", hdf5_data_text(directory / "images.h5",
+                                                    directory / "mean_channel.h5", BATCH, True))):
         out[data_name] = {}
         for k in (1, LAUNCH_K):
             data = DataHandler(parse_dataset_config(text))
-            jit = {"input": (data.jitter_specs()["input"][0], jitter["input"][1], None)}
+            jit = data.jitter_specs()
+            if data_name != "HDF5":
+                jit = {"input": (jit["input"][0], jitter["input"][1], None)}
             trainer = Trainer(graph, data, device=dev, jitter=jit, steps_per_launch=k,
                               log_fn=lambda _: None)
             trainer.train(max_iter=2 * LAUNCH_K)  # warm-up (and the capture)
             torch.cuda.synchronize()
             for t in trainer.timers.values():
                 t.total, t.count = 0.0, 0
+            reset_launches()
             t0 = time.perf_counter()
             trainer.train(max_iter=2 * LAUNCH_K + TRAINER_LAUNCH_STEPS)
             torch.cuda.synchronize()
             ips = TRAINER_LAUNCH_STEPS * BATCH / (time.perf_counter() - t0)
+            if k == 1 and data_name != "DUMMY":
+                launches[f"{data_name.lower()}_trainer_k1"] = read_launches()
+                expect_launches(f"Trainer.train over {data_name}", read_launches(),
+                                TRAIN_PER_STEP, TRAINER_LAUNCH_STEPS)
             timers = {n: t.total * 1e3 / TRAINER_LAUNCH_STEPS for n, t in trainer.timers.items()
                       if t.count}
             data.close()
@@ -2474,7 +2596,271 @@ def trainer_rates(dev, graph, jitter, directory, card):
                   + ", ".join(f"{n} {v:.4f}" for n, v in timers.items()))
             del trainer
             torch.cuda.empty_cache()
-    return out
+    return out, launches
+
+
+# phase 8e: checkpoints every HDF5_CKPT_AFTER steps of a first CLI run of
+# HDF5_STEPS steps (step 10's and the CLI's save at its end: two files),
+# then a second run on the same directory to HDF5_RESUME_STEPS
+HDF5_CKPT_AFTER, HDF5_STEPS, HDF5_RESUME_STEPS = 10, 15, 20
+# a train step over a full-pixel mean file: the jitter takes the plain path
+# (the prologue kernel takes a per-channel affine only, as the JAX
+# package's does: convnet_tpu/trainer.py:104), the rest runs the kernels
+PIXEL_MEAN_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "step_draws": 1}
+
+
+# phase 8f: AlexNet over the learnable set normalized by compute_mean's
+# per-channel mean and std, at these factors of the pbtxt's eps (and over
+# the set scaled by 1/255 at the pbtxt's eps), NORM_STEPS steps of the
+# kernel path and of the plain-composed one on the same batches; at
+# NORM_LEARN the kernel path must learn the normalized set (phase 8a's bars)
+NORM_STEPS, NORM_EPS, NORM_LEARN = 400, (1.0, 0.5, 0.25), 0.25
+
+
+def check_normalize(dev, directory: Path, card, steps=NORM_STEPS):
+    """Phase 8f. Full-width AlexNet (bf16, batch 128) from the seed-0
+    initial state over the learnable set's contiguous HDF5 file with
+    compute_mean's per-channel mean and std (normalize: the prologue kernel
+    takes the file's affine), random crops and flips. (a) PARITY_STEPS steps
+    of the port's step against the plain-composed one (check_train_parity,
+    with the std). (b) For the normalized set at each factor of NORM_EPS,
+    and the set scaled by 1/255 (phase 8a's) at the pbtxt's eps, up to
+    `steps` steps of the port's eager step (the kernels) and of
+    plain_train_step (no kernel of the port) side by side on the same
+    batches from the same state: the loss every LEARN_LOG steps, the
+    least, and the first step whose loss is not finite, for each path. A
+    kernel fault shows as one path diverging alone; unstable dynamics as
+    both. The kernel path's launches are counted; at eps x NORM_LEARN it
+    must stay finite and meet phase 8a's bars (its last logged loss below
+    LEARN_LOSS, its last window's train error below LEARN_ERR). Returns
+    ({label: facts}, the NORM_LEARN run's launches)."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import device_batch, init_state, make_train_step
+
+    normalized = hdf5_data_text(directory / "images.h5", directory / "mean_channel.h5", BATCH,
+                                True, False)
+    runs = [(f"normalize eps x{f}", normalized, f) for f in NORM_EPS]
+    runs.append(("scale 1/255 eps x1", raw_cache_data_text(directory, BATCH, False), 1.0))
+
+    def setup(text, factor):
+        data = DataHandler(parse_dataset_config(text))
+        spec, mean, std = data.jitter_specs()["input"]
+
+        def on_card(v):
+            return None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+        model = read_model(str(ALEXNET))
+        for e in model.edge:
+            for opt in (e.weight_optimizer, e.bias_optimizer):
+                opt.base_epsilon *= factor
+        return data, build_graph(model), {"input": (spec, mean, std)}, on_card(mean), on_card(std)
+
+    data, graph, jitter, mean_t, std_t = setup(normalized, 1.0)
+    spec = jitter["input"][0]
+    print(f"[{card}] phase 8f: per-channel mean {jitter['input'][1]}, std {jitter['input'][2]}")
+    state = init_state(graph, seed=0, device=dev)
+    batches = [device_batch(data.get_batch(), dev) for _ in range(PARITY_STEPS)]
+    data.close()
+    check_train_parity(graph, state, jitter, batches, spec, mean_t, card, std_t=std_t)
+    del state, batches
+
+    facts, learn_launches = {}, None
+    for label, text, factor in runs:
+        data, graph, jitter, mean_t, std_t = setup(text, factor)
+        spec = jitter["input"][0]
+        step = make_train_step(graph, jitter)
+        port = init_state(graph, seed=0, device=dev)
+        plain = clone_state(port)
+        paths = {
+            "kernels": lambda b: step(port, b),
+            "plain": lambda b: {"loss": plain_train_step(graph, plain, b, spec, mean_t, False,
+                                                         std_t)},
+        }
+        losses = {name: [] for name in paths}
+        errors = []
+        first_bad = {name: None for name in paths}
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            b = device_batch(data.get_batch(), dev)
+            for name, fn in paths.items():
+                if first_bad[name] is not None:
+                    continue
+                m = fn(b)
+                loss = float(m["loss"].item())
+                losses[name].append(loss)
+                if name == "kernels":
+                    errors.append(sum(float(v.item()) for k, v in m.items()
+                                      if k.endswith("/errors")) / BATCH)
+                if not np.isfinite(loss):
+                    first_bad[name] = t + 1
+            if all(v is not None for v in first_bad.values()):
+                break
+        torch.cuda.synchronize()
+        data.close()
+        run_s = time.perf_counter() - t0
+        counted = read_launches()
+        expect_launches(f"phase 8f {label}'s kernel path", counted, TRAIN_PER_STEP,
+                        len(losses["kernels"]))
+        f = {"eps_factor": factor, "seconds": run_s, "first_nonfinite_step": first_bad,
+             "launches": counted}
+        for name, ls in losses.items():
+            finite = [v for v in ls if np.isfinite(v)]
+            f[name] = {"steps": len(ls), "least_loss": min(finite) if finite else None,
+                       "least_at": (int(np.argmin(finite)) + 1) if finite else None,
+                       "log": [(i + 1, ls[i]) for i in range(LEARN_LOG - 1, len(ls), LEARN_LOG)]}
+        windows = [float(np.mean(errors[i:i + LEARN_LOG])) for i in range(0, len(errors), LEARN_LOG)]
+        f["kernels"]["train_err_by_window"] = windows
+        facts[label] = f
+        print(f"[{card}] phase 8f {label}: {run_s:.3f} s; first non-finite loss at step "
+              f"{first_bad}; least loss kernels {f['kernels']['least_loss']} at step "
+              f"{f['kernels']['least_at']}, plain {f['plain']['least_loss']} at step "
+              f"{f['plain']['least_at']}")
+        print(f"[{card}]   (step, loss) every {LEARN_LOG}: kernels {f['kernels']['log']}; "
+              f"plain {f['plain']['log']}; kernel path's train error by window {windows}")
+        del port, plain, paths, step
+        torch.cuda.empty_cache()
+        if factor == NORM_LEARN and text == normalized:
+            learn_launches = counted
+            last_loss = f["kernels"]["log"][-1][1] if f["kernels"]["log"] else float("nan")
+            if first_bad["kernels"] is not None or not (last_loss < LEARN_LOSS
+                                                        and windows[-1] < LEARN_ERR):
+                raise AssertionError(f"phase 8f: the normalized set at eps x{factor} did not "
+                                     f"train on the kernel path: last loss {last_loss}, last "
+                                     f"window's error {windows[-1]}, first non-finite step "
+                                     f"{first_bad['kernels']}")
+            print(f"[{card}] phase 8f: AlexNet learned the normalized set at eps x{factor} on "
+                  f"the kernel path: last logged loss {last_loss} < {LEARN_LOSS}, last window's "
+                  f"train error {windows[-1]} < {LEARN_ERR}")
+    return facts, learn_launches
+
+
+def check_hdf5_path(dev, directory: Path, card):
+    """Phase 8e: full-width AlexNet (bf16, batch 128) through the train CLI
+    over the contiguous HDF5 file with the full-pixel mean file, random
+    crops and flips: HDF5_STEPS steps writing two checkpoints, then a second
+    CLI run on the same directory that must resume at the newest one's step
+    with params array-equal to it; then fc7 through the extract CLI from the
+    newest checkpoint over the chunked HDF5 file (centre crops), written by
+    the port's DataWriter and read back with hdf5.py: one finite row per
+    input row, within phase 3's bar (1e-2 of the largest |value|) of a
+    Predictor's fc7 of the same rows from the same checkpoint. Returns the
+    phase's facts and {path: launches}."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch import checkpoint as ckpt
+    from convnet_tpu_torch import hdf5
+    from convnet_tpu_torch.cli import extract as extract_cli
+    from convnet_tpu_torch.cli import train as train_cli
+    from convnet_tpu_torch.config import model_to_text, parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.model import param_shapes, params_from_numpy
+    from convnet_tpu_torch.predictor import Predictor
+
+    model = read_model(str(ALEXNET))
+    model.display_after, model.checkpoint_after, model.validate_after = 5, HDF5_CKPT_AFTER, 0
+    model_path = directory / "hdf5_alexnet.pbtxt"
+    model_path.write_text(model_to_text(model))
+    train_text = hdf5_data_text(directory / "images.h5", directory / "mean_pixel.h5", BATCH, True)
+    val_text = hdf5_data_text(directory / "images_chunked.h5", directory / "mean_pixel.h5",
+                              BATCH, False)
+    (directory / "hdf5_train.pbtxt").write_text(train_text)
+    (directory / "hdf5_val.pbtxt").write_text(val_text)
+    out = directory / "hdf5_run"
+    launches, runs = {}, []
+    for run, steps in ((1, HDF5_STEPS), (2, HDF5_RESUME_STEPS)):
+        reset_launches()
+        t0 = time.perf_counter()
+        with _CapturingTrainer(train_cli) as cap:
+            rc = train_cli.main([str(model_path), str(directory / "hdf5_train.pbtxt"),
+                                 "--output-dir", str(out), "--max-iter", str(steps)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[f"hdf5_train_cli_run{run}"] = read_launches()
+        trainer = cap.made[0]
+        start = HDF5_STEPS if run == 2 else 0
+        if rc != 0 or trainer.state["step"] != steps:
+            raise AssertionError(f"HDF5 CLI run {run}: rc {rc} at step {trainer.state['step']}")
+        expect_launches(f"HDF5 CLI run {run}", launches[f"hdf5_train_cli_run{run}"],
+                        PIXEL_MEAN_STEP, steps - start)
+        ckpts = sorted(out.glob("alexnet_*.h5"))
+        runs.append({"seconds": run_s, "checkpoints": [p.name for p in ckpts]})
+        if run == 1:
+            if len(ckpts) != 2:
+                raise AssertionError(f"HDF5 CLI run 1 wrote checkpoints {ckpts}")
+            saved = []
+            for p in ckpts:
+                with hdf5.File(p) as f:
+                    saved.append(int(f.attrs["step"]))
+            if saved != [HDF5_CKPT_AFTER, HDF5_STEPS]:
+                raise AssertionError(f"HDF5 CLI run 1's checkpoints hold steps {saved}")
+            newest = ckpts[-1]
+            params, _, step = ckpt.load(str(newest), expected_shapes=param_shapes(trainer.graph))
+            want = params_from_numpy(params, dev)
+            expect_trained(f"AlexNet after {steps} HDF5 steps", trainer.state["params"],
+                           trainer.p_init, card)
+        else:
+            # p_init: the Trainer's params right after it resumed
+            same = all(torch.equal(trainer.p_init[e][k], want[e][k]) for e in want for k in want[e])
+            log = (out / "alexnet_train_log.txt").read_text()
+            said = re.findall(r"^resumed from (\S+) at step (\d+)", log, re.M)
+            print(f"[{card}] phase 8e run 2 resumed: {said}; params array-equal to "
+                  f"{newest.name}: {same}")
+            if not same or said != [(str(newest), str(HDF5_STEPS))]:
+                raise AssertionError("the second HDF5 CLI run did not resume from the newest "
+                                     "checkpoint")
+            losses = [float(v) for v in re.findall(r"^step \d+ loss (\S+)", log, re.M)]
+            if len(losses) != HDF5_RESUME_STEPS // 5 or not np.isfinite(losses).all():
+                raise AssertionError(f"the HDF5 runs' logged losses {losses}")
+        print(f"[{card}] phase 8e: AlexNet through the train CLI over HDF5 (contiguous, "
+              f"full-pixel mean file), run {run} to step {steps}: rc {rc}, {run_s:.3f} s; "
+              f"launches {launches[f'hdf5_train_cli_run{run}']}; checkpoints {runs[-1]['checkpoints']}")
+        del trainer, cap
+        torch.cuda.empty_cache()
+    newest = sorted(out.glob("alexnet_*.h5"))[-1]
+    feats = directory / "fc7.h5"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = extract_cli.main([str(model_path), str(directory / "hdf5_val.pbtxt"), "--checkpoint",
+                           str(newest), "--output", str(feats), "--layers", "fc7"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches["hdf5_extract"] = read_launches()
+    batches = -(-LEARN_ROWS // BATCH)
+    expect_launches("the HDF5 extract", launches["hdf5_extract"], {"lrn_fwd": 2}, batches)
+    with hdf5.File(feats) as f:
+        fc7 = f["fc7"][...]
+        chunks = f["fc7"]._layout.chunk
+    if rc != 0 or fc7.shape != (LEARN_ROWS, 4096) or not np.isfinite(fc7).all():
+        raise AssertionError(f"the HDF5 extract gave rc {rc}, fc7 {fc7.shape}")
+    data = DataHandler(parse_dataset_config(val_text), randomize=False)
+    graph = build_graph(model, data.input_image_sizes())
+    pred = Predictor.from_checkpoint(graph, str(newest), layers=["fc7"], batch_size=BATCH,
+                                     jitter=data.jitter_specs(), raw_size=RAW,
+                                     input_dtype=np.uint8, device=dev)
+    want_fc7 = np.concatenate([pred({"input": b["input"]})["fc7"].reshape(BATCH, -1)[:valid]
+                               for b, valid in data.iter_epoch()])
+    data.close()
+    tol = 1e-2 * np.abs(want_fc7).max()
+    err = float(np.abs(fc7 - want_fc7).max())
+    print(f"[{card}] phase 8e: extract CLI, fc7 from {newest.name} over the chunked HDF5 file: "
+          f"rc {rc}, {fc7.shape} rows (chunks {chunks}), {extract_s:.3f} s wall clock "
+          f"(checkpoint load included): {LEARN_ROWS / extract_s:.1f} rows/s; against a "
+          f"Predictor's fc7 of the same rows max |diff| {err} (bar {tol}); launches "
+          f"{launches['hdf5_extract']}")
+    if err > tol:
+        raise AssertionError("the extract CLI's fc7 differs from the Predictor's")
+    return {"runs": runs, "extract_s": extract_s, "extract_rows_per_s": LEARN_ROWS / extract_s,
+            "extract_vs_predictor_max_abs": err, "bar": tol}, launches
 
 
 def check_remat(dev, state, jitter, batch, card):
@@ -2960,8 +3346,9 @@ def cli_rank(rank, world, init, results, argv, port):
 def check_cli_ranks(card):
     """Phase 9c: the train CLI in a world of 2 ranks over gloo on this card
     (alexnet_2tower's 4x2 clamped to 1x2), a few steps over DUMMY data from
-    a temp copy of the model that logs every 2 steps (checkpoints where h5py
-    imports): rank 0's log alone, with finite losses."""
+    a temp copy of the model that logs every 2 steps and checkpoints every
+    4: rank 0's log alone, with finite losses, and rank 0's two checkpoints
+    (step 4's, and the CLI's save at its end)."""
     import math
     import socket
     import tempfile
@@ -2972,7 +3359,7 @@ def check_cli_ranks(card):
         tmp = Path(tmp)
         model = read_model(str(TOWERS))
         model.display_after = 2
-        model.checkpoint_after = 4 if h5py_imports() else 0
+        model.checkpoint_after = 4
         (tmp / "towers.pbtxt").write_text(model_to_text(model))
         (tmp / "data.pbtxt").write_text(dummy_imagenet_text(BATCH, DUMMY_ROWS, True))
         with socket.socket() as sock:
@@ -2985,10 +3372,10 @@ def check_cli_ranks(card):
         ckpts = sorted(p.name for p in (tmp / "out").glob("*.h5"))
     losses = [float(l.split()[3]) for l in log if l.startswith("step ")]
     print(f"[{card}] phase 9c: the train CLI on 2 ranks over gloo on this card: exit codes {rcs}; "
-          f"rank 0's log {log}; checkpoints {ckpts if h5py_imports() else 'not written: h5py does not import on this machine'}")
+          f"rank 0's log {log}; checkpoints {ckpts}")
     if rcs != [0, 0] or len(losses) != 2 or not all(math.isfinite(x) for x in losses):
         raise AssertionError("the train CLI on 2 ranks did not train")
-    if h5py_imports() and len(ckpts) != 2:
+    if len(ckpts) != 2:
         raise AssertionError(f"the train CLI on 2 ranks wrote checkpoints {ckpts}")
     return {"exit_codes": rcs, "logged_losses": losses, "checkpoints": ckpts}
 
@@ -3165,7 +3552,7 @@ def main(argv=None) -> int:
                            card, fused=True)
 
     # -- 5b. checkpoints (host I/O: no kernel of its own) ----------------------
-    check_checkpoints(dev, graph, trainer.state, card)
+    checkpoint_facts = check_checkpoints(dev, graph, trainer.state, card)
 
     # -- 6. timing -----------------------------------------------------------
     torch.cuda.synchronize()
@@ -3215,10 +3602,16 @@ def main(argv=None) -> int:
         check_image_streams(dev, card)
         launch = check_steps_per_launch(dev, graph, state0, train_jitter, batches8, card)
         launch["step_ms"] = launch_times(graph, state0, train_jitter, batches8, card)
-        launch["trainer_img_s"] = trainer_rates(dev, graph, train_jitter, tmp8, card)
+        launch["trainer_img_s"], rate_launches = trainer_rates(dev, graph, train_jitter, tmp8,
+                                                               card)
+        hdf5_facts, hdf5_launches = check_hdf5_path(dev, tmp8, card)
+        normalize, normalize_launches = check_normalize(dev, tmp8, card)
     remat = check_remat(dev, state0, train_jitter, batches8[0], card)
-    print(json.dumps({"phase8": {"raw_cache_ms": cache_ms, "learning": learned,
-                                 "steps_per_launch": launch, "remat": remat}}, default=str))
+    print(json.dumps({"phase8": {"read_ms": cache_ms, "learning": learned,
+                                 "steps_per_launch": launch, "remat": remat,
+                                 "hdf5": hdf5_facts, "normalize": normalize,
+                                 "checkpoint_5b": checkpoint_facts}},
+                     default=str))
 
     # -- 9. the mesh path: ranks sharing the card, and a 1x1 mesh over nccl -----
     mesh_ranks = check_mesh_ranks(dev, card)
@@ -3237,7 +3630,13 @@ def main(argv=None) -> int:
              # the wrappers do not run when the graph replays), and on the
              # card in the traced window of replays (torch.profiler)
              "raw_cache_k4_wrappers": learned["wrapper_counts"],
-             "raw_cache_k4_traced_replays": learned["traced"]}
+             "raw_cache_k4_traced_replays": learned["traced"],
+             # phase 8c's Trainer at k = 1 over the raw cache and over HDF5
+             # (a per-channel mean file); phase 8e's CLI runs over HDF5 with a
+             # full-pixel mean file (the prologue takes the plain path) and
+             # its extract; phase 8f's eager steps over the per-channel mean
+             # and std at eps x NORM_LEARN
+             **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches}
     # phase 9a: each rank's launches over its MESH_STEPS steps (every rank's
     # the same, checked)
     for name, facts in mesh_ranks["meshes"].items():

@@ -9,8 +9,8 @@ group per weighted edge ("source:dest") holding float32 datasets "w", "b",
 (aliased dataset names, flat datasets, transposed or flattened weights).
 
 These functions take and return numpy arrays; the callers move tensors.
-h5py is imported inside the functions that open a file, never when this
-module is imported: the package imports and runs on machines without it.
+Files are read and written by the port's own HDF5 module
+(`convnet_tpu_torch/hdf5.py`), so no h5py is needed.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from convnet_tpu_torch import hdf5
 
 
 def _timestamp() -> str:
@@ -40,8 +42,6 @@ def save(
 ) -> str:
     """Write a timestamped checkpoint of {edge: {"w", "b"}} arrays (and the
     momenta, when given); returns the file path."""
-    import h5py
-
     os.makedirs(directory, exist_ok=True)
     ts = timestamp or _timestamp()
     path = checkpoint_path(directory, model_name, ts)
@@ -51,7 +51,7 @@ def save(
     while timestamp is None and os.path.exists(path):
         i += 1
         path = checkpoint_path(directory, model_name, f"{ts}_{i}")
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.attrs["step"] = int(step)
         f.attrs["model_name"] = model_name
         f.attrs["timestamp"] = ts
@@ -125,8 +125,6 @@ def load(
     With `expected_shapes` ({edge: {"w": shape, "b": shape}}, from
     model.param_shapes) transposed or flattened weights take the model's
     layout, and a missing bias loads as zeros of its expected shape."""
-    import h5py
-
     params: Dict = {}
     moms: Dict = {}
     have_moms = False
@@ -137,12 +135,12 @@ def load(
             return tuple(np.shape(v)) if not isinstance(v, tuple) else v
         return None
 
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         step = int(f.attrs.get("step", 0))
         flat_w: Dict[str, np.ndarray] = {}
         flat_other: Dict[str, np.ndarray] = {}
         for name, item in f.items():
-            if isinstance(item, h5py.Group):
+            if isinstance(item, hdf5.Group):
                 w = _pick(item, _W_NAMES)
                 if w is None:
                     raise ValueError(
@@ -184,13 +182,11 @@ def load(
 def load_edge(path: str, edge_name: str, expected_shape=None) -> Dict:
     """One edge's {"w", "b"} (PRETRAINED initialization), from any layout
     load() accepts."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         if edge_name not in f:
             raise KeyError(f"edge {edge_name!r} not in checkpoint {path}")
         item = f[edge_name]
-        if isinstance(item, h5py.Group):
+        if isinstance(item, hdf5.Group):
             w = _pick(item, _W_NAMES)
             b = _pick(item, _B_NAMES)
         else:

@@ -4,10 +4,10 @@ prefetch thread (counterpart of `convnet_tpu/data/datahandler.py`).
 The JAX module cannot be imported without JAX (it imports
 `convnet_tpu.data.jitter`), so the port has its own, with all six stream
 types: DUMMY, with the same seeded draws, so that its batches are
-array-equal to the JAX handler's; HDF5, with h5py imported only when such
-a stream is opened (the card's machine has no h5py); RAW_CACHE, gathered
-by the port's g++-built C++ core (`data/native.py`), the stored-data path
-that needs neither h5py nor PIL; and IMAGE_RAW, SLIDING_WINDOW and TXT
+array-equal to the JAX handler's; HDF5, read (as the mean files are) by
+the port's own HDF5 module (`convnet_tpu_torch/hdf5.py`, no h5py);
+RAW_CACHE, gathered by the port's g++-built C++ core
+(`data/native.py`); and IMAGE_RAW, SLIDING_WINDOW and TXT
 (`data/image_iterators.py`). A stream whose reader can take one of two
 backends names it in `backend`. All streams advance in lockstep over one
 shared index sequence, so image and label rows stay aligned.
@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from convnet_tpu_torch import hdf5
 from convnet_tpu_torch import proto as pb
 from convnet_tpu_torch.data.jitter import JitterSpec
 
@@ -30,9 +31,7 @@ DT = pb.DataStreamConfig.DataType
 
 
 def _load_mean_std(path: str):
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         mean = f["mean"][...] if "mean" in f else None
         std = f["std"][...] if "std" in f else None
     return mean, std
@@ -71,15 +70,14 @@ class Stream(abc.ABC):
 
 
 class HDF5Stream(Stream):
-    """Rows of an HDF5 dataset."""
+    """Rows of an HDF5 dataset: a contiguous one through a memory map of
+    the file, a chunked one chunk by chunk (`hdf5.py`)."""
 
     def __init__(self, cfg: pb.DataStreamConfig):
         super().__init__(cfg)
-        import h5py
-
         if not cfg.file_pattern:
             raise ValueError(f"stream {cfg.layer_name}: HDF5 needs file_pattern")
-        self._file = h5py.File(cfg.file_pattern, "r")
+        self._file = hdf5.File(cfg.file_pattern, "r")
         key = cfg.dataset_name or cfg.layer_name
         if key not in self._file:
             raise KeyError(
@@ -92,10 +90,7 @@ class HDF5Stream(Stream):
         return self._ds.shape[0]
 
     def read_rows(self, indices: np.ndarray) -> np.ndarray:
-        # h5py fancy indexing wants strictly increasing, duplicate-free
-        # selections; padded partial batches repeat the last index
-        uniq, inv = np.unique(indices, return_inverse=True)
-        return self._maybe_reshape_images(self._ds[uniq][inv])
+        return self._maybe_reshape_images(self._ds[indices])
 
     def close(self):
         if self._file is not None:

@@ -1,10 +1,10 @@
 """Streaming HDF5 activation writer (counterpart of
 `convnet_tpu/data/datawriter.py`): the extract CLI appends the chosen
 layers' activations batch by batch, one f32 dataset of (rows, dims) per
-layer, chunked and resized as it grows, as the JAX package writes them.
-
-h5py is imported when a file is opened, never when this module is
-imported: the package imports and runs on machines without it.
+layer, chunked and resizable, with the JAX writer's chunk shape. The port's
+own HDF5 module (`convnet_tpu_torch/hdf5.py`) writes it: each chunk goes to
+the file when its rows are in, so at most one chunk a layer is held, and
+the chunk indexes are written at close.
 """
 
 from __future__ import annotations
@@ -13,34 +13,23 @@ from typing import Dict
 
 import numpy as np
 
+from convnet_tpu_torch import hdf5
+
 
 class DataWriter:
-    """Appends (batch, dims) rows per named dataset, resizing as it goes."""
+    """Appends (batch, dims) rows per named dataset."""
 
     def __init__(self, path: str, layer_dims: Dict[str, int]):
-        import h5py
-
-        self._file = h5py.File(path, "w")
-        self._dsets = {}
-        self._rows = {}
-        for name, dims in layer_dims.items():
-            self._dsets[name] = self._file.create_dataset(
-                name,
-                shape=(0, dims),
-                maxshape=(None, dims),
-                chunks=(max(1, 4096 // max(1, dims // 256)), dims),
-                dtype=np.float32,
-            )
-            self._rows[name] = 0
+        self._file = hdf5.File(path, "w")
+        self._dsets = {
+            name: self._file.create_appendable(
+                name, (dims,), np.float32, chunk_rows=max(1, 4096 // max(1, dims // 256)))
+            for name, dims in layer_dims.items()
+        }
 
     def append(self, batches: Dict[str, np.ndarray]):
         for name, arr in batches.items():
-            arr = np.asarray(arr, np.float32).reshape(arr.shape[0], -1)
-            ds = self._dsets[name]
-            n = self._rows[name]
-            ds.resize(n + arr.shape[0], axis=0)
-            ds[n : n + arr.shape[0]] = arr
-            self._rows[name] = n + arr.shape[0]
+            self._dsets[name].append(np.asarray(arr, np.float32).reshape(arr.shape[0], -1))
 
     def close(self):
         self._file.close()

@@ -199,15 +199,18 @@ def raw_cache_gather_reference(path: str, indices: np.ndarray) -> np.ndarray:
     return out.view(dtype).reshape((len(out),) + shape)
 
 
-def write_raw_cache(path: str, array: np.ndarray) -> None:
-    """Write an (N, ...) array as a raw cache and its JSON sidecar (the
-    JAX package's format: either package reads what the other writes)."""
-    array = np.ascontiguousarray(array)
-    row_bytes = array.dtype.itemsize * int(np.prod(array.shape[1:]))
+def write_raw_cache(path: str, rows, chunk_rows: int = 4096) -> None:
+    """Write (N, ...) rows as a raw cache and its JSON sidecar (the JAX
+    package's format: either package reads what the other writes). `rows`
+    is an array or anything with `shape`, `dtype` and first-axis slices,
+    such as an `hdf5.Dataset`; it is read `chunk_rows` rows at a time."""
+    row_shape = tuple(rows.shape[1:])
+    dtype = np.dtype(rows.dtype)
     with open(path, "wb") as f:
         f.write(b"CNTC")
         f.write(struct.pack("<I", 1))
-        f.write(struct.pack("<Q", row_bytes))
-        array.tofile(f)
+        f.write(struct.pack("<Q", dtype.itemsize * int(np.prod(row_shape))))
+        for s in range(0, rows.shape[0], chunk_rows):
+            np.ascontiguousarray(rows[s : s + chunk_rows]).tofile(f)
     with open(path + ".json", "w") as f:
-        json.dump({"dtype": array.dtype.name, "shape": list(array.shape[1:])}, f)
+        json.dump({"dtype": dtype.name, "shape": list(row_shape)}, f)

@@ -1,6 +1,29 @@
-"""Ops of the port: NHWC tensors in and out, as in `convnet_tpu.ops`."""
+"""Ops of the port: NHWC tensors in and out, as in `convnet_tpu.ops`.
+
+Importing this package first calls the CPU's vector math functions once
+on one thread (`warm_cpu_math`). In some PyTorch builds (seen in
+2.13.0+cpu with MKL 2024.2) the first `torch.sqrt` of a process, when it
+is large enough to be split over OpenMP threads (2048 elements a thread),
+now and then returns some threads' chunks with about 11 good bits (3e-4
+relative); every later call is exact. The plain versions of the kernels
+(the LRN chain among them) take sqrt, exp, log and tanh from that library,
+and every module that computes with them imports this package first.
+"""
 
 from typing import Dict
+
+import torch
+
+
+def warm_cpu_math() -> None:
+    """First use of sqrt, exp, log and tanh on the CPU on one thread: a
+    tensor far below the size at which a unary op is split over threads."""
+    one = torch.ones(8, dtype=torch.float32)
+    for fn in (torch.sqrt, torch.exp, torch.log, torch.tanh):
+        fn(one)
+
+
+warm_cpu_math()
 
 
 def launch_counts() -> Dict[str, int]:

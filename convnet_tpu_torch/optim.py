@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from convnet_tpu_torch import ops  # noqa: F401  (its import warms the CPU's vector math)
 from convnet_tpu_torch.graph import DECAY, Graph, OptimSpec
 
 Params = Dict[str, Dict[str, torch.Tensor]]

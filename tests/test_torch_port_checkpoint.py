@@ -382,17 +382,25 @@ def test_released_digits_checkpoint_classifies_through_the_port():
     np.testing.assert_array_equal(got, want)
 
 
-def test_checkpoint_module_imports_without_h5py():
-    """h5py is imported only when a file is opened: without it the port's
-    checkpoint module and its entry points still import."""
+def test_checkpoint_module_imports_without_h5py(tmp_path):
+    """The port reads and writes HDF5 itself (convnet_tpu_torch/hdf5.py):
+    with h5py blocked, the checkpoint module and its entry points import,
+    and a checkpoint saves and loads array-equal."""
     code = (
         "import sys\n"
         "sys.modules['h5py'] = None\n"
-        "import convnet_tpu_torch.checkpoint, convnet_tpu_torch.trainer\n"
+        "import numpy as np\n"
+        "import convnet_tpu_torch.checkpoint as c, convnet_tpu_torch.trainer\n"
         "import convnet_tpu_torch.predictor, convnet_tpu_torch.model\n"
+        "p = {'input:fc': {'w': np.arange(6, dtype=np.float32).reshape(2, 3),\n"
+        "                  'b': np.ones(3, np.float32)}}\n"
+        f"path = c.save({str(tmp_path)!r}, 'm', p, p, step=3)\n"
+        "got, moms, step = c.load(path)\n"
+        "assert step == 3 and np.array_equal(got['input:fc']['w'], p['input:fc']['w'])\n"
+        "assert np.array_equal(moms['input:fc']['b'], p['input:fc']['b'])\n"
         "try:\n"
-        "    convnet_tpu_torch.checkpoint.load('x.h5')\n"
-        "except ImportError:\n"
+        "    c.load('x.h5')\n"
+        "except FileNotFoundError:\n"
         "    print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

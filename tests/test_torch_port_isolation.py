@@ -1,6 +1,7 @@
 """The port stands alone: no module of convnet_tpu_torch, and not
-chip_smoke.py, imports the JAX package `convnet_tpu` or JAX, and the two
-packages' protobuf schemas load side by side in one process."""
+chip_smoke.py, imports the JAX package `convnet_tpu`, JAX or h5py (the
+port reads and writes HDF5 itself), its HDF5 paths run with h5py blocked,
+and the two packages' protobuf schemas load side by side in one process."""
 
 import ast
 import os
@@ -34,23 +35,34 @@ def test_no_import_of_the_jax_package(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_h5py(path):
+    """The port's HDF5 goes through convnet_tpu_torch/hdf5.py, even where
+    h5py is installed."""
+    bad = [m for m in _imported_modules(path) if m == "h5py" or m.startswith("h5py.")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+    assert "import h5py" not in path.read_text()
+
+
 def test_walk_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for want in ("convnet_tpu_torch/config.py", "convnet_tpu_torch/graph.py",
                  "convnet_tpu_torch/proto/__init__.py", "convnet_tpu_torch/ops/fused_pool_lrn.py",
                  "convnet_tpu_torch/cli/grad_check.py", "convnet_tpu_torch/models/zoo.py",
                  "convnet_tpu_torch/data/native.py", "convnet_tpu_torch/data/image_iterators.py",
-                 "convnet_tpu_torch/utils/timers.py", "chip_smoke.py"):
+                 "convnet_tpu_torch/utils/timers.py", "convnet_tpu_torch/hdf5.py",
+                 "convnet_tpu_torch/tools/make_raw_cache.py",
+                 "convnet_tpu_torch/tools/compute_mean.py",
+                 "convnet_tpu_torch/tools/make_hdf5_dataset.py",
+                 "convnet_tpu_torch/tools/dump_activations.py", "chip_smoke.py"):
         assert want in names
     assert _forbidden("convnet_tpu.graph") and _forbidden("jax.numpy")
     assert not _forbidden("convnet_tpu_torch.graph")
 
 
 def test_entry_points_load_no_jax_and_no_jax_package():
-    """The entry points, the CLIs and the zoo import neither JAX nor the
-    JAX package, and none imports h5py when it is imported (the card's
-    machine has none: checkpoints and the extract CLI's writer import it
-    when they open a file)."""
+    """The entry points, the CLIs, the tools and the zoo import neither JAX
+    nor the JAX package, nor h5py, nor PIL."""
     code = (
         "import sys\n"
         "import convnet_tpu_torch.trainer, convnet_tpu_torch.predictor\n"
@@ -58,7 +70,10 @@ def test_entry_points_load_no_jax_and_no_jax_package():
         "import convnet_tpu_torch.cli.train, convnet_tpu_torch.cli.extract\n"
         "import convnet_tpu_torch.cli.grad_check, convnet_tpu_torch.models.zoo\n"
         "import convnet_tpu_torch.data.native, convnet_tpu_torch.data.image_iterators\n"
-        "import convnet_tpu_torch.utils.timers\n"
+        "import convnet_tpu_torch.utils.timers, convnet_tpu_torch.hdf5\n"
+        "import convnet_tpu_torch.tools.make_raw_cache, convnet_tpu_torch.tools.compute_mean\n"
+        "import convnet_tpu_torch.tools.make_hdf5_dataset\n"
+        "import convnet_tpu_torch.tools.dump_activations\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.')\n"
         "             or m == 'h5py' or m.startswith('h5py.')\n"
@@ -70,6 +85,74 @@ def test_entry_points_load_no_jax_and_no_jax_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+# With h5py blocked: a checkpoint saved and loaded, an HDF5 stream (its
+# data written chunked by the port's writer) read with a mean file from
+# the port's compute_mean tool, and the extract CLI on the CPU.
+_NO_H5PY = '''
+import sys
+sys.modules["h5py"] = None
+import numpy as np
+from convnet_tpu_torch import checkpoint, config, hdf5
+from convnet_tpu_torch import model as model_lib
+from convnet_tpu_torch.cli import extract
+from convnet_tpu_torch.data.datahandler import DataHandler
+from convnet_tpu_torch.graph import build_graph
+from convnet_tpu_torch.tools import compute_mean
+
+d = sys.argv[1]
+net = """
+name: "n"
+layer { name: "input" is_input: true num_channels: 3 image_size: 6 }
+layer { name: "fc1" num_channels: 4 activation: TANH }
+layer { name: "output" is_output: true num_channels: 3 activation: SOFTMAX data_field: "labels" }
+edge { source: "input" dest: "fc1" edge_type: FC initialization: DENSE_GAUSSIAN init_wt: 0.1 }
+edge { source: "fc1" dest: "output" edge_type: FC initialization: DENSE_GAUSSIAN init_wt: 0.1 }
+"""
+open(f"{d}/n.pbtxt", "w").write(net)
+g = build_graph(config.parse_model(net))
+params = {k: {n: t.numpy() for n, t in p.items()} for k, p in model_lib.init_params(g).items()}
+path = checkpoint.save(d, "n", params, params, step=5)
+got, moms, step = checkpoint.load(path)
+assert step == 5 and all(np.array_equal(got[k]["w"], params[k]["w"]) for k in params)
+assert all(np.array_equal(moms[k]["b"], params[k]["b"]) for k in params)
+
+rng = np.random.default_rng(0)
+images = rng.integers(0, 256, (21, 8, 8, 3), dtype=np.uint8)
+with hdf5.File(f"{d}/data.h5", "w") as f:
+    f.create_appendable("data", (8, 8, 3), np.uint8, chunk_rows=4).append(images)
+    f.create_dataset("labels", data=np.arange(21, dtype=np.int32) % 3)
+assert compute_mean.main([f"{d}/data.h5", f"{d}/mean.h5"]) == 0
+open(f"{d}/data.pbtxt", "w").write(f"""
+name: "h" batch_size: 8 randomize_cpu: false pipeline_loads: false
+data_config {{ layer_name: "input" data_type: HDF5 file_pattern: "{d}/data.h5"
+              dataset_name: "data" image_size: 6 raw_image_size: 8 num_colors: 3
+              mean_file: "{d}/mean.h5" }}
+data_config {{ layer_name: "labels" data_type: HDF5 file_pattern: "{d}/data.h5"
+              dataset_name: "labels" }}
+""")
+h = DataHandler(config.read_dataset_config(f"{d}/data.pbtxt"))
+batch = h.get_batch()
+assert np.array_equal(batch["input"], images[:8])
+assert list(batch["labels"]) == [0, 1, 2, 0, 1, 2, 0, 1]
+(_, mean, _), = h.jitter_specs().values()
+assert np.array_equal(mean, images.astype(np.float64).mean(0).astype(np.float32))
+h.close()
+assert extract.main([f"{d}/n.pbtxt", f"{d}/data.pbtxt", "--checkpoint", path, "--output",
+                     f"{d}/feats.h5", "--layers", "fc1", "--device", "cpu"]) == 0
+with hdf5.File(f"{d}/feats.h5") as f:
+    assert f["fc1"].shape == (21, 4) and np.isfinite(f["fc1"][...]).all()
+print(sys.modules["h5py"] is None)
+'''
+
+
+def test_hdf5_paths_run_with_h5py_blocked(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _NO_H5PY, str(tmp_path)], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "True"
 
 
 def test_both_schemas_load_in_one_process():
