@@ -185,6 +185,25 @@ any failure raises and the script exits non-zero:
    two checkpoints. A JSON line holds phase 9's numbers;
    the kernels' line counts each 9a mesh's rank 0 launches. A failing
    rank fails the phase.
+10. The port's measurement scripts. (a) `python -m
+   convnet_tpu_torch.bench` in a subprocess at its default batch and
+   steps a launch on synthetic data, 20 timed launches, then with --data
+   rawcache at one step a launch: each last line must parse, with img/s
+   above 0, an mfu in (0, 1.05], a finite final loss and the card's name
+   holding "H100". (b) Where the bench's batch is above phase 2's 128,
+   each kernel its step launches at that batch against its plain version
+   by phase 2's bars (the plain LRN versions a million rows at a time
+   over every row). (c) The pipeline bench (AlexNet's inference at 1024
+   and 256, the prologue's MB/s, the CIFAR-10 step) with 5 timed calls,
+   each path's launches counted, and three CIFAR-10 f32 train steps
+   against a step composed from the plain versions (UPDATE_TOL). (d)
+   profile_alexnet at batch 128 with 3 calls a row (its trace's device
+   time by category and idle share) and the sweep's bf16 variants at 128,
+   1 and 4 steps a launch. (e) The bench's step at its batch launches
+   lrn_fwd 2, lrn_bwd 2, dropout 4, s2d_prologue 1 and step_draws 1 a
+   step, eager (and, where the bench takes several steps a launch, as the
+   graph it replays). A JSON line holds phase 10's
+   numbers and its seconds; the kernels' line counts its paths.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
@@ -240,32 +259,6 @@ POOL_SWITCHES = {"CONVNET_POOL_LRN_FUSED": "1", "CONVNET_POOL_BACKEND": "pallas"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (LOCAL's products)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
-    """Median device milliseconds of fn(), timed with CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def device_ms(*calls, k: int = KCALLS, reps: int = REPS) -> float:
@@ -523,10 +516,11 @@ def clone_state(state):
 
 
 def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=False,
-                       std_t=None):
+                       std_t=None, plain_step=None):
     """PARITY_STEPS steps of the port's train step and of the plain-
     composed one from the same state, keys and batches (fused: the
-    reference-gradient path, under pool_switches()). Each momentum
+    reference-gradient path, under pool_switches()); plain_step(state,
+    batch) -> loss takes the place of AlexNet's plain_train_step. Each momentum
     buffer (the sum of the steps' updates) must agree within UPDATE_TOL of
     its largest element, and each parameter within UPDATE_TOL of its
     largest update plus 2 ulps of its largest element (an update below
@@ -540,11 +534,14 @@ def check_train_parity(graph, state, jitter, batches, spec, mean_t, card, fused=
     from convnet_tpu_torch.trainer import make_train_step
 
     step = make_train_step(graph, jitter)
+    if plain_step is None:
+        def plain_step(st, b):
+            return plain_train_step(graph, st, b, spec, mean_t, fused, std_t)
     port, plain, start = clone_state(state), clone_state(state), clone_state(state)
     losses, plain_losses = [], []
     for b in batches:
         losses.append(step(port, b)["loss"].item())
-        plain_losses.append(plain_train_step(graph, plain, b, spec, mean_t, fused, std_t).item())
+        plain_losses.append(plain_step(plain, b).item())
     print(f"[{card}] {PARITY_STEPS} train steps: port losses {losses}, plain-composed {plain_losses}")
     for name in start["params"]:
         for k in ("w", "b"):
@@ -1355,6 +1352,31 @@ def plain_alexnet(graph, params, x_u8, spec, mean_t):
     return plain_logits(graph, params, plain_prologue(graph, x_u8, spec, mean_t, oy, ox, None))
 
 
+def plain_sgd_step(graph, state, labels, logits_of):
+    """The loss of logits_of(params) (softmax cross entropy over labels,
+    divided by the batch), its gradients by autograd and the port's
+    optimizer at the state's step; state["step"] advances. Returns the
+    loss."""
+    import torch
+
+    from convnet_tpu_torch import optim
+    from convnet_tpu_torch.ops.losses import softmax_cross_entropy
+
+    step, params = state["step"], state["params"]
+    keys = [(n, k) for n in params for k in ("w", "b")]
+    with torch.enable_grad():
+        leaves = [params[n][k].requires_grad_() for n, k in keys]
+        labels = labels.reshape(-1)
+        loss = softmax_cross_entropy(logits_of(params), labels) / labels.shape[0]
+        flat = torch.autograd.grad(loss, leaves)
+    grads = {n: {} for n in params}
+    for (n, k), g in zip(keys, flat):
+        grads[n][k] = g
+    optim.apply_updates(graph, params, state["moms"], grads, step=step)
+    state["step"] = step + 1
+    return loss.detach()
+
+
 def plain_train_step(graph, state, batch, spec, mean_t, fused=False, std_t=None):
     """One AlexNet train step composed from the plain versions: the same
     crops, flips and dropout masks as the port's step (drawn from the
@@ -1362,10 +1384,8 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False, std_t=None)
     the reference-gradient path's LRN -> pool chains (plain_logits)."""
     import torch
 
-    from convnet_tpu_torch import optim
     from convnet_tpu_torch.data.jitter import crop_draw
     from convnet_tpu_torch.ops.dropout import step_draws_reference
-    from convnet_tpu_torch.ops.losses import softmax_cross_entropy
 
     seed, step = state["seed"], state["step"]
     x = batch["input"]
@@ -1374,19 +1394,8 @@ def plain_train_step(graph, state, batch, spec, mean_t, fused=False, std_t=None)
     draw = crop_draw("input", b, h, w, spec.image_size, spec.can_translate, spec.can_flip)
     oy, ox, flips = step_draws_reference(rng, (), draw)[1]
     xs = plain_prologue(graph, x, spec, mean_t, oy, ox, flips, std_t)
-    params = state["params"]
-    keys = [(n, k) for n in params for k in ("w", "b")]
-    with torch.enable_grad():
-        leaves = [params[n][k].requires_grad_() for n, k in keys]
-        logits = plain_logits(graph, params, xs, dropout_seed=(seed, step), fused=fused)
-        loss = softmax_cross_entropy(logits, batch["labels"].reshape(-1)) / b
-        flat = torch.autograd.grad(loss, leaves)
-    grads = {n: {} for n in params}
-    for (n, k), g in zip(keys, flat):
-        grads[n][k] = g
-    optim.apply_updates(graph, params, state["moms"], grads, step=step)
-    state["step"] = step + 1
-    return loss.detach()
+    return plain_sgd_step(graph, state, batch["labels"], lambda params: plain_logits(
+        graph, params, xs, dropout_seed=(seed, step), fused=fused))
 
 
 def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
@@ -1414,6 +1423,7 @@ def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
     from convnet_tpu_torch.ops import fused_pool_lrn as plrn
     from convnet_tpu_torch.ops import lrn, pool
     from convnet_tpu_torch.ops import s2d_relayout as s2d
+    from convnet_tpu_torch.utils.card import cuda_ms
 
     times, library, work, host = {}, {}, {}, {}
 
@@ -1556,6 +1566,8 @@ def step_times(step, state, batch):
     synchronize) of one train step on the staged batch, in ms."""
     import torch
 
+    from convnet_tpu_torch.utils.card import cuda_ms
+
     ev = cuda_ms(lambda: step(state, batch))
     # one step (about 280 launches) per spin: k steps would fill the queue
     dev_ms = device_ms(lambda: step(state, batch), k=1, reps=ITERS)
@@ -1576,6 +1588,8 @@ def time_paths(fwd, fwd_params, staged, step, state, batch, card):
     returns {"forward": (events, device, enqueue), "train": (events,
     device, host, enqueue), "reference_gradient": (...)}."""
     import torch
+
+    from convnet_tpu_torch.utils.card import cuda_ms
 
     with torch.inference_mode():
         fwd_ev = cuda_ms(lambda: fwd(fwd_params, staged))
@@ -2157,21 +2171,14 @@ def write_learnable_set(directory: Path, card):
 
 
 # each wrapper's main kernel, as torch.profiler names it in a trace
-TRACE_KERNELS = {
-    "lrn_fwd": r"\blrn_fwd_(regs|generic)\b", "lrn_bwd": r"\blrn_bwd_kernel\b",
-    "dropout": r"\bdropout_kernel\b", "step_draws": r"\bstep_draws_kernel\b",
-    "s2d_prologue": r"\bs2d_prologue_kernel\b", "maxpool_fwd": r"\bmaxpool_fwd_kernel\b",
-    "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
-    "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
-}
-
-
 def traced_launches(trace_dir: Path):
     """From the Chrome traces torch.profiler wrote into trace_dir, one dict
     for each of the host's cudaGraphLaunch calls, in the order they were
     made: the card's launches of each wrapper's kernel (kernel events by
     name) that the trace ties to that call by its correlation id."""
     import re
+
+    from convnet_tpu_torch.ops import KERNEL_NAMES
 
     replays = []
     files = sorted(trace_dir.glob("*.pt.trace.json"))
@@ -2182,11 +2189,11 @@ def traced_launches(trace_dir: Path):
         launches = sorted((ev.get("ts", 0), ev["args"]["correlation"]) for ev in events
                           if ev.get("cat") == "cuda_runtime"
                           and ev.get("name") == "cudaGraphLaunch")
-        by_launch = {c: dict.fromkeys(TRACE_KERNELS, 0) for _, c in launches}
+        by_launch = {c: dict.fromkeys(KERNEL_NAMES, 0) for _, c in launches}
         for ev in events:
             counts = by_launch.get(ev.get("args", {}).get("correlation"))
             if ev.get("cat") == "kernel" and counts is not None:
-                for k, pat in TRACE_KERNELS.items():
+                for k, pat in KERNEL_NAMES.items():
                     if re.search(pat, ev.get("name", "")):
                         counts[k] += 1
         replays += [by_launch[c] for _, c in launches]
@@ -3380,6 +3387,327 @@ def check_cli_ranks(card):
     return {"exit_codes": rcs, "logged_losses": losses, "checkpoints": ckpts}
 
 
+# -- phase 10: the port's measurement scripts ----------------------------------
+
+# the bench's runs (timed launches) and the pipeline bench's timed calls
+BENCH_STEPS, PIPELINE_STEPS = 20, 5
+# the bench's mfu must lie in (0, MFU_MAX]: above 1 the FLOP count or the
+# peak is wrong (a little over 1 is left to the count's rounding)
+MFU_MAX = 1.05
+# a CIFAR-10 f32 train step's launches: rnorm1 and rnorm2, fc1's dropout
+# forward and backward, one step_draws (its dropout key); an f32 model's
+# input takes no prologue kernel
+CIFAR_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 2, "step_draws": 1}
+# phase 10b holds the LRN kernels' outputs against the plain version this
+# many rows at a time (rnorm1 at batch 4096 has 12.4M rows of 96)
+CHECK_ROWS = 1 << 20
+BENCH_CHECK_SEED = 12
+
+
+def run_bench(root: Path, card, *args) -> dict:
+    """`python -m convnet_tpu_torch.bench --steps BENCH_STEPS *args` in a
+    subprocess: its last line must parse, with value > 0, 0 < mfu <=
+    MFU_MAX, a finite final loss and an H100's name. Returns the line."""
+    import math
+
+    cmd = [sys.executable, "-m", "convnet_tpu_torch.bench", "--steps", str(BENCH_STEPS), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=600)
+    said = " ".join(cmd[2:])
+    if proc.returncode != 0:
+        raise AssertionError(f"{said} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(line))
+    print(f"[{card}] phase 10a: {said}: {time.perf_counter() - t0:.1f} s in all")
+    mfu = line["mfu"]
+    if not (line["value"] > 0 and mfu is not None and 0 < mfu <= MFU_MAX
+            and math.isfinite(line["final_loss"]) and "H100" in line["device"]):
+        raise AssertionError(f"the bench's line fails its checks: {line}")
+    return line
+
+
+def check_kernels_at(dev, batch, card) -> dict:
+    """Phase 10b: each kernel of the bench's train step once at the bench's
+    batch against its plain version, by phase 2's bars: step_draws (the
+    step's dropout keys, crops and flips) and the prologue array-equal;
+    lrn_fwd (bf16, the deferred bias and the fused ReLU, AlexNet's n,
+    alpha, beta) within 1 bf16 ulp at rnorm1 and rnorm2; lrn_bwd's dx by
+    expect_bf16_close's bar with LRN_BWD_ULPS, its db within rtol 1e-4 of
+    a float64 sum of the plain f32 dx; dropout array-equal at fc6/fc7. The
+    kernels run over the whole batch; the plain versions, and float64,
+    CHECK_ROWS rows at a time over all of them. Returns {kernel: max
+    |err|}."""
+    import torch
+
+    from convnet_tpu_torch.data.jitter import crop_draw
+    from convnet_tpu_torch.ops import dropout as drop
+    from convnet_tpu_torch.ops import lrn
+    from convnet_tpu_torch.ops import s2d_relayout as s2d
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(BENCH_CHECK_SEED)
+    rng = torch.tensor([0, 1], dtype=torch.int64, device=dev)
+    words = [(i, 0) for i in ALEXNET_DROPOUT_LAYERS]
+    draw = crop_draw("input", batch, RAW, RAW, CROP, True, True)
+    keys, crops = drop.step_draws(rng, words, draw)
+    want_keys, want_crops = drop.step_draws_reference(rng, words, draw)
+    if not (torch.equal(keys, want_keys)
+            and all(torch.equal(a, b) for a, b in zip(crops, want_crops))):
+        raise AssertionError(f"step_draws at batch {batch} differs from its plain version")
+    errs = {"step_draws": 0.0}
+
+    x = torch.randint(0, 256, (batch, RAW, RAW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    kw = dict(crop=CROP, stride=4, p=s2d.relayout_geometry(CROP, 11, 4), scale=1 / 255,
+              mean=torch.full((3,), MEAN, device=dev))
+    got = s2d.s2d_prologue(x, *crops, **kw)
+    if not torch.equal(got, s2d.s2d_prologue_reference(x, *crops, **kw)):
+        raise AssertionError(f"s2d_prologue at batch {batch} is not array-equal to its plain "
+                             "version")
+    errs["s2d_prologue"] = 0.0
+    print(f"[{card}] phase 10b: step_draws and s2d_prologue {tuple(got.shape)} (crops and "
+          f"flips of {batch} images) array-equal to their plain versions")
+    del x, got
+
+    n, alpha, beta = 5, 1e-4 / 5, 0.75
+    errs["lrn_fwd"] = errs["lrn_bwd"] = 0.0
+    for shape_name, side, c in (("rnorm1", 55, 96), ("rnorm2", 27, 256)):
+        m = batch * side * side
+        z = (2.0 * torch.randn((m, c), generator=gen, device=dev)).to(torch.bfloat16)
+        g = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+        bias = 0.5 * torch.randn((c,), generator=gen, device=dev)
+        y = lrn.lrn_fwd(z, n, alpha, beta, bias=bias, relu=True)
+        dx, db = lrn.lrn_bwd(g, z, n, alpha, beta, bias=bias, relu=True)
+        y_ulps = k64 = p64 = kp = 0
+        db64 = torch.zeros(c, dtype=torch.float64, device=dev)
+        db_abs = torch.zeros(c, dtype=torch.float64, device=dev)
+        for r0 in range(0, m, CHECK_ROWS):
+            zs, gs = z[r0:r0 + CHECK_ROWS], g[r0:r0 + CHECK_ROWS]
+            want_y = lrn._fwd_math(zs, n, alpha, beta, bias, True, False)
+            y_ulps = max(y_ulps, bf16_ulps(y[r0:r0 + CHECK_ROWS], want_y))
+            errs["lrn_fwd"] = max(errs["lrn_fwd"], (y[r0:r0 + CHECK_ROWS].float()
+                                                    - want_y.float()).abs().max().item())
+            want_dx = lrn._bwd_math(gs, zs, n, alpha, beta, bias, True, False)[0]
+            errs["lrn_bwd"] = max(errs["lrn_bwd"], (dx[r0:r0 + CHECK_ROWS].float()
+                                                    - want_dx.float()).abs().max().item())
+            d = bf16_distances(dx[r0:r0 + CHECK_ROWS], want_dx,
+                               lrn_bwd_f64(gs, zs, n, alpha, beta, bias, True))
+            k64, p64, kp = max(k64, d[0]), max(p64, d[1]), max(kp, d[2])
+            ref = lrn._bwd_math(gs.float(), zs.float(), n, alpha, beta, bias, True,
+                                False)[0].double()
+            db64 += ref.sum(0)
+            db_abs += ref.abs().sum(0)
+        tag = f"phase 10b: {shape_name} ({m},{c}) bf16 at batch {batch}"
+        db_rel = ((db.double() - db64).abs() / db64.abs()).max().item()
+        print(f"[{card}] {tag}: lrn_fwd bf16_ulps {y_ulps}; lrn_bwd bf16_ulps kernel-plain {kp}, "
+              f"kernel-float64 {k64}, plain-float64 {p64}; db max_rel_err {db_rel}")
+        if y_ulps > 1:
+            raise AssertionError(f"{tag}: lrn_fwd {y_ulps} bf16 ulps from the plain version")
+        if kp > LRN_BWD_ULPS or k64 > p64 + LRN_BWD_ULPS:
+            raise AssertionError(f"{tag}: lrn_bwd beyond its bar (kernel-plain <= "
+                                 f"{LRN_BWD_ULPS}, kernel-float64 <= plain-float64 + "
+                                 f"{LRN_BWD_ULPS})")
+        torch.testing.assert_close(db.double(), db64, rtol=1e-4,
+                                   atol=1e-5 * db_abs.max().item())
+        del z, g, y, dx
+
+    x = (torch.rand((batch, 1, 1, 4096), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    for key in keys:
+        if not torch.equal(drop.dropout_apply(x, 0.5, key), drop.dropout_reference(x, 0.5, key)):
+            raise AssertionError(f"dropout at ({batch}, 1, 1, 4096) is not array-equal to its "
+                                 "plain version")
+    errs["dropout"] = 0.0
+    print(f"[{card}] phase 10b: dropout ({batch}, 1, 1, 4096) bf16 with fc6's and fc7's keys "
+          "array-equal to its plain version")
+    return errs
+
+
+def plain_cifar_logits(graph, params, x, dropout_seed=None):
+    """The CIFAR-10 net's f32 logits composed directly from the plain
+    versions of the kernels (and the same cuDNN, cuBLAS and ATen ops), not
+    through apply_fn; differentiable by autograd. dropout_seed = (seed,
+    step) applies fc1's dropout with the mask apply_fn draws."""
+    import torch
+
+    from convnet_tpu_torch.ops.conv import conv2d, fc
+    from convnet_tpu_torch.ops.dropout import dropout_key, dropout_reference
+    from convnet_tpu_torch.ops.lrn import response_norm_reference
+    from convnet_tpu_torch.ops.pool import maxpool_reference
+
+    def inc(layer):
+        (e,) = graph.incoming(layer)
+        return e
+
+    def conv(layer, x):
+        e = inc(layer)
+        return conv2d(x, params[e.name]["w"], e.stride, e.padding)
+
+    def pool(layer, x):
+        e = inc(layer)
+        return maxpool_reference(x, e.kernel_size, e.stride, e.padding)
+
+    def norm(layer, x, bias=None):
+        e = inc(layer)
+        return response_norm_reference(x, e.add_scale, e.pow_scale,
+                                       e.frac_of_filters_response_norm, e.response_norm_blocked,
+                                       bias=bias, relu=bias is not None)
+
+    def bias(layer):
+        return params[inc(layer).name]["b"]
+
+    x = torch.relu(conv("conv1", x) + bias("conv1"))
+    x = norm("rnorm1", pool("pool1", x))
+    # conv2's bias and ReLU go into rnorm2, as apply_fn defers them
+    x = pool("pool2", norm("rnorm2", conv("conv2", x), bias("conv2")))
+    x = pool("pool3", torch.relu(conv("conv3", x) + bias("conv3")))
+    x = torch.relu(fc(x, params[inc("fc1").name]["w"]) + bias("fc1"))[:, None, None, :]
+    if dropout_seed is not None:
+        layers = [n for n in graph.topo_layer_order() if not graph.layer(n).is_input]
+        key = dropout_key(*dropout_seed, layers.index("fc1"))
+        x = dropout_reference(x, graph.layer("fc1").dropprob, key)
+    return fc(x, params[inc("output").name]["w"]) + bias("output")
+
+
+def check_pipeline(dev, card):
+    """Phase 10c: the pipeline bench's three metrics with PIPELINE_STEPS
+    timed calls, each path's launches counted (AlexNet's inference at 1024
+    and 256: lrn_fwd 2 and s2d_prologue 1 a call; the prologue's bench:
+    s2d_prologue 1 and step_draws 1 a call; the CIFAR-10 step:
+    CIFAR_PER_STEP), then three CIFAR-10 f32 train steps against the step
+    composed from the plain versions (check_train_parity's bar). Returns
+    ({metric: line}, {path: launches})."""
+    import torch
+
+    from convnet_tpu_torch import models
+    from convnet_tpu_torch.tools import bench_pipeline as bp
+    from convnet_tpu_torch.trainer import init_state
+
+    calls = PIPELINE_STEPS + 1  # one warm-up call
+    runs = (
+        ("alexnet_inference", lambda: [bp.bench_alexnet_inference(dev, b, PIPELINE_STEPS)
+                                       for b in (1024, 256)],
+         {"lrn_fwd": 2, "s2d_prologue": 1}, 2 * calls),
+        ("aug_pipeline", lambda: [bp.bench_aug(dev, steps=PIPELINE_STEPS)],
+         {"s2d_prologue": 1, "step_draws": 1}, calls),
+        ("cifar_step", lambda: [bp.bench_cifar_step(dev, steps=PIPELINE_STEPS)], CIFAR_PER_STEP,
+         PIPELINE_STEPS + bp.WARMUP),
+    )
+    lines, paths = {}, {}
+    for path, run, per_call, n in runs:
+        reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        paths[path] = read_launches()
+        expect_launches(f"phase 10c's {path}", paths[path], per_call, n)
+        for line in got:
+            print(json.dumps(line))
+            if not line["value"] > 0:
+                raise AssertionError(f"phase 10c: {line}")
+            lines[f"{line['metric']}@{line['batch']}"] = line
+    graph = models.cifar10()
+    state = init_state(graph, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(BENCH_CHECK_SEED)
+    batches = [{"input": torch.rand((256, 32, 32, 3), generator=gen, device=dev),
+                "labels": torch.randint(0, 10, (256,), generator=gen, device=dev,
+                                        dtype=torch.int32)} for _ in range(PARITY_STEPS)]
+
+    def plain_step(st, b):
+        seed, step = st["seed"], st["step"]
+        return plain_sgd_step(graph, st, b["labels"], lambda params: plain_cifar_logits(
+            graph, params, b["input"], dropout_seed=(seed, step)))
+
+    print(f"[{card}] phase 10c: CIFAR-10 (f32, batch 256), the port's step against the plain "
+          "one:")
+    check_train_parity(graph, state, None, batches, None, None, card, plain_step=plain_step)
+    return lines, paths
+
+
+def check_profile_and_sweep(dev, card) -> dict:
+    """Phase 10d: profile_alexnet at batch BATCH with 3 calls a row (its
+    trace must put time in the lrn category and give an idle share in [0,
+    1); each response-norm edge has a [plain] row), and the sweep's bf16
+    variants at batch BATCH, 1 and LAUNCH_K steps a launch (img/s > 0, 0 <
+    mfu <= MFU_MAX). Returns the trace's line and the sweep's lines."""
+    from convnet_tpu_torch.tools import profile_alexnet, sweep
+    from convnet_tpu_torch.utils.card import device_facts
+
+    got = profile_alexnet.profile(dev, batch=BATCH, steps=3)
+    trace = got["trace"]
+    cats = trace["device_ms_per_step"]
+    plain_rows = [r for r in got["rows"] if "[plain]" in r["name"]]
+    if not cats or cats["lrn"] <= 0 or not 0 <= trace["idle_share"] < 1 or len(plain_rows) != 4:
+        raise AssertionError(f"phase 10d: the profile's trace {trace}, plain rows {plain_rows}")
+    facts = device_facts(dev)
+    lines = []
+    for k in (1, LAUNCH_K):
+        line = {**sweep.time_variant(BATCH, "bfloat16", k, PIPELINE_STEPS, dev), **facts}
+        print(json.dumps(line))
+        if not (line["images_per_sec"] > 0 and 0 < line["mfu"] <= MFU_MAX):
+            raise AssertionError(f"phase 10d: the sweep's line {line}")
+        lines.append(line)
+    return {"profile_trace": trace, "sweep": lines}
+
+
+def check_bench_launches(dev, batch, k, card) -> dict:
+    """Phase 10e: the bench's train step at its batch: two eager steps must
+    launch TRAIN_PER_STEP a step through the wrappers, and at k > 1 the
+    captured step (the graph the bench replays) TRAIN_PER_STEP. Returns
+    {path: launches}."""
+    import torch
+
+    from convnet_tpu_torch.bench import alexnet_graph, random_batch, train_jitter
+    from convnet_tpu_torch.trainer import TrainSteps, init_state
+
+    graph = alexnet_graph(CROP)
+    steps = TrainSteps(graph, train_jitter(CROP))
+    state = init_state(graph, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(BENCH_CHECK_SEED)
+    reset_launches()
+    batch_data = random_batch((batch,), RAW, dev, gen)
+    for _ in range(2):
+        steps.step(state, batch_data)
+    torch.cuda.synchronize()
+    paths = {"bench_step_eager": read_launches()}
+    expect_launches(f"the bench's eager step at batch {batch}", paths["bench_step_eager"],
+                    TRAIN_PER_STEP, 2)
+    if k > 1:
+        del batch_data
+        steps.launch(state, random_batch((k, batch), RAW, dev, gen), k)
+        torch.cuda.synchronize()
+        paths["bench_step_captured"] = steps.captured.launches
+        expect_launches(f"the bench's captured step at batch {batch}",
+                        paths["bench_step_captured"], TRAIN_PER_STEP, 1)
+    print(f"[{card}] phase 10e: the bench's step at batch {batch}: {paths}")
+    return paths
+
+
+def check_measurement_scripts(root: Path, dev, card):
+    """Phase 10 (a-e). Returns (facts, {path: launches}, {kernel: max |err|
+    at the bench's batch} or {} where the batch is BATCH)."""
+    import torch
+
+    from convnet_tpu_torch.bench import DEFAULT_BATCH, DEFAULT_STEPS_PER_LAUNCH
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the bench's subprocess shares the card
+    bench = [run_bench(root, card),
+             run_bench(root, card, "--data", "rawcache", "--steps-per-launch", "1")]
+    errs = {}
+    if DEFAULT_BATCH > BATCH:
+        errs = check_kernels_at(dev, DEFAULT_BATCH, card)
+    else:
+        print(f"[{card}] phase 10b: the bench's batch is {DEFAULT_BATCH}, phase 2's")
+    torch.cuda.empty_cache()
+    pipeline, paths = check_pipeline(dev, card)
+    measured = check_profile_and_sweep(dev, card)
+    paths.update(check_bench_launches(dev, DEFAULT_BATCH, DEFAULT_STEPS_PER_LAUNCH, card))
+    seconds = time.perf_counter() - t0
+    print(f"[{card}] phase 10: {seconds:.1f} s")
+    return {"bench": bench, "pipeline": pipeline, **measured, "seconds": seconds}, paths, errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -3396,7 +3724,8 @@ def main(argv=None) -> int:
                          "kernels' bf16 results and their plain versions' fall from float64")
     ap.add_argument("--root", type=Path, default=REPO,
                     help="import convnet_tpu_torch from this checkout (with --time-only, to "
-                         "time another commit's kernels in the same call)")
+                         "time another commit's kernels in the same call; it must have "
+                         "convnet_tpu_torch/utils/card.py)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3417,6 +3746,7 @@ def main(argv=None) -> int:
     from convnet_tpu_torch.ops import _build
     from convnet_tpu_torch.predictor import Predictor
     from convnet_tpu_torch.trainer import make_forward
+    from convnet_tpu_torch.utils.card import card_line, cuda_ms
 
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
@@ -3624,6 +3954,11 @@ def main(argv=None) -> int:
     print(json.dumps({"phase9": {"mesh_ranks": mesh_ranks, "nccl_1x1": nccl,
                                  "train_cli_2_ranks": cli_ranks}}, default=str))
 
+    # -- 10. the port's measurement scripts ----------------------------------------
+    del state0, batches8
+    measured, measure_paths, bench_errs = check_measurement_scripts(root, dev, card)
+    print(json.dumps({"phase10": measured}, default=str))
+
     paths = {"serving": serve_launches, "train": train_launches,
              "reference_gradient": ref_launches, "alexnet_local": local_launches,
              # phase 8a: through the wrappers (the warm-up and capture steps;
@@ -3636,7 +3971,9 @@ def main(argv=None) -> int:
              # full-pixel mean file (the prologue takes the plain path) and
              # its extract; phase 8f's eager steps over the per-channel mean
              # and std at eps x NORM_LEARN
-             **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches}
+             **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches,
+             # phase 10: the pipeline bench's paths and the bench's step
+             **measure_paths}
     # phase 9a: each rank's launches over its MESH_STEPS steps (every rank's
     # the same, checked)
     for name, facts in mesh_ranks["meshes"].items():
@@ -3694,6 +4031,8 @@ def main(argv=None) -> int:
     for k in kernels:
         if paths["alexnet_2tower_mesh_2x2_rank0"][k["name"]]:
             k["mesh_step_max_differences"] = mesh_diffs
+        if k["name"] in bench_errs:  # phase 10b, at the bench's batch
+            k["max_abs_err_bench_batch"] = bench_errs[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -11,7 +11,9 @@ mesh over ranks of a `torch.distributed` process group (`parallel/`: the
 data axis as a gradient all-reduce, the model axis as the JAX package's
 channel and column split); and its own HDF5 reader and writer
 (`hdf5.py`), for checkpoints, HDF5 streams, mean files, the extract CLI's
-output and the data tools (`tools/`), so it needs no h5py. Convolutions,
+output and the data tools (`tools/`), so it needs no h5py; and the
+measurement scripts (`bench.py`, the headline AlexNet train img/s;
+`tools/bench_pipeline.py`, `profile_alexnet.py`, `sweep.py`). Convolutions,
 pooling and GEMMs and
 their gradients go to cuDNN, cuBLAS and ATen through `torch.nn.functional`
 and autograd, as the JAX package left them to XLA; the Pallas kernels of

@@ -26,6 +26,17 @@ def warm_cpu_math() -> None:
 warm_cpu_math()
 
 
+#: Each wrapper's CUDA kernels by their names on the card (csrc/), as a
+#: profiler's trace shows them: a pattern for re.search.
+KERNEL_NAMES = {
+    "lrn_fwd": r"\blrn_fwd_(regs|generic)\b", "lrn_bwd": r"\blrn_bwd_kernel\b",
+    "dropout": r"\bdropout_kernel\b", "step_draws": r"\bstep_draws_kernel\b",
+    "s2d_prologue": r"\bs2d_prologue_kernel\b", "maxpool_fwd": r"\bmaxpool_fwd_kernel\b",
+    "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
+    "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
+}
+
+
 def launch_counts() -> Dict[str, int]:
     """Every CUDA kernel's launches in this process so far, by name: each
     wrapper counts where it launches its kernel (replays of a captured CUDA

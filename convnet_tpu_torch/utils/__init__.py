@@ -1,4 +1,4 @@
 """Utilities: wall-clock timers and torch.profiler capture (counterpart
-of `convnet_tpu/utils/`)."""
+of `convnet_tpu/utils/`), and the card a measurement runs on (`card`)."""
 
 from convnet_tpu_torch.utils.timers import Timer, profile_trace  # noqa: F401

@@ -1,6 +1,7 @@
 """The port stands alone: no module of convnet_tpu_torch, and not
-chip_smoke.py, imports the JAX package `convnet_tpu`, JAX or h5py (the
-port reads and writes HDF5 itself), its HDF5 paths run with h5py blocked,
+chip_smoke.py, imports the JAX package `convnet_tpu`, JAX, the repo's JAX
+scripts under `tools/` or h5py (the port reads and writes HDF5 itself), its
+HDF5 paths run with h5py blocked,
 and the two packages' protobuf schemas load side by side in one process."""
 
 import ast
@@ -13,7 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "convnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("convnet_tpu", "jax")
+FORBIDDEN = ("convnet_tpu", "jax", "tools")
 
 
 def _imported_modules(path: Path):
@@ -54,10 +55,18 @@ def test_walk_sees_the_whole_port():
                  "convnet_tpu_torch/tools/make_raw_cache.py",
                  "convnet_tpu_torch/tools/compute_mean.py",
                  "convnet_tpu_torch/tools/make_hdf5_dataset.py",
-                 "convnet_tpu_torch/tools/dump_activations.py", "chip_smoke.py"):
+                 "convnet_tpu_torch/tools/dump_activations.py", "chip_smoke.py",
+                 "convnet_tpu_torch/bench.py", "convnet_tpu_torch/utils/card.py",
+                 "convnet_tpu_torch/tools/bench_pipeline.py",
+                 "convnet_tpu_torch/tools/profile_alexnet.py",
+                 "convnet_tpu_torch/tools/sweep.py",
+                 "convnet_tpu_torch/tools/make_synth_dataset.py",
+                 "convnet_tpu_torch/tools/train_digits_release.py"):
         assert want in names
     assert _forbidden("convnet_tpu.graph") and _forbidden("jax.numpy")
+    assert _forbidden("tools.make_synth_dataset")
     assert not _forbidden("convnet_tpu_torch.graph")
+    assert not _forbidden("convnet_tpu_torch.tools.sweep")
 
 
 def test_entry_points_load_no_jax_and_no_jax_package():
@@ -74,9 +83,15 @@ def test_entry_points_load_no_jax_and_no_jax_package():
         "import convnet_tpu_torch.tools.make_raw_cache, convnet_tpu_torch.tools.compute_mean\n"
         "import convnet_tpu_torch.tools.make_hdf5_dataset\n"
         "import convnet_tpu_torch.tools.dump_activations\n"
+        "import convnet_tpu_torch.bench, convnet_tpu_torch.utils.card\n"
+        "import convnet_tpu_torch.tools.bench_pipeline, convnet_tpu_torch.tools.sweep\n"
+        "import convnet_tpu_torch.tools.profile_alexnet\n"
+        "import convnet_tpu_torch.tools.make_synth_dataset\n"
+        "import convnet_tpu_torch.tools.train_digits_release\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.')\n"
         "             or m == 'h5py' or m.startswith('h5py.')\n"
+        "             or m == 'tools' or m.startswith('tools.')\n"
         "             or m == 'PIL' or m.startswith('PIL.'))\n"
         "print(bad)\n"
     )
