@@ -204,6 +204,27 @@ any failure raises and the script exits non-zero:
    step, eager (and, where the bench takes several steps a launch, as the
    graph it replays). A JSON line holds phase 10's
    numbers and its seconds; the kernels' line counts its paths.
+11. The chip probes. (a) The copy kernel (csrc/copy_add.cu, o = a + b on
+   bf16) at the JAX sweep's (290400, 1024) pair in each of its six
+   tilings, and at a ragged (1001, 1000) in whole rows and 128-column
+   tiles, array-equal to a + b over every row (the kernels line's
+   max_abs_err is the largest |kernel - (a + b)| of those calls); an
+   input off a 16-byte boundary, or not contiguous, refused before any
+   launch. `python -m convnet_tpu_torch.tools.copy_probe` and `python -m
+   convnet_tpu_torch.tools.serving_probe` (512 extract rows) run in
+   subprocesses with 5 calls a line: each line must parse and name the
+   H100 and its power limit; each tiling's line holds every kernel's
+   launches while it was timed, copy_add's at least one a call and no
+   other kernel's (their sums are the copy probe's path in the kernels
+   line). (b) The kernel at the probe's fastest tiling, its plain version
+   and torch.add by device time, beside its bound. (c) The serving
+   probe's Predictor (full-width AlexNet, seed-0 params) at batch 1 and
+   64: a request launches lrn_fwd 2 and s2d_prologue 1, and its outputs
+   meet phase 3's bars; the batch-1 forward's host enqueue four ways
+   (inside calls that read the outputs, after a synchronize, after a 50
+   ms host sleep, with the card held behind a spin). (d) The probe's extracted fc7 within phase 8e's
+   bar of a Predictor's fc7 of the same rows. A JSON line holds phase
+   11's numbers.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
@@ -243,7 +264,6 @@ ITERS, WARMUP = 20, 3
 # device timing: KCALLS back-to-back calls behind a spin, median of REPS
 # runs; a wrapper's host cost: median of HOST_CALLS calls
 KCALLS, REPS, HOST_CALLS = 20, 3, 200
-SPIN_CYCLES_PER_MS = 2e6  # a spin of at least 1 ms at SM clocks up to 2 GHz
 HOST_SPIN_MS = 100  # outlasts HOST_CALLS calls of the slowest wrapper (about 90 us each)
 TRAIN_STEPS, TRAINER_STEPS, PARITY_STEPS = 20, 50, 3
 DUMMY_ROWS = 384
@@ -262,54 +282,11 @@ BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores (LOCAL's products)
 
 
 def device_ms(*calls, k: int = KCALLS, reps: int = REPS) -> float:
-    """Device milliseconds per call of the work the callables enqueue, with
-    the host's launch cost hidden. k calls, taking the callables in turn
-    (each on its own inputs, so that no call finds its inputs in L2 from
-    the call before), are queued behind a spin kernel that outlasts the
-    host's enqueueing of all of them, and one pair of CUDA events around
-    them times the card alone; the median of `reps` runs, over k. Each
-    callable first runs once under torch.cuda.set_sync_debug_mode("error"),
-    so a call that waits for the card raises instead of timing the host.
-    A run in which the spin ended before the last call was queued is
-    repeated with k halved (k calls of many small kernels can fill the
-    CUDA launch queue, about a thousand launches, and the host then waits
-    for the card whatever the spin), then with a longer spin."""
-    import torch
+    """Device milliseconds per call with the host's launches hidden behind
+    a spin (`convnet_tpu_torch/utils/card.py device_ms`)."""
+    from convnet_tpu_torch.utils import card
 
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for fn in calls:
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(k):
-        calls[i % len(calls)]()
-    spin_ms = max(2.0, 2e3 * (time.perf_counter() - t0))  # twice the host's enqueue time
-    torch.cuda.synchronize()
-    runs = []
-    while len(runs) < reps:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
-        start.record()
-        for i in range(k):
-            calls[i % len(calls)]()
-        end.record()
-        hidden = not start.query()  # the spin still ran when the last call was queued
-        end.synchronize()
-        if hidden:
-            runs.append(start.elapsed_time(end) / k)
-        elif k > 1:
-            k //= 2
-        elif spin_ms > 4000:
-            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
-        else:
-            spin_ms *= 4
-    return statistics.median(runs)
+    return card.device_ms(*calls, k=k, reps=reps)
 
 
 def host_us(fn, n: int = HOST_CALLS) -> float:
@@ -319,6 +296,8 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
     that outlasts them, so every wrapper launches onto a card in the same
     state (busy), however fast its own kernel drains the queue."""
     import torch
+
+    from convnet_tpu_torch.utils.card import SPIN_CYCLES_PER_MS
 
     fn()
     torch.cuda.synchronize()
@@ -333,33 +312,11 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
 
 
 def enqueue_ms(fn, calls: int = 2, reps: int = ITERS) -> float:
-    """Median host milliseconds to enqueue one call of fn (a forward or a
-    train step of a few hundred launches) with the card held behind a spin
-    that outlasts `calls` calls: the host's cost of a call apart from the
-    card's time. A run in which the spin ended first is repeated with a
-    longer spin."""
-    import torch
+    """Host milliseconds to enqueue one call of fn with the card held
+    behind a spin (`convnet_tpu_torch/utils/card.py enqueue_ms`)."""
+    from convnet_tpu_torch.utils import card
 
-    fn()
-    torch.cuda.synchronize()
-    spin_ms, runs = 50.0, []
-    while len(runs) < reps:
-        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
-        start = torch.cuda.Event()
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        spent = time.perf_counter() - t0
-        hidden = not start.query()
-        torch.cuda.synchronize()
-        if hidden:
-            runs.append(spent * 1e3 / calls)
-        elif spin_ms > 4000:
-            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
-        else:
-            spin_ms *= 4
-    return statistics.median(runs)
+    return card.enqueue_ms(fn, calls=calls, reps=reps)
 
 
 def request_ms(pred, x) -> float:
@@ -436,12 +393,50 @@ def expect_bf16_close(tag, kernel, plain, ref64, kernel_to_plain) -> str:
     return msg
 
 
+def expect_served(what, graph, params, req, out, spec, mean_t, card) -> float:
+    """Phase 3's bars for one request of AlexNet's Predictor (uint8 req,
+    numpy outputs): outputs finite, of shape (n, 1000), softmax rows
+    summing to 1 within 1e-3, and the logits within 1e-2 of the largest
+    |logit| of the forward composed from the plain versions, top-1 agreeing
+    wherever the plain forward's top-2 margin is above twice that. Returns
+    the largest |logit - plain|."""
+    import numpy as np
+    import torch
+
+    n = len(req)
+    logits, probs = out["output:preact"], out["output"].reshape(n, -1)
+    if logits.shape != (n, 1000) or probs.shape != (n, 1000):
+        raise AssertionError(f"{what}: output shapes {logits.shape}, {probs.shape} != ({n}, 1000)")
+    if not (np.isfinite(logits).all() and np.isfinite(probs).all()):
+        raise AssertionError(f"{what}: non-finite outputs")
+    row_err = np.abs(probs.sum(-1) - 1.0).max()
+    if row_err > 1e-3:
+        raise AssertionError(f"{what}: softmax rows sum to 1 +- {row_err}")
+    with torch.inference_mode():
+        ref = plain_alexnet(graph, params, torch.from_numpy(req).to(mean_t.device), spec, mean_t)
+    ref = ref.cpu().numpy()
+    # the kernel and its plain version may round a bf16 LRN output the
+    # other way (1 ulp); through five bf16 layers that stays far below
+    # 1e-2 of the largest logit
+    tol = 1e-2 * np.abs(ref).max()
+    err = float(np.abs(logits - ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * tol
+    agree = logits.argmax(-1) == ref.argmax(-1)
+    print(f"[{card}] {what}: max|logit - plain| {err} (tol {tol}); top-1 agrees on "
+          f"{int(agree.sum())}/{n}, on {int(agree[decided].sum())}/{int(decided.sum())} with "
+          f"top-2 margin > 2*tol; softmax row-sum error {row_err}")
+    if err > tol or not agree[decided].all():
+        raise AssertionError(f"{what}: the served logits disagree with the plain-composed forward")
+    return err
+
+
 def reset_launches():
-    from convnet_tpu_torch.ops import dropout, fused_pool_lrn, lrn, pool, s2d_relayout
+    from convnet_tpu_torch.ops import copy_add, dropout, fused_pool_lrn, lrn, pool, s2d_relayout
 
     lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
     pool.LAUNCHES = fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
-    dropout.DRAW_LAUNCHES = 0
+    dropout.DRAW_LAUNCHES = copy_add.LAUNCHES = 0
 
 
 def read_launches():
@@ -3708,6 +3703,292 @@ def check_measurement_scripts(root: Path, dev, card):
     return {"bench": bench, "pipeline": pipeline, **measured, "seconds": seconds}, paths, errs
 
 
+# -- phase 11: the chip probes --------------------------------------------------
+
+# timed calls a line of either probe, and the rows the serving probe's
+# extract runs over
+PROBE_CALLS, PROBE_ROWS = 5, 512
+ENQUEUE_REST_S = 0.05  # phase 11c: the host's sleep before an enqueue (a held run's spin)
+# phase 11a's ragged shape: a short last row tile and, at 128 columns, a
+# short last column tile (1000 = 7 * 128 + 104)
+RAGGED_COPY = (1001, 1000)
+
+
+def run_probe(root: Path, card, module: str, *args) -> list:
+    """`python -m convnet_tpu_torch.tools.<module> *args` in a subprocess:
+    it must exit 0, and every line it prints must parse as JSON and name
+    an H100 with a power limit. Returns the lines."""
+    cmd = [sys.executable, "-m", f"convnet_tpu_torch.tools.{module}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=600)
+    said = " ".join(cmd[2:])
+    if proc.returncode != 0:
+        raise AssertionError(f"{said} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(l) for l in proc.stdout.strip().splitlines()]
+    for line in lines:
+        print(json.dumps(line))
+        if "H100" not in line["device"] or not line["power_limit_w"]:
+            raise AssertionError(f"{said}: a line without the card's name and power limit: {line}")
+    print(f"[{card}] phase 11: {said}: {len(lines)} lines, {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def check_copy_add(dev, card):
+    """Phase 11a: the copy kernel at the JAX sweep's (290400, 1024) bf16
+    pair, at each of the six tilings, array-equal to a + b over every row;
+    at RAGGED_COPY with whole rows and with 128-column tiles (16 and 7 rows
+    a tile), array-equal; an input off a 16-byte boundary, or not
+    contiguous, refused with a ValueError before any launch. Returns the
+    full-size inputs, for the timing, and the largest |kernel - (a + b)|
+    over all those calls."""
+    import torch
+
+    from convnet_tpu_torch.ops import copy_add as ca
+    from convnet_tpu_torch.tools import copy_probe as cp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def pair(m, n):
+        return [torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2)]
+
+    def max_err(got, want):
+        return (got.float() - want.float()).abs().max().item()
+
+    a, b = pair(cp.ROWS, cp.COLS)
+    want = a + b
+    err = 0.0
+    for block, (tile_rows, tile_cols) in cp.TILINGS:
+        got = ca.copy_add(a, b, tile_rows, tile_cols)
+        err = max(err, max_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"copy_add with {tile_rows} x {tile_cols} tiles (the JAX block "
+                                 f"{block}) is not array-equal to a + b")
+        del got
+    del want
+    ra, rb = pair(*RAGGED_COPY)
+    for tile_rows, tile_cols in ((16, None), (16, 128), (7, 128)):
+        got = ca.copy_add(ra, rb, tile_rows, tile_cols)
+        err = max(err, max_err(got, ra + rb))
+        if not torch.equal(got, ra + rb):
+            raise AssertionError(f"copy_add at {RAGGED_COPY} with {tile_rows} x {tile_cols} "
+                                 "tiles is not array-equal to a + b")
+    before = ca.LAUNCHES
+    off = torch.empty(RAGGED_COPY[0] * RAGGED_COPY[1] + 8, dtype=torch.bfloat16,
+                      device=dev)[1:1 + RAGGED_COPY[0] * RAGGED_COPY[1]].view(RAGGED_COPY)
+    for bad, why in ((off, "16-byte boundary"), (ra.t().contiguous().t(), "contiguous")):
+        try:
+            ca.copy_add(bad, rb)
+        except ValueError as e:
+            if why not in str(e):
+                raise
+        else:
+            raise AssertionError(f"copy_add took an input that is not {why}")
+    if ca.LAUNCHES != before:
+        raise AssertionError("copy_add launched on an input it refused")
+    print(f"[{card}] phase 11a: copy_add array-equal to a + b at ({cp.ROWS}, {cp.COLS}) bf16 in "
+          f"the six tilings {[t for _, t in cp.TILINGS]} and at {RAGGED_COPY} (max |diff| "
+          f"{err}); inputs off a 16-byte boundary or not contiguous refused")
+    return a, b, err
+
+
+def time_copy_add(dev, a, b, best, card) -> dict:
+    """Phase 11b: the copy kernel at the probe's best tiling, its plain
+    version and torch.add by device_ms (two input sets in turn), the
+    wrapper's host cost, and the bound: 6 bytes a value over the card's
+    memory rate."""
+    import torch
+
+    from convnet_tpu_torch.ops import copy_add as ca
+
+    a2, b2 = a.roll(1, 0), b.roll(1, 0)
+    sets = ((a, b), (a2, b2))
+    tile_rows, tile_cols = best
+    ms = device_ms(*[lambda x=x, y=y: ca.copy_add(x, y, tile_rows, tile_cols) for x, y in sets])
+    plain_ms = device_ms(*[lambda x=x, y=y: ca.copy_add_reference(x, y) for x, y in sets])
+    library_ms = device_ms(*[lambda x=x, y=y: torch.add(x, y) for x, y in sets])
+    host = host_us(lambda: ca.copy_add(a, b, tile_rows, tile_cols))
+    bound_ms, bound_by = bound(3 * a.numel() * a.element_size(), a.numel())
+    print(f"[{card}] phase 11b: copy_add at {tile_rows} x {tile_cols} tiles: {ms:.4f} ms "
+          f"(bound {bound_ms:.4f} ms, {bound_ms / ms:.3f} of it; "
+          f"{3 * a.numel() * a.element_size() / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f}, "
+          f"torch.add {library_ms:.4f}; host {host:.1f} us a call")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": host,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tile": [tile_rows, tile_cols]}
+
+
+def check_probe_predictors(dev, card) -> dict:
+    """Phase 11c: the serving probe's Predictor (full-width AlexNet, seed-0
+    params, uint8 requests cropped from 256) at batch 1 and 64: a request
+    launches lrn_fwd 2 and s2d_prologue 1, and its outputs meet phase 3's
+    bars against the plain-composed forward; at batch 1 the forward's
+    enqueue is taken four ways (enqueue_four_ways). Returns {path:
+    launches}, the largest |logit - plain| by batch and those enqueues."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.data.jitter import JitterSpec
+    from convnet_tpu_torch.model import init_params
+    from convnet_tpu_torch.tools import serving_probe as sp
+
+    graph = sp.read_graph(str(ALEXNET))
+    params = init_params(graph, seed=0, device=dev)
+    spec = JitterSpec(image_size=CROP, scale=1 / 255)
+    mean_t = torch.full((3,), MEAN, device=dev)
+    rng = np.random.default_rng(11)
+    paths, errs = {}, {}
+    for batch in (1, 64):
+        pred = sp.make_predictor(graph, params, batch, dev)
+        req = rng.integers(0, 256, (batch, RAW, RAW, 3), dtype=np.uint8)
+        reset_launches()
+        out = pred({"input": req})
+        paths[f"serving_probe_batch{batch}"] = read_launches()
+        expect_launches(f"a request of {batch} to the serving probe's Predictor",
+                        paths[f"serving_probe_batch{batch}"], {"lrn_fwd": 2, "s2d_prologue": 1},
+                        1)
+        errs[batch] = expect_served(f"phase 11c: the serving probe's Predictor at batch {batch}",
+                                    graph, params, req, out, spec, mean_t, card)
+        if batch == 1:
+            enqueue = enqueue_four_ways(pred, torch.from_numpy(req).to(dev), card)
+    return {"paths": paths, "max_abs_logit_err": errs, "batch1_enqueue_ms": enqueue}
+
+
+def enqueue_four_ways(pred, x, card) -> dict:
+    """Phase 11c: the host milliseconds to enqueue the Predictor's forward
+    on a batch already on the card (until the forward returns), medians of
+    ITERS calls, four ways, each taken twice in turns: "in_call", inside
+    calls that then read the outputs back (the serving probe's enqueue_ms);
+    "after_synchronize", each call after torch.cuda.synchronize() with its
+    outputs dropped unread; "after_sleep", each call after a synchronize
+    and an ENQUEUE_REST_S sleep of the host thread, outputs read back; and
+    "held", with the card held behind a spin (card.enqueue_ms, one call a
+    spin). Which of them reads above the whole call says what slows the
+    host's launches."""
+    import torch
+
+    from convnet_tpu_torch.utils import card as card_mod
+
+    def forward():
+        return pred._forward(pred.params, {"input": x})
+
+    def read(out):
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    def timed(before, keep):
+        read(forward())
+        runs = []
+        for _ in range(ITERS):
+            before()
+            t0 = time.perf_counter()
+            out = forward()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            if keep:
+                read(out)
+            del out
+        torch.cuda.synchronize()
+        return runs
+
+    def rest():
+        torch.cuda.synchronize()
+        time.sleep(ENQUEUE_REST_S)
+
+    ways = {"in_call": lambda: timed(lambda: None, True),
+            "after_synchronize": lambda: timed(torch.cuda.synchronize, False),
+            "after_sleep": lambda: timed(rest, True),
+            "held": lambda: [card_mod.enqueue_ms(forward, calls=1, reps=ITERS)]}
+    got = {k: [] for k in ways}
+    with torch.inference_mode():
+        for _ in range(2):
+            for k, way in ways.items():
+                got[k].append(statistics.median(way()))
+    print(f"[{card}] phase 11c: enqueueing the batch-1 forward, host ms (median of {ITERS}, "
+          f"two turns): " + ", ".join(f"{k} {v}" for k, v in got.items()))
+    return got
+
+
+def check_probe_extract(dev, out_dir: Path, card) -> float:
+    """Phase 11d: the serving probe's extract (the features it left in
+    out_dir) against a Predictor's fc7 of the same rows from the same
+    checkpoint, under the data pbtxt's eval prologue: within phase 8e's bar
+    (1e-2 of the largest |fc7|). Returns the largest |difference|."""
+    import numpy as np
+
+    from convnet_tpu_torch import hdf5
+    from convnet_tpu_torch.config import read_dataset_config
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.data.native import raw_cache_gather_reference
+    from convnet_tpu_torch.predictor import Predictor
+    from convnet_tpu_torch.tools import serving_probe as sp
+
+    graph = sp.read_graph(str(ALEXNET))
+    data = DataHandler(read_dataset_config(str(out_dir / "data.pbtxt")), randomize=False)
+    jitter = data.jitter_specs()
+    data.close()
+    (ckpt,) = out_dir.glob(f"{graph.name}_*.h5")
+    pred = Predictor.from_checkpoint(graph, str(ckpt), layers=[sp.EXTRACT_LAYER],
+                                     batch_size=sp.EXTRACT_BATCH, jitter=jitter,
+                                     input_dtype=np.uint8, device=dev)
+    rows = raw_cache_gather_reference(str(out_dir / "img.cache"), np.arange(PROBE_ROWS))
+    want = np.concatenate([pred({"input": rows[i:i + sp.EXTRACT_BATCH]})[sp.EXTRACT_LAYER]
+                           .reshape(-1, 4096) for i in range(0, PROBE_ROWS, sp.EXTRACT_BATCH)])
+    with hdf5.File(str(out_dir / "feats.h5")) as f:
+        got = f[sp.EXTRACT_LAYER][...]
+    if got.shape != (PROBE_ROWS, 4096) or not np.isfinite(got).all():
+        raise AssertionError(f"phase 11d: the extract wrote {sp.EXTRACT_LAYER} {got.shape}")
+    tol = 1e-2 * np.abs(want).max()
+    err = float(np.abs(got - want).max())
+    print(f"[{card}] phase 11d: the serving probe's extract, {PROBE_ROWS} rows of "
+          f"{sp.EXTRACT_LAYER}, against a Predictor's of the same rows: max |diff| {err} "
+          f"(bar {tol})")
+    if err > tol:
+        raise AssertionError("phase 11d: the extract's fc7 differs from the Predictor's")
+    return err
+
+
+def check_probes(root: Path, dev, card):
+    """Phase 11 (a-d). Returns (facts, {path: launches}, copy_add's kernel
+    numbers)."""
+    import tempfile
+
+    import torch
+
+    from convnet_tpu_torch.tools import copy_probe as cp
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the probes' subprocesses share the card
+    copy_lines = run_probe(root, card, "copy_probe", "--calls", str(PROBE_CALLS))
+    # the probe's own counts, each tiling's every kernel: copy_add at least
+    # once a timed call, every other kernel never
+    counts = [l["launches"] for l in copy_lines]
+    if len(counts) != len(cp.JAX_BLOCKS) or any(
+            set(c) != set(read_launches()) or c["copy_add"] < PROBE_CALLS
+            or any(v for k, v in c.items() if k != "copy_add") for c in counts):
+        raise AssertionError(f"the copy probe's tilings launched {counts}")
+    paths = {"copy_probe": {k: sum(c[k] for c in counts) for k in counts[0]}}
+    best = max(copy_lines, key=lambda l: l["gb_per_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        serving_lines = run_probe(root, card, "serving_probe", "--calls", str(PROBE_CALLS),
+                                  "--rows", str(PROBE_ROWS), "--out-dir", tmp)
+        split = [l for l in serving_lines if l.get("mode") == "device"]
+        if not (all(l["value"] > 0 for l in serving_lines) and len(split) == 2
+                and all(l["enqueue_ms"] > 0 and l["forward_device_ms"] > 0 for l in split)):
+            raise AssertionError("phase 11: a serving probe line is not above 0, or a device "
+                                 "line lacks its enqueue and device times")
+        extract_err = check_probe_extract(dev, Path(tmp), card)
+    a, b, copy_err = check_copy_add(dev, card)
+    timed = time_copy_add(dev, a, b, (best["tile_rows"], best["tile_cols"]), card)
+    del a, b
+    predictors = check_probe_predictors(dev, card)
+    paths.update(predictors.pop("paths"))
+    seconds = time.perf_counter() - t0
+    print(f"[{card}] phase 11: {seconds:.1f} s")
+    facts = {"copy_probe": copy_lines, "serving_probe": serving_lines,
+             "extract_vs_predictor_max_abs": extract_err, **predictors, "seconds": seconds}
+    return facts, paths, {"max_abs_err": copy_err, **timed}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -3725,7 +4006,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=REPO,
                     help="import convnet_tpu_torch from this checkout (with --time-only, to "
                          "time another commit's kernels in the same call; it must have "
-                         "convnet_tpu_torch/utils/card.py)")
+                         "convnet_tpu_torch/utils/card.py with device_ms and enqueue_ms)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3799,31 +4080,7 @@ def main(argv=None) -> int:
 
     mean_t = torch.as_tensor(mean, device=dev)
     for req, out in zip(requests, outs):
-        n = len(req)
-        logits, probs = out["output:preact"], out["output"].reshape(n, -1)
-        if logits.shape != (n, 1000) or probs.shape != (n, 1000):
-            raise AssertionError(f"output shapes {logits.shape}, {probs.shape} != ({n}, 1000)")
-        if not (np.isfinite(logits).all() and np.isfinite(probs).all()):
-            raise AssertionError("non-finite outputs")
-        row_err = np.abs(probs.sum(-1) - 1.0).max()
-        if row_err > 1e-3:
-            raise AssertionError(f"softmax rows sum to 1 +- {row_err}")
-        with torch.inference_mode():
-            ref = plain_alexnet(graph, params, torch.from_numpy(req).to(dev), spec, mean_t)
-        ref = ref.cpu().numpy()
-        # the kernel and its plain version may round a bf16 LRN output the
-        # other way (1 ulp); through five bf16 layers that stays far below
-        # 1e-2 of the largest logit
-        tol = 1e-2 * np.abs(ref).max()
-        err = np.abs(logits - ref).max()
-        top2 = np.sort(ref, axis=-1)[:, -2:]
-        decided = (top2[:, 1] - top2[:, 0]) > 2 * tol
-        agree = logits.argmax(-1) == ref.argmax(-1)
-        print(f"[{card}] request of {n}: max|logit - plain| {err} (tol {tol}); top-1 agrees on "
-              f"{int(agree.sum())}/{n}, on {int(agree[decided].sum())}/{int(decided.sum())} with "
-              f"top-2 margin > 2*tol; softmax row-sum error {row_err}")
-        if err > tol or not agree[decided].all():
-            raise AssertionError("the served logits disagree with the plain-composed forward")
+        expect_served(f"request of {len(req)}", graph, params, req, out, spec, mean_t, card)
 
     # -- 4. training -----------------------------------------------------------
     from convnet_tpu_torch.data.datahandler import DataHandler
@@ -3959,6 +4216,10 @@ def main(argv=None) -> int:
     measured, measure_paths, bench_errs = check_measurement_scripts(root, dev, card)
     print(json.dumps({"phase10": measured}, default=str))
 
+    # -- 11. the chip probes: the streaming copy and the serving numbers ---------
+    probes, probe_paths, copy_add = check_probes(root, dev, card)
+    print(json.dumps({"phase11": probes}, default=str))
+
     paths = {"serving": serve_launches, "train": train_launches,
              "reference_gradient": ref_launches, "alexnet_local": local_launches,
              # phase 8a: through the wrappers (the warm-up and capture steps;
@@ -3973,7 +4234,10 @@ def main(argv=None) -> int:
              # and std at eps x NORM_LEARN
              **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches,
              # phase 10: the pipeline bench's paths and the bench's step
-             **measure_paths}
+             **measure_paths,
+             # phase 11: the copy probe's tilings (counted in its process)
+             # and a request of 1 and of 64 to the serving probe's Predictor
+             **probe_paths}
     # phase 9a: each rank's launches over its MESH_STEPS steps (every rank's
     # the same, checked)
     for name, facts in mesh_ranks["meshes"].items():
@@ -4021,6 +4285,19 @@ def main(argv=None) -> int:
         kernel("pool_lrn_bwd", "pool_lrn.cu", "fused_pool_lrn.py:134", [], plrn_bwd_err,
                ["pool_lrn_bwd rnorm1", "pool_lrn_bwd rnorm2"], "reference_gradient"),
     ]
+    # the card's streaming probe, on no model's path: its main path is the
+    # copy probe's sweep of tilings (phase 11)
+    kernels.append({
+        "name": "copy_add",
+        "route": "cuda",
+        "source": "convnet_tpu_torch/csrc/copy_add.cu",
+        "replaces": "tools/r3_chip2.py:56",
+        "also_replaces": ["tools/r3_chip4.py:192", "tools/r3_warm4.py:104"],
+        "launches": paths["copy_probe"]["copy_add"],
+        "launches_by_path": {p: v["copy_add"] for p, v in paths.items()},
+        **{k: copy_add[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "host_us", "tile")},
+    })
     print(card)
     # phase 9a: the largest differences of each mesh's steps from one
     # device's (momentum share, param error over tolerance), beside the

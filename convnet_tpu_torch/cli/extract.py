@@ -188,7 +188,7 @@ def _extract(args, device) -> int:
     if args.timing:
         width = max(len(k) for k in t)
         for k, v in t.items():
-            say(f"  {k:{width}s} {v:8.2f} s")
+            say(f"  {k:{width}s} {v:12.6f} s")
     say(f"wrote {args.output}")
     return 0
 

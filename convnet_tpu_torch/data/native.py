@@ -8,9 +8,10 @@ ctypes (counterpart of `convnet_tpu/data/native.py`).
   nothing else. A failed build raises with g++'s messages: there is no
   quiet fall back to numpy. `raw_cache_gather_reference` is the plain
   version (a numpy memmap read), for the tests.
-- `NativeImageLoader` decodes JPEG lists with the JAX package's libjpeg
-  loader, `native/dataloader.cc`, built as it stands (g++, -ljpeg); it is
-  built only when an all-JPEG IMAGE_RAW stream opens it.
+- `NativeImageLoader` decodes JPEG lists with the port's own copy of the
+  JAX package's libjpeg loader, `convnet_tpu_torch/native/dataloader.cc`
+  (g++, -ljpeg); it is built only when an all-JPEG IMAGE_RAW stream opens
+  it.
 
 Each library is keyed by a hash of its source and flags and lives under
 `<checkout>/build/convnet_tpu_torch/`; it is built in a temporary
@@ -36,7 +37,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "convnet_tpu_torch"
 RAW_CACHE_SOURCE = _PKG / "native" / "raw_cache.cc"
-LOADER_SOURCE = _PKG.parent / "native" / "dataloader.cc"
+LOADER_SOURCE = _PKG / "native" / "dataloader.cc"
 # native/Makefile's flags; the raw cache links no libjpeg
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 HEADER = 16  # "CNTC" | uint32 version | uint64 row_bytes

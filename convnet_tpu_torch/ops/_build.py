@@ -55,6 +55,8 @@ _SIGNATURES = {
     # g, m, z, bias, dz, db, partial, max_blocks, b, h, w, c, oh, ow, k, s, is_bf16,
     # relu, blocked, n, alpha, beta, coef, q, stream
     "cn_pool_lrn_bwd": [_p] * 7 + [_i] * 13 + [_f, _f, _f, _i, _p],
+    # a, b, o, m, n, tile_rows, tile_cols, stream
+    "cn_copy_add": [_p, _p, _p, _i64, _i64, _i, _i, _p],
 }
 
 _lib: Optional[ctypes.CDLL] = None

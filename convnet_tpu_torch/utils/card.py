@@ -1,8 +1,10 @@
 """The card a measurement runs on and how it is timed: its name and power
 limit (nvidia-smi), its published bf16 peak, device milliseconds from CUDA
-events and host milliseconds with a synchronize. The measuring entry points
-(`bench`, `tools/bench_pipeline`, `tools/profile_alexnet`, `tools/sweep`)
-and `chip_smoke.py` share them.
+events (around each call, or with the host's launches hidden behind a spin
+kernel), the host's milliseconds to enqueue a call, and host milliseconds
+with a synchronize. The measuring entry points (`bench`,
+`tools/bench_pipeline`, `tools/profile_alexnet`, `tools/sweep`,
+`tools/copy_probe`, `tools/serving_probe`) and `chip_smoke.py` share them.
 
 A result names the device it ran on: the card's name, or "cpu" with no
 power limit and no utilization, so that a number from a CPU run is never
@@ -21,6 +23,9 @@ import torch
 #: their name holds: the H100 SXM part (NVIDIA's data sheet; its HBM3 is
 #: the SXM part's memory). A card not listed has no peak, and no mfu.
 BF16_PEAKS = ((("H100", "HBM3"), 989e12), (("H100", "SXM"), 989e12))
+#: cycles of torch.cuda._sleep a millisecond: a spin of at least 1 ms at
+#: SM clocks up to 2 GHz
+SPIN_CYCLES_PER_MS = 2e6
 
 
 def card_line() -> str:
@@ -88,6 +93,83 @@ def cuda_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(*calls: Callable[[], object], k: int = 20, reps: int = 3) -> float:
+    """Device milliseconds per call of the work the callables enqueue, with
+    the host's launch cost hidden. k calls, taking the callables in turn
+    (each on its own inputs, so that no call finds its inputs in L2 from
+    the call before), are queued behind a spin kernel that outlasts the
+    host's enqueueing of all of them, and one pair of CUDA events around
+    them times the card alone; the median of `reps` runs, over k. Each
+    callable first runs once under torch.cuda.set_sync_debug_mode("error"),
+    so a call that waits for the card raises instead of timing the host.
+    A run in which the spin ended before the last call was queued is
+    repeated with k halved (k calls of many small kernels can fill the
+    CUDA launch queue, about a thousand launches, and the host then waits
+    for the card whatever the spin), then with a longer spin."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(k):
+        calls[i % len(calls)]()
+    spin_ms = max(2.0, 2e3 * (time.perf_counter() - t0))  # twice the host's enqueue time
+    torch.cuda.synchronize()
+    runs = []
+    while len(runs) < reps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for i in range(k):
+            calls[i % len(calls)]()
+        end.record()
+        hidden = not start.query()  # the spin still ran when the last call was queued
+        end.synchronize()
+        if hidden:
+            runs.append(start.elapsed_time(end) / k)
+        elif k > 1:
+            k //= 2
+        elif spin_ms > 4000:
+            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
+        else:
+            spin_ms *= 4
+    return statistics.median(runs)
+
+
+def enqueue_ms(fn: Callable[[], object], calls: int = 2, reps: int = 20) -> float:
+    """Median host milliseconds to enqueue one call of fn (a forward or a
+    train step of a few hundred launches) with the card held behind a spin
+    that outlasts `calls` calls: the host's cost of a call apart from the
+    card's time, while the card is busy. A run in which the spin ended
+    first is repeated with a longer spin."""
+    fn()
+    torch.cuda.synchronize()
+    spin_ms, runs = 50.0, []
+    while len(runs) < reps:
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start = torch.cuda.Event()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        spent = time.perf_counter() - t0
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            runs.append(spent * 1e3 / calls)
+        elif spin_ms > 4000:
+            raise RuntimeError("the host could not queue the calls inside a 4 s spin")
+        else:
+            spin_ms *= 4
+    return statistics.median(runs)
 
 
 def host_ms(fn: Callable[[], object], device: torch.device, iters: int = 20,

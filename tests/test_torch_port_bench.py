@@ -110,6 +110,8 @@ ENTRY_POINTS = [
     ("convnet_tpu_torch.tools.profile_alexnet", []),
     ("convnet_tpu_torch.tools.sweep", []),
     ("convnet_tpu_torch.tools.train_digits_release", ["--output", "unused.h5"]),
+    ("convnet_tpu_torch.tools.copy_probe", []),
+    ("convnet_tpu_torch.tools.serving_probe", []),
 ]
 
 

@@ -6,6 +6,7 @@ and the two packages' protobuf schemas load side by side in one process."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,7 +62,9 @@ def test_walk_sees_the_whole_port():
                  "convnet_tpu_torch/tools/profile_alexnet.py",
                  "convnet_tpu_torch/tools/sweep.py",
                  "convnet_tpu_torch/tools/make_synth_dataset.py",
-                 "convnet_tpu_torch/tools/train_digits_release.py"):
+                 "convnet_tpu_torch/tools/train_digits_release.py",
+                 "convnet_tpu_torch/tools/copy_probe.py",
+                 "convnet_tpu_torch/tools/serving_probe.py"):
         assert want in names
     assert _forbidden("convnet_tpu.graph") and _forbidden("jax.numpy")
     assert _forbidden("tools.make_synth_dataset")
@@ -88,6 +91,7 @@ def test_entry_points_load_no_jax_and_no_jax_package():
         "import convnet_tpu_torch.tools.profile_alexnet\n"
         "import convnet_tpu_torch.tools.make_synth_dataset\n"
         "import convnet_tpu_torch.tools.train_digits_release\n"
+        "import convnet_tpu_torch.tools.copy_probe, convnet_tpu_torch.tools.serving_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'convnet_tpu' or m.startswith('convnet_tpu.')\n"
         "             or m == 'h5py' or m.startswith('h5py.')\n"
@@ -100,6 +104,71 @@ def test_entry_points_load_no_jax_and_no_jax_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+# the repo's top-level entries that hold the JAX side's sources
+JAX_SOURCE_ROOTS = ("convnet_tpu", "native", "tools")
+_OUT_OF_PORT = re.compile(r"\.parent\s*/\s*[\"'](%s)[\"']" % "|".join(JAX_SOURCE_ROOTS))
+_C_SUFFIXES = (".cc", ".cpp", ".c", ".h", ".cu", ".cuh")
+
+
+def _holds_c_sources(path: Path) -> bool:
+    if path.is_dir():
+        return any(p.suffix in _C_SUFFIXES for p in path.rglob("*"))
+    return path.suffix in _C_SUFFIXES
+
+
+def test_the_port_builds_only_its_own_sources():
+    """No file of the port names a source path outside convnet_tpu_torch/:
+    no path is built by stepping out of the package into the JAX side's
+    directories (`_PKG.parent / "native"`), and every path a port module
+    holds that leads to C, C++ or CUDA sources lies inside the port."""
+    for path in PORT_FILES:
+        hits = _OUT_OF_PORT.findall(path.read_text())
+        assert not hits, f"{path.relative_to(REPO)} names {hits} outside convnet_tpu_torch/"
+    import importlib
+    import pkgutil
+
+    import convnet_tpu_torch
+
+    port = (REPO / "convnet_tpu_torch").resolve()
+    seen = 0
+    for info in pkgutil.walk_packages(convnet_tpu_torch.__path__, "convnet_tpu_torch."):
+        module = importlib.import_module(info.name)
+        for name, value in vars(module).items():
+            if not isinstance(value, Path):
+                continue
+            target = value.resolve()
+            if target.exists() and _holds_c_sources(target):
+                seen += 1
+                assert target.is_relative_to(port), (
+                    f"{info.name}.{name} = {target} lies outside convnet_tpu_torch/")
+    assert seen >= 3  # csrc/, the raw-cache gather and the JPEG loader
+    from convnet_tpu_torch.data import native
+    from convnet_tpu_torch.ops import _build
+
+    assert native.LOADER_SOURCE == port / "native" / "dataloader.cc"
+    assert native.RAW_CACHE_SOURCE.parent == port / "native"
+    assert all(src.is_relative_to(port / "csrc") for src in _build._sources())
+
+
+def _c_abi(path: Path):
+    """The extern "C" functions the file defines, as normalized signatures."""
+    code = re.sub(r"\s+", " ", re.sub(r"//[^\n]*", "", path.read_text()))
+    return sorted(re.findall(r"(?:void\*|int|void) loader_\w+\([^)]*\)(?= \{)", code))
+
+
+def test_the_ports_jpeg_loader_keeps_the_c_abi():
+    """The port's copy of the libjpeg loader defines the JAX package's
+    loader_create / loader_load / loader_destroy with the same signatures
+    (data/native.py binds them as the JAX module does), and no raw-cache
+    half (raw_cache.cc has that)."""
+    port_src = REPO / "convnet_tpu_torch" / "native" / "dataloader.cc"
+    ours, theirs = _c_abi(port_src), _c_abi(REPO / "native" / "dataloader.cc")
+    assert ours == theirs and len(ours) == 3
+    assert sorted(s.split("(")[0].split()[-1] for s in ours) == [
+        "loader_create", "loader_destroy", "loader_load"]
+    assert "cache_gather" not in port_src.read_text()
 
 
 # With h5py blocked: a checkpoint saved and loaded, an HDF5 stream (its

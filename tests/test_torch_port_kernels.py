@@ -20,6 +20,7 @@ from convnet_tpu_torch.ops import fused_pool_lrn as plrn
 from convnet_tpu_torch.ops import lrn
 from convnet_tpu_torch.ops import pool
 from convnet_tpu_torch.ops import s2d_relayout as s2d
+from convnet_tpu_torch.ops import copy_add as ca
 
 
 @pytest.fixture
@@ -114,13 +115,13 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
     assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu",
-                     "maxpool_fwd.cu", "pool_lrn.cu"}
+                     "maxpool_fwd.cu", "pool_lrn.cu", "copy_add.cu"}
     # the shared headers are hashed too: editing one builds a new library
     assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh",
                                                                      "stage.cuh"}
     assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_step_draws",
                                        "cn_s2d_prologue", "cn_maxpool_fwd", "cn_pool_lrn_fwd",
-                                       "cn_pool_lrn_bwd"}
+                                       "cn_pool_lrn_bwd", "cn_copy_add"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -177,9 +178,45 @@ def test_dropout_wrapper_takes_the_plain_version_on_cpu():
         drop.dropout_apply(x, 0.5, key, offset=2)
 
 
+def test_copy_add_wrapper_takes_the_plain_version_on_cpu():
+    a, b = (torch.randn(6, 24).to(torch.bfloat16) for _ in range(2))
+    before = ca.LAUNCHES
+    assert torch.equal(ca.copy_add(a, b, 4, 8), a + b)
+    assert ca.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # On a card: each kernel against its plain version
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,n,tile_rows,tile_cols", [
+    (1001, 1000, 16, None), (1001, 1000, 16, 128), (1001, 1000, 7, 128), (64, 1024, 128, 128),
+    (5, 8, 1, 8), (3, 2048, 2, 1024)])
+def test_copy_add_kernel_matches_plain(cuda, m, n, tile_rows, tile_cols):
+    """The copy kernel array-equal to a + b: short last row and column
+    tiles, a tile taller than the array, one word a row."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a, b = (torch.randn((m, n), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = ca.LAUNCHES
+    got = ca.copy_add(a, b, tile_rows, tile_cols)
+    assert ca.LAUNCHES == before + 1
+    assert torch.equal(got, a + b)
+
+
+def test_copy_add_kernel_refuses_what_it_does_not_take(cuda):
+    buf = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    a = buf[:8 * 64].view(8, 64)
+    before = ca.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        ca.copy_add(buf[1:1 + 8 * 64].view(8, 64), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.copy_add(a.t().contiguous().t(), a)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ca.copy_add(buf[:8 * 60].view(8, 60), buf[:8 * 60].view(8, 60))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ca.copy_add(a, a, 4, 12)
+    assert ca.LAUNCHES == before
 
 
 @pytest.mark.parametrize("c", [96, 256])

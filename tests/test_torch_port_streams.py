@@ -6,12 +6,15 @@ JPEG lists (array-equal, the same reader taken), SLIDING_WINDOW and TXT
 (array-equal), and the extract CLI over SLIDING_WINDOW (f32, within 1e-4:
 the two frameworks' convolutions sum in other orders).
 
-The JAX package's libjpeg loader is the one the port builds from
-`native/dataloader.cc`, handed to the JAX module for the test: the JAX
-package finds a prebuilt library only where `make native` ran."""
+The JAX package's libjpeg loader is the one the port builds from its own
+copy, `convnet_tpu_torch/native/dataloader.cc`, handed to the JAX module
+for the test: the JAX package finds a prebuilt library only where `make
+native` ran. The copy and the JAX package's `native/dataloader.cc`, each
+built as it stands, decode the same JPEG files array-equal."""
 
 import os
 import shutil
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -40,8 +43,8 @@ def _cfgs(text):
 
 @pytest.fixture
 def jax_loader_from_port(monkeypatch):
-    """The JAX package's native module loads the port's build of
-    native/dataloader.cc (the same source)."""
+    """The JAX package's native module loads the port's build of its copy
+    of native/dataloader.cc."""
     pt_native.library(pt_native.LOADER_SOURCE, ("-ljpeg",))
     path = pt_native._library_path(pt_native.LOADER_SOURCE, ("-ljpeg",))
     monkeypatch.setattr(jax_native, "_LIB_PATHS", [str(path)])
@@ -221,6 +224,30 @@ def test_image_raw_matches_jax(image_files, jax_loader_from_port, kind, backend)
     finally:
         ours.close()
         ref.close()
+
+
+@pytest.mark.parametrize("size,colors", [(24, 3), (16, 1), (40, 3)])
+def test_port_loader_decodes_as_the_jax_packages(image_files, monkeypatch, size, colors):
+    """The port's copy of the libjpeg loader and the JAX package's
+    `native/dataloader.cc`, each built as it stands with g++ -ljpeg, decode,
+    resize and crop the same JPEG files array-equal (40: an upscale of the
+    24-pixel sides)."""
+    jax_source = Path(pt_native.__file__).resolve().parents[2] / "native" / "dataloader.cc"
+    assert jax_source != pt_native.LOADER_SOURCE
+    pt_native.library(jax_source, ("-ljpeg",))
+    monkeypatch.setattr(jax_native, "_LIB_PATHS",
+                        [str(pt_native._library_path(jax_source, ("-ljpeg",)))])
+    monkeypatch.setattr(jax_native, "_lib", None)
+    paths = image_files["jpeg"].read_text().split("\n") + image_files["noext"].read_text().split("\n")
+    idx = np.arange(len(paths))[::-1]
+    ours = pt_native.NativeImageLoader(paths, size, colors, threads=3)
+    try:
+        got = ours.load(idx)
+    finally:
+        ours.close()
+    want = jax_native.NativeImageLoader(paths, size, colors, threads=3).load(idx)
+    assert got.shape == (len(paths), size, size, colors) and got.std() > 1
+    np.testing.assert_array_equal(got, want)
 
 
 def test_image_raw_keeps_why_it_took_pil(image_files, monkeypatch):
