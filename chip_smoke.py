@@ -225,6 +225,28 @@ any failure raises and the script exits non-zero:
    ms host sleep, with the card held behind a spin). (d) The probe's extracted fc7 within phase 8e's
    bar of a Predictor's fc7 of the same rows. A JSON line holds phase
    11's numbers.
+12. The gather probes (ROADMAP Queue B rows 15-29: the sub-probes of
+   tools/r5_probe_gather{,2,3,4}.py, through csrc/crop_window.cu,
+   csrc/relayout.cu and csrc/crop_deinterleave.cu). (a) Every sub-probe
+   of convnet_tpu_torch/tools/gather_probe.py through its kernel, bit for
+   bit equal to its plain version on the card: at the probes' shapes, at
+   a ragged shape (7 images of 252 x 760 cropped to 220 x 660) with the
+   offsets at both ends of their range in turn, and from inputs one
+   element past a 16-byte boundary; windows that leave their input
+   written as zeros (crop_window, in u8 and bf16) and NaN
+   (crop_deinterleave), as the plain versions write them, and a relayout
+   map that reads outside its input refused before any launch. (b)
+   `python -m convnet_tpu_torch.tools.gather_probe --calls 5` in a
+   subprocess: every line must parse and name the H100 and its power
+   limit, each sub-probe's line launch its own kernel (at least once a
+   timed call) and no other, with max_abs_err 0, and the last line
+   (crop_deinterleave with flips against jitter_s2d's train form at batch
+   4096) launch those two only; their sums are the gather probe's path
+   in the kernels line. (c) Each kernel's entry in the kernels line: its
+   times from the probe's line of P1-fix at batch 4096 (crop_window), P30
+   (relayout) and P31 at batch 4096 (crop_deinterleave), every sub-probe's
+   times beside them, the wrapper's host cost there, and phase 12a's
+   largest |kernel - plain|. A JSON line holds phase 12's numbers.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' launch counts, errors and times as JSON. With --profile-dir
@@ -432,11 +454,14 @@ def expect_served(what, graph, params, req, out, spec, mean_t, card) -> float:
 
 
 def reset_launches():
-    from convnet_tpu_torch.ops import copy_add, dropout, fused_pool_lrn, lrn, pool, s2d_relayout
+    from convnet_tpu_torch.ops import (copy_add, dropout, fused_pool_lrn, gather, lrn, pool,
+                                       s2d_relayout)
 
     lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
     pool.LAUNCHES = fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
     dropout.DRAW_LAUNCHES = copy_add.LAUNCHES = 0
+    gather.CROP_WINDOW_LAUNCHES = gather.RELAYOUT_LAUNCHES = 0
+    gather.CROP_DEINTERLEAVE_LAUNCHES = 0
 
 
 def read_launches():
@@ -3714,7 +3739,7 @@ ENQUEUE_REST_S = 0.05  # phase 11c: the host's sleep before an enqueue (a held r
 RAGGED_COPY = (1001, 1000)
 
 
-def run_probe(root: Path, card, module: str, *args) -> list:
+def run_probe(root: Path, card, module: str, *args, phase: int = 11) -> list:
     """`python -m convnet_tpu_torch.tools.<module> *args` in a subprocess:
     it must exit 0, and every line it prints must parse as JSON and name
     an H100 with a power limit. Returns the lines."""
@@ -3730,7 +3755,7 @@ def run_probe(root: Path, card, module: str, *args) -> list:
         print(json.dumps(line))
         if "H100" not in line["device"] or not line["power_limit_w"]:
             raise AssertionError(f"{said}: a line without the card's name and power limit: {line}")
-    print(f"[{card}] phase 11: {said}: {len(lines)} lines, {time.perf_counter() - t0:.1f} s")
+    print(f"[{card}] phase {phase}: {said}: {len(lines)} lines, {time.perf_counter() - t0:.1f} s")
     return lines
 
 
@@ -3989,6 +4014,139 @@ def check_probes(root: Path, dev, card):
     return facts, paths, {"max_abs_err": copy_err, **timed}
 
 
+# -- phase 12: the gather probes --------------------------------------------------
+
+# phase 12a: (label, geometry, offset mode, inputs off a 16-byte boundary);
+# the geometries are tools/gather_probe.py's PROBE and RAGGED
+GATHER_RUNS = (("at the probes' shapes", "PROBE", "random", False),
+               ("at a ragged shape, offsets from the low end", "RAGGED", "low", False),
+               ("at a ragged shape, offsets from the high end", "RAGGED", "high", False),
+               ("from inputs off a 16-byte boundary", "PROBE", "random", True))
+#: each kernel's line in the kernels line: the sub-probe, at the probe
+#: script's batch (None: the probe's own shape)
+GATHER_MAIN = {"crop_window": ("P1-fix", "batch"), "relayout": ("P30", None),
+               "crop_deinterleave": ("P31", "batch")}
+
+
+def check_gather_kernels(dev, card) -> dict:
+    """Phase 12a: every sub-probe of tools/gather_probe.py through its
+    kernel, bit for bit equal to its plain version on the card, in each of
+    GATHER_RUNS; then windows that leave their input, written as the plain
+    versions write them (crop_window: zeros; crop_deinterleave: NaN) in
+    u8 and bf16, and a relayout map that reads outside its input
+    refused before any launch. Returns the largest |kernel - plain| by
+    kernel."""
+    import torch
+
+    from convnet_tpu_torch.ops import gather
+    from convnet_tpu_torch.tools import gather_probe as gp
+
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(gp.KERNELS, 0.0)
+    for label, geometry, mode, unaligned in GATHER_RUNS:
+        for p in gp.PROBES:
+            case = p.build(getattr(gp, geometry), gp.Draw(dev, 12, mode, unaligned))
+            if unaligned and case.args[-1].data_ptr() % 16 == 0:
+                raise AssertionError(f"phase 12a: {p.name}'s input is on a 16-byte boundary")
+            got, want = gp.run(p, case), gp.run(p, case, "plain")
+            errs[p.kernel] = max(errs[p.kernel], gp.max_abs_err(got, want))
+            if not gp.same_bits(got, want):
+                raise AssertionError(f"phase 12a: {p.name} ({p.kernel}) {label} is not bit for "
+                                     f"bit its plain version (max |diff| "
+                                     f"{gp.max_abs_err(got, want)})")
+    off = torch.tensor([0, 33, -1, 10], dtype=torch.int32, device=dev)
+    zero = torch.zeros(4, dtype=torch.int32, device=dev)
+    for dtype in (torch.uint8, torch.bfloat16):
+        x = torch.randint(1, 200, (4, 256, 768), device=dev).to(dtype)
+        for kw in (dict(row_off=off), dict(col_off=off, col_mult=3)):
+            rows, cols = (224, 768) if "row_off" in kw else (256, 672)
+            got = gather.crop_window(x, rows, cols, **kw)
+            want = gather.crop_window_reference(x, rows, cols, **kw)
+            if not (gp.same_bits(got, want) and not got[1:3].any() and got[0].all()
+                    and got[3].all()):
+                raise AssertionError(f"phase 12a: crop_window {dtype} {kw} does not write zeros "
+                                     "where the window leaves its input, and only there")
+    u8 = torch.randint(0, 256, (4, 256, 768), dtype=torch.uint8, device=dev)
+    for oy, ox in ((off, zero), (zero, off)):
+        got = gather.crop_deinterleave(u8, oy, ox, zero)
+        want = gather.crop_deinterleave_reference(u8, oy, ox, zero)
+        nan = torch.isnan(got.float()).flatten(1).all(1).tolist()
+        if not gp.same_bits(got, want) or nan != [False, True, True, False]:
+            raise AssertionError("phase 12a: crop_deinterleave does not write NaN where the "
+                                 f"crop leaves its input, and only there ({nan})")
+    before = gather.RELAYOUT_LAUNCHES
+    try:
+        gather.relayout(u8[0], [gather.Dim(256, 768), gather.Dim(768, -1)])
+    except ValueError as e:
+        if "reads elements" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 12a: relayout took a map that reads outside its input")
+    if gather.RELAYOUT_LAUNCHES != before:
+        raise AssertionError("phase 12a: relayout launched on a map it refused")
+    torch.cuda.synchronize()
+    print(f"[{card}] phase 12a: the {len(gp.PROBES)} gather sub-probes bit for bit equal to "
+          f"their plain versions {', '.join(r[0] for r in GATHER_RUNS)} (max |diff| by kernel "
+          f"{errs}); windows outside their input zeros (crop_window) and NaN "
+          f"(crop_deinterleave), a map outside its input refused; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def check_gather_probes(root: Path, dev, card):
+    """Phase 12 (a-c). Returns (facts, {path: launches}, the three kernels'
+    entries of the kernels line but their launches by path)."""
+    import torch
+
+    from convnet_tpu_torch.tools import gather_probe as gp
+
+    t0 = time.perf_counter()
+    errs = check_gather_kernels(dev, card)
+    torch.cuda.empty_cache()  # the probe's subprocess shares the card
+    lines = run_probe(root, card, "gather_probe", "--calls", str(PROBE_CALLS), phase=12)
+    probes = [l for l in lines if l["metric"] == "gather_probe"]
+    (versus,) = [l for l in lines if l["metric"] == "crop_deinterleave_vs_jitter_s2d"]
+    per_image = sum(p.per_image for p in gp.PROBES)
+    if len(probes) != len(gp.PROBES) + per_image:
+        raise AssertionError(f"phase 12b: {len(probes)} gather_probe lines")
+    for l in probes:  # each line's own kernel, at least once a timed call, and no other
+        c = l["launches"]
+        if (set(c) != set(read_launches()) or c[l["kernel"]] < PROBE_CALLS
+                or any(v for k, v in c.items() if k != l["kernel"]) or l["max_abs_err"] != 0):
+            raise AssertionError(f"phase 12b: {l['probe']} launched {c}, max |diff| "
+                                 f"{l['max_abs_err']}")
+    c = versus["launches"]
+    if (c["crop_deinterleave"] < PROBE_CALLS or c["s2d_prologue"] < PROBE_CALLS
+            or any(v for k, v in c.items() if k not in ("crop_deinterleave", "s2d_prologue"))):
+        raise AssertionError(f"phase 12b: the jitter_s2d line launched {c}")
+    paths = {"gather_probe": {k: sum(l["launches"][k] for l in lines) for k in c}}
+    entries = []
+    for name, (probe, at) in GATHER_MAIN.items():
+        (main,) = [l for l in probes if l["probe"] == probe and (l["batch"] is None) == (at is None)]
+        p = next(p for p in gp.PROBES if p.name == probe)
+        case = p.build(gp.PROBE._replace(b=main["batch"] or gp.PROBE.b), gp.Draw(dev, 0))
+        host = host_us(lambda: gp.run(p, case))
+        del case
+        torch.cuda.empty_cache()
+        entries.append({
+            "name": name, "route": "cuda", "source": f"convnet_tpu_torch/csrc/{name}.cu",
+            "replaces": gp.SITES[name][0], "also_replaces": gp.SITES[name][1:],
+            "launches": paths["gather_probe"][name], "max_abs_err": errs[name],
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "library")},
+            "host_us": host, "timed_at": f"{probe} {main['out_shape']}",
+            "sub_probes": {f"{l['probe']}" + (f" batch {l['batch']}" if l["batch"] else ""):
+                           {k: l[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                           for l in probes if l["kernel"] == name},
+        })
+    seconds = time.perf_counter() - t0
+    print(f"[{card}] phase 12: crop_deinterleave {versus['crop_deinterleave_ms']:.4f} ms against "
+          f"jitter_s2d's train form {versus['jitter_s2d_train_ms']:.4f} ms at batch "
+          f"{versus['batch']}; {seconds:.1f} s")
+    facts = {"max_abs_err": errs, "versus_jitter_s2d": versus, "seconds": seconds}
+    return facts, paths, entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -4220,6 +4378,10 @@ def main(argv=None) -> int:
     probes, probe_paths, copy_add = check_probes(root, dev, card)
     print(json.dumps({"phase11": probes}, default=str))
 
+    # -- 12. the gather probes: crop_window, relayout, crop_deinterleave --------
+    gathers, gather_paths, gather_kernels = check_gather_probes(root, dev, card)
+    print(json.dumps({"phase12": gathers}, default=str))
+
     paths = {"serving": serve_launches, "train": train_launches,
              "reference_gradient": ref_launches, "alexnet_local": local_launches,
              # phase 8a: through the wrappers (the warm-up and capture steps;
@@ -4237,7 +4399,9 @@ def main(argv=None) -> int:
              **measure_paths,
              # phase 11: the copy probe's tilings (counted in its process)
              # and a request of 1 and of 64 to the serving probe's Predictor
-             **probe_paths}
+             **probe_paths,
+             # phase 12: the gather probe's lines (counted in its process)
+             **gather_paths}
     # phase 9a: each rank's launches over its MESH_STEPS steps (every rank's
     # the same, checked)
     for name, facts in mesh_ranks["meshes"].items():
@@ -4298,6 +4462,11 @@ def main(argv=None) -> int:
         **{k: copy_add[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "host_us", "tile")},
     })
+    # the gather probes' kernels, on no model's path: their main path is the
+    # gather probe's lines (phase 12)
+    for entry in gather_kernels:
+        entry["launches_by_path"] = {p: v[entry["name"]] for p, v in paths.items()}
+        kernels.append(entry)
     print(card)
     # phase 9a: the largest differences of each mesh's steps from one
     # device's (momentum share, param error over tolerance), beside the

@@ -28,7 +28,9 @@ warm_cpu_math()
 
 #: Each wrapper's CUDA kernels by their names on the card (csrc/), as a
 #: profiler's trace shows them: a pattern for re.search. `copy_add` is the
-#: chip probes' add (ops/copy_add.py), on no model's path.
+#: chip probes' add (ops/copy_add.py), and `crop_window`, `relayout` and
+#: `crop_deinterleave` the gather probes' kernels (ops/gather.py), on no
+#: model's path.
 KERNEL_NAMES = {
     "lrn_fwd": r"\blrn_fwd_(regs|generic)\b", "lrn_bwd": r"\blrn_bwd_kernel\b",
     "dropout": r"\bdropout_kernel\b", "step_draws": r"\bstep_draws_kernel\b",
@@ -36,6 +38,8 @@ KERNEL_NAMES = {
     "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
     "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
     "copy_add": r"\bcopy_add_kernel\b",
+    "crop_window": r"\bcrop_window_kernel\b", "relayout": r"\brelayout_kernel\b",
+    "crop_deinterleave": r"\bcrop_deinterleave_kernel\b",
 }
 
 
@@ -43,9 +47,12 @@ def launch_counts() -> Dict[str, int]:
     """Every CUDA kernel's launches in this process so far, by name: each
     wrapper counts where it launches its kernel (replays of a captured CUDA
     graph launch again without the wrappers, and are not counted here)."""
-    from convnet_tpu_torch.ops import copy_add, dropout, fused_pool_lrn, lrn, pool, s2d_relayout
+    from convnet_tpu_torch.ops import (copy_add, dropout, fused_pool_lrn, gather, lrn, pool,
+                                       s2d_relayout)
 
     return {"lrn_fwd": lrn.LAUNCHES, "lrn_bwd": lrn.BWD_LAUNCHES, "dropout": dropout.LAUNCHES,
             "step_draws": dropout.DRAW_LAUNCHES, "s2d_prologue": s2d_relayout.LAUNCHES,
             "maxpool_fwd": pool.LAUNCHES, "pool_lrn_fwd": fused_pool_lrn.LAUNCHES,
-            "pool_lrn_bwd": fused_pool_lrn.BWD_LAUNCHES, "copy_add": copy_add.LAUNCHES}
+            "pool_lrn_bwd": fused_pool_lrn.BWD_LAUNCHES, "copy_add": copy_add.LAUNCHES,
+            "crop_window": gather.CROP_WINDOW_LAUNCHES, "relayout": gather.RELAYOUT_LAUNCHES,
+            "crop_deinterleave": gather.CROP_DEINTERLEAVE_LAUNCHES}

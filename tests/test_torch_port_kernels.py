@@ -21,6 +21,8 @@ from convnet_tpu_torch.ops import lrn
 from convnet_tpu_torch.ops import pool
 from convnet_tpu_torch.ops import s2d_relayout as s2d
 from convnet_tpu_torch.ops import copy_add as ca
+from convnet_tpu_torch.ops import gather
+from convnet_tpu_torch.tools import gather_probe as gp
 
 
 @pytest.fixture
@@ -115,13 +117,15 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
     assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu",
-                     "maxpool_fwd.cu", "pool_lrn.cu", "copy_add.cu"}
+                     "maxpool_fwd.cu", "pool_lrn.cu", "copy_add.cu", "crop_window.cu",
+                     "relayout.cu", "crop_deinterleave.cu"}
     # the shared headers are hashed too: editing one builds a new library
     assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh",
                                                                      "stage.cuh"}
     assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_step_draws",
                                        "cn_s2d_prologue", "cn_maxpool_fwd", "cn_pool_lrn_fwd",
-                                       "cn_pool_lrn_bwd", "cn_copy_add"}
+                                       "cn_pool_lrn_bwd", "cn_copy_add", "cn_crop_window",
+                                       "cn_relayout", "cn_crop_deinterleave"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -937,3 +941,42 @@ def test_lrn_maxpool_autograd_runs_both_kernels(cuda):
     want = plrn._bwd_reference(g, m.detach(), x.detach(), 5, 1e-4 / 5, 0.75, 3, 2,
                                b.detach(), True, y=y.view(x.shape))
     assert bf16_ulps(dx, want[0]) <= POOL_LRN_BWD_ULPS and db.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The gather probes' kernels (ops/gather.py): chip_smoke.py phase 12a
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("geometry,mode,unaligned", [("PROBE", "random", False),
+                                                      ("RAGGED", "low", False),
+                                                      ("RAGGED", "high", False),
+                                                      ("PROBE", "random", True)])
+def test_gather_probes_match_their_plain_versions(cuda, geometry, mode, unaligned):
+    """Every sub-probe of tools/gather_probe.py through its kernel, bit for
+    bit its plain version: at the probes' shapes, at a ragged one with the
+    offsets at both ends of their range, from inputs off a 16-byte boundary."""
+    for p in gp.PROBES:
+        case = p.build(getattr(gp, geometry), gp.Draw(cuda, 3, mode, unaligned))
+        got = gp.run(p, case)
+        assert gp.same_bits(got, gp.run(p, case, "plain")), p.name
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16])
+def test_crop_window_writes_zeros_outside_its_input(cuda, dtype):
+    x = torch.randint(1, 200, (4, 256, 768), device=cuda).to(dtype)
+    off = torch.tensor([0, 33, -1, 10], dtype=torch.int32, device=cuda)
+    before = gather.CROP_WINDOW_LAUNCHES
+    got = gather.crop_window(x, 224, 768, row_off=off)
+    assert gather.CROP_WINDOW_LAUNCHES == before + 1
+    assert not got[1:3].any() and got[0].all() and torch.equal(got[3], x[3, 10:234])
+    assert gp.same_bits(got, gather.crop_window_reference(x, 224, 768, row_off=off))
+
+
+def test_crop_deinterleave_writes_nan_outside_its_input(cuda):
+    x = torch.randint(0, 256, (4, 256, 768), dtype=torch.uint8, device=cuda)
+    off = torch.tensor([0, 33, -1, 10], dtype=torch.int32, device=cuda)
+    zero = torch.zeros(4, dtype=torch.int32, device=cuda)
+    got = gather.crop_deinterleave(x, zero, off, zero)
+    assert torch.isnan(got.float()).flatten(1).all(1).tolist() == [False, True, True, False]
+    assert gp.same_bits(got, gather.crop_deinterleave_reference(x, zero, off, zero))
