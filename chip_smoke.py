@@ -4031,7 +4031,9 @@ GATHER_MAIN = {"crop_window": ("P1-fix", "batch"), "relayout": ("P30", None),
 def check_gather_kernels(dev, card) -> dict:
     """Phase 12a: every sub-probe of tools/gather_probe.py through its
     kernel, bit for bit equal to its plain version on the card, in each of
-    GATHER_RUNS; then windows that leave their input, written as the plain
+    GATHER_RUNS; its EDGES (every branch of crop_window.cu and relayout.cu)
+    from aligned and unaligned inputs; crop_window at the bench's batch;
+    then windows that leave their input, written as the plain
     versions write them (crop_window: zeros; crop_deinterleave: NaN) in
     u8 and bf16, and a relayout map that reads outside its input
     refused before any launch. Returns the largest |kernel - plain| by
@@ -4054,6 +4056,27 @@ def check_gather_kernels(dev, card) -> dict:
                 raise AssertionError(f"phase 12a: {p.name} ({p.kernel}) {label} is not bit for "
                                      f"bit its plain version (max |diff| "
                                      f"{gp.max_abs_err(got, want)})")
+    # the geometries that reach every branch of crop_window.cu and
+    # relayout.cu, from aligned inputs and inputs off a 16-byte boundary
+    for e in gp.EDGES:
+        for unaligned in (False, True):
+            case = e.build(gp.Draw(dev, 12, unaligned=unaligned))
+            got, want = gp.run_edge(e, case), gp.run_edge(e, case, "plain")
+            errs[e.kernel] = max(errs[e.kernel], gp.max_abs_err(got, want))
+            if not gp.same_bits(got, want):
+                raise AssertionError(f"phase 12a: {e.kernel} {e.name} (unaligned {unaligned}) is "
+                                     f"not bit for bit its plain version (max |diff| "
+                                     f"{gp.max_abs_err(got, want)})")
+    # crop_window at the bench's batch: many rows a warp
+    for name in ("P1-fix", "P13b"):
+        p = next(p for p in gp.PROBES if p.name == name)
+        case = p.build(gp.PROBE._replace(b=gp.BATCH), gp.Draw(dev, 12))
+        got, want = gp.run(p, case), gp.run(p, case, "plain")
+        if not gp.same_bits(got, want):
+            raise AssertionError(f"phase 12a: {name} at batch {gp.BATCH} is not bit for bit its "
+                                 f"plain version (max |diff| {gp.max_abs_err(got, want)})")
+        del case, got, want
+        torch.cuda.empty_cache()
     off = torch.tensor([0, 33, -1, 10], dtype=torch.int32, device=dev)
     zero = torch.zeros(4, dtype=torch.int32, device=dev)
     for dtype in (torch.uint8, torch.bfloat16):
@@ -4086,8 +4109,9 @@ def check_gather_kernels(dev, card) -> dict:
         raise AssertionError("phase 12a: relayout launched on a map it refused")
     torch.cuda.synchronize()
     print(f"[{card}] phase 12a: the {len(gp.PROBES)} gather sub-probes bit for bit equal to "
-          f"their plain versions {', '.join(r[0] for r in GATHER_RUNS)} (max |diff| by kernel "
-          f"{errs}); windows outside their input zeros (crop_window) and NaN "
+          f"their plain versions {', '.join(r[0] for r in GATHER_RUNS)}, the {len(gp.EDGES)} "
+          f"edge geometries aligned and not, P1-fix and P13b at batch {gp.BATCH} (max |diff| "
+          f"by kernel {errs}); windows outside their input zeros (crop_window) and NaN "
           f"(crop_deinterleave), a map outside its input refused; "
           f"{time.perf_counter() - t0:.1f} s")
     return errs
@@ -4096,6 +4120,8 @@ def check_gather_kernels(dev, card) -> dict:
 def check_gather_probes(root: Path, dev, card):
     """Phase 12 (a-c). Returns (facts, {path: launches}, the three kernels'
     entries of the kernels line but their launches by path)."""
+    import re
+
     import torch
 
     from convnet_tpu_torch.tools import gather_probe as gp
@@ -4103,7 +4129,8 @@ def check_gather_probes(root: Path, dev, card):
     t0 = time.perf_counter()
     errs = check_gather_kernels(dev, card)
     torch.cuda.empty_cache()  # the probe's subprocess shares the card
-    lines = run_probe(root, card, "gather_probe", "--calls", str(PROBE_CALLS), phase=12)
+    lines = run_probe(root, card, "gather_probe", "--calls", str(PROBE_CALLS), "--trace",
+                      phase=12)
     probes = [l for l in lines if l["metric"] == "gather_probe"]
     (versus,) = [l for l in lines if l["metric"] == "crop_deinterleave_vs_jitter_s2d"]
     per_image = sum(p.per_image for p in gp.PROBES)
@@ -4115,6 +4142,20 @@ def check_gather_probes(root: Path, dev, card):
                 or any(v for k, v in c.items() if k != l["kernel"]) or l["max_abs_err"] != 0):
             raise AssertionError(f"phase 12b: {l['probe']} launched {c}, max |diff| "
                                  f"{l['max_abs_err']}")
+    # the traced single blocks: one device activity a call, the kernel that
+    # ops.KERNEL_NAMES names for the line's wrapper
+    from convnet_tpu_torch.ops import KERNEL_NAMES
+
+    traced = {}
+    for l in probes:
+        if l["batch"] is None:
+            acts = l["trace"]["kernel"]
+            if (sum(a["per_call"] for a in acts.values()) != 1
+                    or not all(re.search(KERNEL_NAMES[l["kernel"]], n) for n in acts)):
+                raise AssertionError(f"phase 12b: {l['probe']}'s trace holds {acts}")
+            traced[l["probe"]] = {"kernel_us": sum(a["mean_us"] for a in acts.values()),
+                                  "library_us": l["trace"]["library"] and sum(
+                                      a["mean_us"] for a in l["trace"]["library"].values())}
     c = versus["launches"]
     if (c["crop_deinterleave"] < PROBE_CALLS or c["s2d_prologue"] < PROBE_CALLS
             or any(v for k, v in c.items() if k not in ("crop_deinterleave", "s2d_prologue"))):
@@ -4143,7 +4184,8 @@ def check_gather_probes(root: Path, dev, card):
     print(f"[{card}] phase 12: crop_deinterleave {versus['crop_deinterleave_ms']:.4f} ms against "
           f"jitter_s2d's train form {versus['jitter_s2d_train_ms']:.4f} ms at batch "
           f"{versus['batch']}; {seconds:.1f} s")
-    facts = {"max_abs_err": errs, "versus_jitter_s2d": versus, "seconds": seconds}
+    facts = {"max_abs_err": errs, "versus_jitter_s2d": versus, "traced_us": traced,
+             "seconds": seconds}
     return facts, paths, entries
 
 

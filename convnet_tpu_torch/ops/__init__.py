@@ -38,7 +38,7 @@ KERNEL_NAMES = {
     "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
     "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
     "copy_add": r"\bcopy_add_kernel\b",
-    "crop_window": r"\bcrop_window_kernel\b", "relayout": r"\brelayout_kernel\b",
+    "crop_window": r"\bcrop_window_kernel\b", "relayout": r"\brelayout_(run|tile)_kernel\b",
     "crop_deinterleave": r"\bcrop_deinterleave_kernel\b",
 }
 

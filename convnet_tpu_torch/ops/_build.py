@@ -60,7 +60,8 @@ _SIGNATURES = {
     # x, off_r, off_c, o, b, h, w, oh, ow, esize, row_base, row_mult, col_base,
     # col_mult, select, stream
     "cn_crop_window": [_p] * 4 + [_i] * 11 + [_p],
-    # x, s, o, map (host int64 array), in_numel, in_esize, epilogue, scale, k, stream
+    # x, s, o, plan (host int64 array, gather._packed_plan), in_numel, in_esize, epilogue,
+    # scale, k, stream
     "cn_relayout": [_p, _p, _p, ctypes.POINTER(_i64), _i64, _i, _i, _f, _i, _p],
     # x, oy, ox, fl, o, b, h, l, p, q, is_bf16, normalize, scale, shift, stream
     "cn_crop_deinterleave": [_p] * 5 + [_i] * 7 + [_f, _f, _p],

@@ -8,7 +8,8 @@ them.
   (`csrc/crop_window.cu`).
 - `relayout`: an output-indexed gather over a view of up to four dims
   (sizes, input strides, rolls, flips) with a small epilogue
-  (`csrc/relayout.cu`).
+  (`csrc/relayout.cu`); `_relayout_plan` reduces the map on the host and
+  picks the kernel's route.
 - `crop_deinterleave`: stage 1 of the gather design of the per-image crop:
   crop, normalize, deinterleave into the (rp, p) x (cpc, q) layout, and
   flip (`csrc/crop_deinterleave.cu`).
@@ -27,6 +28,7 @@ write it. `relayout`'s map is static, and checked on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -186,6 +188,73 @@ def _read_box(dims: Sequence[Dim], base: int) -> Tuple[int, int]:
     return lo, hi
 
 
+#: relayout's kernel routes (csrc/relayout.cu): "run", one 16-byte output
+#: word a thread, read as a contiguous input run where the innermost dim
+#: steps by +1 or -1 (a copy or a reverse; where that dim mirrors, the
+#: card picks which by s[0]), element by element elsewhere; "tile", a
+#: shared-memory transpose of the unit-stride dim and the innermost one.
+RELAYOUT_ROUTES = ("run", "tile")
+_ROW_EPILOGUES = ("row_flag_col0", "row_below_s")
+
+
+class RelayoutPlan(NamedTuple):
+    """relayout's map as the kernel runs it (_relayout_plan): `dims` in
+    output order, each still a Dim, from `base`; `unit` is the tile
+    route's dim read with stride +-1 (the run route's innermost dim)."""
+    route: str
+    dims: Tuple[Dim, ...]
+    base: int
+    unit: int
+
+
+def _plain_dim(d: Dim) -> bool:
+    """A dim that neither rolls nor mirrors."""
+    return d.roll % d.size == 0 and not d.roll_by_s and not d.mirror_if_s
+
+
+@functools.lru_cache(maxsize=256)
+def _relayout_plan(dims: Tuple[Dim, ...], base: int = 0,
+                   epilogue: str = "copy") -> RelayoutPlan:
+    """Reduce a map without changing what it computes: drop dims of size 1
+    (their coordinate is 0), merge neighbours d, d + 1 where stride_d ==
+    size_{d+1} * stride_{d+1} and neither rolls or mirrors, then pick the
+    route. The row epilogues key on dim 0, which is kept whole; the
+    anti-diagonal reads nothing, so only its first and last dims' output
+    coordinates count and the dims between them become one."""
+    if epilogue == "antidiagonal":
+        if len(dims) == 1:
+            return RelayoutPlan("run", (Dim(dims[0].size, 0),), 0, 0)
+        mid = math.prod(d.size for d in dims[1:-1])
+        kept = [Dim(dims[0].size, 0)] + [Dim(mid, 0)] * (mid > 1) + [Dim(dims[-1].size, 0)]
+        return RelayoutPlan("run", tuple(kept), 0, len(kept) - 1)
+    pinned = epilogue in _ROW_EPILOGUES
+    kept = [d for i, d in enumerate(dims) if d.size > 1 or (pinned and i == 0)] or [Dim(1, 1)]
+    out = [kept[0]]
+    for d in kept[1:]:
+        p = out[-1]
+        if (not (pinned and len(out) == 1) and _plain_dim(p) and _plain_dim(d)
+                and p.stride == d.size * d.stride):
+            out[-1] = Dim(p.size * d.size, d.stride)
+        else:
+            out.append(d)
+    units = [j for j, d in enumerate(out[:-1]) if abs(d.stride) == 1]
+    if abs(out[-1].stride) == 1 or not units:
+        return RelayoutPlan("run", tuple(out), base, len(out) - 1)
+    return RelayoutPlan("tile", tuple(out), base, units[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_plan(dims: Tuple[Dim, ...], base: int, epilogue: str):
+    """The plan as cn_relayout reads it: rank, route, base, unit, then
+    each dim's size, stride, static roll and flags (host int64s)."""
+    plan = _relayout_plan(dims, base, epilogue)
+    fields = [len(plan.dims), RELAYOUT_ROUTES.index(plan.route), plan.base, plan.unit]
+    for d in plan.dims:
+        fields += [d.size, d.stride, d.roll,
+                   _ROLL_BY_S * d.roll_by_s + _MIRROR_IF_S * d.mirror_if_s]
+    return (ctypes.c_int64 * len(fields))(*fields)
+
+
 def relayout_reference(x: torch.Tensor, dims: Sequence[Dim], *, base: int = 0,
                        s: Optional[torch.Tensor] = None, epilogue: str = "copy",
                        scale: float = 1.0, k: int = 0,
@@ -271,11 +340,7 @@ def relayout(x: torch.Tensor, dims: Sequence[Dim], *, base: int = 0,
         raise ValueError(f"{name}: x and s must be contiguous")
     out = torch.empty([d.size for d in dims], device=x.device,
                       dtype=x.dtype if epilogue == "copy" else torch.bfloat16)
-    fields = [len(dims), base]
-    for d in dims:
-        fields += [d.size, d.stride, d.roll,
-                   _ROLL_BY_S * d.roll_by_s + _MIRROR_IF_S * d.mirror_if_s]
-    packed = (ctypes.c_int64 * len(fields))(*fields)
+    packed = _packed_plan(tuple(Dim(*d) for d in dims), base, epilogue)
     from convnet_tpu_torch.ops import _build
 
     global RELAYOUT_LAUNCHES

@@ -3,7 +3,7 @@
 by the port's kernels and timed. Prints one JSON line per sub-probe:
 
     python -m convnet_tpu_torch.tools.gather_probe [--device cuda|cpu]
-        [--seed N] [--calls 20] [--batch 4096]
+        [--seed N] [--calls 20] [--batch 4096] [--trace]
 
 The TPU scripts are compile-only: each lowers one Mosaic primitive of a
 gather form of the per-image crop (uint8 256 x 256 x 3 -> bf16 224 x 224,
@@ -25,7 +25,9 @@ queued behind a spin kernel, launches hidden, median of 3 runs; on the CPU
 the host clock with a synchronize), `plain_ms`, and where one PyTorch call
 computes the same function (`torch.roll`, `torch.flip`, a permute or a
 strided slice made contiguous, `clone`, `index_select`, advanced
-indexing) its name and `library_ms`, else "none" and null; `bound_ms`, the
+indexing, `torch.mul` into a bf16 output) its name and `library_ms`, else
+"none" and null (P19, P19b, P25a, P24, P31: no single call computes a
+per-row select, the one-hot or stage 1); `bound_ms`, the
 bytes the function must move (the output once, the input elements it
 reads once, the offsets) over 3.35 TB/s, or its operations over 67
 TFLOP/s where that is larger; the device's name and power limit, and
@@ -35,6 +37,9 @@ KB: launch-bound); the per-image probes also at --batch images. One last
 line times `crop_deinterleave` with flips against `ops/s2d_relayout.py`
 `jitter_s2d`'s train form (random crops and flips, scale 1/255, mean 0.45)
 on the same --batch uint8 images and crops. Inputs are drawn from --seed.
+--trace adds to each single-block line the torch.profiler durations of
+the kernel's and the library call's device activities, the gaps between
+calls left out. EDGES holds the geometries that only the card checks run.
 The run's device is the card unless --device cpu is given; with no card it
 exits before measuring anything.
 """
@@ -289,6 +294,15 @@ def _flip_qcp(g, d, when_s):
                 library_name="torch.flip, or clone where s[0] <= 0" if when_s else "torch.flip")
 
 
+def _scale_u8(g, d):
+    """P14a/b: u8 -> f32 * 0.5 -> bf16, which torch.mul computes into a
+    bf16 output (in f32, then rounded to nearest even)."""
+    out = torch.empty(_I(g), dtype=torch.bfloat16, device=d.device)
+    return _map(g, d, [Dim(g.h, g.l), Dim(g.l, 1)], epilogue="scale_u8", scale=0.5, u8=True,
+                library=lambda x, s0: torch.mul(x, 0.5, out=out),
+                library_name="torch.mul(x, 0.5, out=o), o bf16")
+
+
 def _crop_block(g: Geometry, d: Draw) -> Case:
     """P21: the deinterleave chain on one bf16 (W, CW) crop."""
     s = d.scalar(0)
@@ -343,10 +357,8 @@ PROBES: List[Probe] = [
           lambda g, d: _static_window(g, d, g.h, 128, col_base=5)),
     Probe("P1-fix", 17, f"{G2}:73 p1_fix", "crop_window", _rows, per_image=True),
     Probe("P13b", 18, f"{G2}:104 p13b", "crop_window", _cols, per_image=True),
-    Probe("P14a", 19, f"{G2}:126 p14a", "relayout", lambda g, d: _map(
-        g, d, [Dim(g.h, g.l), Dim(g.l, 1)], epilogue="scale_u8", scale=0.5, u8=True), ops=1),
-    Probe("P14b", 19, f"{G2}:126 p14b", "relayout", lambda g, d: _map(
-        g, d, [Dim(g.h, g.l), Dim(g.l, 1)], epilogue="scale_u8", scale=0.5, u8=True), ops=1),
+    Probe("P14a", 19, f"{G2}:126 p14a", "relayout", _scale_u8, ops=1),
+    Probe("P14b", 19, f"{G2}:126 p14b", "relayout", _scale_u8, ops=1),
     Probe("P15a", 19, f"{G2}:126 p15a", "relayout", lambda g, d: _map(
         g, d, [Dim(g.h, g.l), Dim(g.l, -1)], base=g.l - 1,
         library=lambda x, s0: torch.flip(x, [1]), library_name="torch.flip")),
@@ -409,6 +421,102 @@ PROBES: List[Probe] = [
 #: the TPU sites of each kernel's rows, for the kernels line of chip_smoke.py
 SITES = {k: sorted({p.site.split()[0] for p in PROBES if p.kernel == k},
                    key=lambda s: (s.split(":")[0], int(s.split(":")[1]))) for k in KERNELS}
+
+
+# -- edge geometries: every branch of crop_window.cu and relayout.cu ---------------
+
+
+class Edge(NamedTuple):
+    """A geometry that no sub-probe reaches, for the card's bit-for-bit
+    checks (chip_smoke.py phase 12a, tests/test_torch_port_kernels.py)."""
+    name: str
+    kernel: str  # crop_window or relayout
+    build: Callable[[Draw], Case]
+
+
+def _windows(b: int, h: int, w: int, rows: int, cols: int, u8: bool, col_off) -> Callable:
+    """b images, their column origins col_off (an origin past w - cols
+    leaves the input: zeros), row origins drawn."""
+    def build(d: Draw) -> Case:
+        x = (d.u8 if u8 else d.bf16)((b, h, w))
+        oy, ox = d.t(d.ints(b, h - rows)), d.t(np.asarray(col_off, np.int32))
+        return Case((oy, ox, x), lambda f, oy, ox, x: f(x, rows, cols, row_off=oy, col_off=ox,
+                                                         outside="zero"), None, "none")
+    return build
+
+
+def _edge_map(in_shape, dims, *, base=0, s0=0, epilogue="copy", u8=False, scale=0.5,
+              k=0) -> Callable:
+    def build(d: Draw) -> Case:
+        x = (d.u8 if u8 else d.bf16)(in_shape)
+        s = d.t(np.array([s0] + [0] * (S_LEN - 1), np.int32))
+        return Case((s, x), lambda f, s, x: f(x, dims, base=base, s=s, epilogue=epilogue,
+                                              scale=scale, k=k), None, "none")
+    return build
+
+
+EDGES: List[Edge] = [
+    # crop_window: column origins of 0-15 elements (one image each), a row
+    # of 261 elements (522 bytes, 261 bytes: no multiple of 16), an origin
+    # that leaves the input, rows shorter than a word, B = 1
+    Edge("column origins 0-15, bf16", "crop_window",
+         _windows(17, 20, 300, 17, 261, False, list(range(16)) + [40])),
+    Edge("column origins 0-15, u8", "crop_window",
+         _windows(17, 20, 300, 17, 261, True, list(range(16)) + [40])),
+    Edge("rows of 5 u8", "crop_window", _windows(4, 9, 30, 6, 5, True, [0, 3, 25, 26])),
+    Edge("rows of 7 bf16", "crop_window", _windows(4, 9, 30, 6, 7, False, [0, 9, 23, 24])),
+    Edge("B = 1", "crop_window", _windows(1, 256, 768, 224, 672, False, [31])),
+    # relayout, run: a roll that splits a run of 203, in bf16 and u8
+    Edge("roll splits a run, bf16", "relayout", _edge_map(
+        (37, 203), [Dim(37, 203, roll_by_s=True), Dim(203, 1, roll=77)], s0=9)),
+    Edge("roll by s splits a run, u8", "relayout", _edge_map(
+        (19, 333), [Dim(19, 333), Dim(333, 1, roll_by_s=True)], s0=-100, u8=True)),
+    # run reverse: runs of 203 (no multiple of 8 or 16), copy and u8 -> bf16
+    Edge("reversed runs of 203, bf16", "relayout", _edge_map(
+        (45, 203), [Dim(45, 203), Dim(203, -1)], base=202)),
+    Edge("reversed runs of 203, u8", "relayout", _edge_map(
+        (45, 203), [Dim(45, 203), Dim(203, -1, roll=5)], base=202, u8=True)),
+    Edge("reversed runs of 203, u8 -> bf16", "relayout", _edge_map(
+        (45, 203), [Dim(45, 203), Dim(203, -1)], base=202, u8=True, epilogue="scale_u8")),
+    Edge("mirror and roll by s, s[0] = 3", "relayout", _edge_map(
+        (45, 203), [Dim(45, 203), Dim(203, 1, roll_by_s=True, mirror_if_s=True)], s0=3)),
+    Edge("mirror by s, s[0] = 0", "relayout", _edge_map(
+        (45, 203), [Dim(45, 203, mirror_if_s=True), Dim(203, 1, mirror_if_s=True)])),
+    Edge("u8 -> bf16 from an odd base", "relayout", _edge_map(
+        (3, 1001), [Dim(2, 1001), Dim(997, 1)], base=3, u8=True, epilogue="scale_u8")),
+    Edge("rank 4, a last partial word, u8", "relayout", _edge_map(
+        (3, 5, 7, 11), [Dim(3, 385), Dim(7, 11), Dim(5, 77), Dim(11, 1)], u8=True)),
+    # tile: ragged edges on both tile dims, the unit-stride dim first,
+    # mirrored by s and the innermost dim rolled
+    Edge("transpose of 45 x 203", "relayout", _edge_map(
+        (45, 203), [Dim(203, 1), Dim(45, 203)])),
+    Edge("tile, unit dim first, mirror and roll", "relayout", _edge_map(
+        (5, 45, 37), [Dim(37, 1, mirror_if_s=True), Dim(5, 45 * 37), Dim(45, 37, roll=4)], s0=2)),
+    Edge("tile, u8", "relayout", _edge_map(
+        (45, 203), [Dim(203, 1), Dim(45, 203)], u8=True)),
+    # the row epilogues through the tile (dim 0 the unit dim) and on one dim
+    Edge("row below s, tile", "relayout", _edge_map(
+        (45, 203), [Dim(203, 1), Dim(45, 203)], s0=100, epilogue="row_below_s")),
+    Edge("row flag, tile", "relayout", _edge_map(
+        (45, 203), [Dim(203, 1), Dim(45, 203)], epilogue="row_flag_col0")),
+    Edge("row below s, one dim", "relayout", _edge_map(
+        (300,), [Dim(300, 1)], s0=100, epilogue="row_below_s")),
+    Edge("row flag, dim 0 of size 1", "relayout", _edge_map(
+        (100,), [Dim(1, 50), Dim(50, 1)], epilogue="row_flag_col0")),
+    # no dim steps by +-1: the run route, element by element
+    Edge("no unit stride", "relayout", _edge_map((34, 7), [Dim(30, 7), Dim(11, 3)])),
+    Edge("size-1 dims", "relayout", _edge_map(
+        (40, 3), [Dim(1, 5), Dim(40, 3), Dim(1, 3), Dim(3, 1)])),
+    # the anti-diagonal on one dim and on four
+    Edge("antidiagonal, one dim", "relayout", _edge_map(
+        (1,), [Dim(40, 0)], epilogue="antidiagonal", k=31)),
+    Edge("antidiagonal, four dims", "relayout", _edge_map(
+        (1,), [Dim(9, 0), Dim(3, 0), Dim(2, 0), Dim(21, 0)], epilogue="antidiagonal", k=9)),
+]
+
+
+def run_edge(edge: Edge, case: Case, impl: str = "kernel") -> torch.Tensor:
+    return case.call(KERNELS[edge.kernel][impl == "plain"], *case.args)
 
 
 def run(probe: Probe, case: Case, impl: str = "kernel") -> torch.Tensor:
@@ -502,10 +610,54 @@ def versus_jitter_s2d(device: torch.device, batch: int, calls: int, seed: int,
     }
 
 
-def probe_lines(device: torch.device, batch: int = BATCH, calls: int = 20,
-                seed: int = 0) -> List[Dict]:
+def traced(fn: Callable[[], object], calls: int, tries: int = 3) -> Dict:
+    """The card's activities over `calls` calls of fn under torch.profiler
+    (CUDA activity alone): by name, their count a call and mean µs. Their
+    durations leave out the gaps between them that device_ms includes. A
+    trace that holds fewer activities than calls (the profiler dropped
+    some) is taken again, up to `tries` times."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        acts: Dict[str, List[float]] = {}
+        for ev in events:
+            if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                a = acts.setdefault(ev.get("name", ""), [0, 0.0])
+                a[0] += 1
+                a[1] += float(ev.get("dur", 0))
+        if sum(n for n, _ in acts.values()) >= calls:
+            break
+    return {name: {"per_call": n / calls, "mean_us": t / n} for name, (n, t) in acts.items()}
+
+
+def probe_lines(device: torch.device, batch: int = BATCH, calls: int = 20, seed: int = 0,
+                trace: bool = False) -> List[Dict]:
+    """Every sub-probe's lines; with `trace`, on the card, each single-block
+    line also holds `trace`: the kernel's and the library call's device
+    activities (traced)."""
     facts = card.device_facts(device)
-    lines = [measure(p, PROBE, device, calls, seed, facts) for p in PROBES]
+    lines = []
+    for p in PROBES:
+        line = measure(p, PROBE, device, calls, seed, facts)
+        if trace and device.type == "cuda":
+            case = p.build(PROBE, Draw(device, seed))
+            line["trace"] = {"kernel": traced(lambda: run(p, case), calls),
+                             "library": case.library and traced(case.library, calls)}
+        lines.append(line)
     for p in PROBES:
         if p.per_image:
             lines.append(measure(p, PROBE._replace(b=batch), device, calls, seed, facts, batch))
@@ -522,10 +674,13 @@ def main(argv=None) -> int:
                    help="calls a timed run (on the card: queued behind one spin)")
     p.add_argument("--batch", type=int, default=BATCH,
                    help="images of the per-image probes' second line and of the last line")
+    p.add_argument("--trace", action="store_true",
+                   help="on the card, also trace each single-block line's kernel and library "
+                        "call with torch.profiler (their device activities, gaps left out)")
     add_device_argument(p)
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
-    for line in probe_lines(dev, a.batch, a.calls, a.seed):
+    for line in probe_lines(dev, a.batch, a.calls, a.seed, a.trace):
         print(json.dumps(line), flush=True)
     return 0
 

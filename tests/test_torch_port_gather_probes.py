@@ -302,7 +302,8 @@ def test_no_kernel_for_another_device():
 
 
 def test_gather_probe_on_the_cpu(capsys):
-    assert gp.main(["--device", "cpu", "--batch", "2", "--calls", "1"]) == 0
+    # --trace traces the card's activities: nothing to add on the CPU
+    assert gp.main(["--device", "cpu", "--batch", "2", "--calls", "1", "--trace"]) == 0
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     per_image = [p.name for p in gp.PROBES if p.per_image]
     assert [l.get("probe") for l in lines] == (
@@ -312,6 +313,118 @@ def test_gather_probe_on_the_cpu(capsys):
         assert l["power_limit_w"] is None and l["max_abs_err"] == 0.0
         assert l["launches"] == dict.fromkeys(ops.KERNEL_NAMES, 0)
         assert l["ms"] > 0 and l["plain_ms"] > 0 and l["bound_ms"] > 0
-        assert (l["library"] == "none") == (l["library_ms"] is None)
+        assert (l["library"] == "none") == (l["library_ms"] is None) and "trace" not in l
     assert [l["batch"] for l in lines[40:-1]] == [2] * len(per_image)
     assert lines[-1]["metric"] == "crop_deinterleave_vs_jitter_s2d" and lines[-1]["batch"] == 2
+
+
+# -- relayout's host plan (ops/gather.py _relayout_plan) ----------------------------
+
+#: the route each relayout sub-probe takes (csrc/relayout.cu)
+ROUTES = {
+    "P2": "run copy", "P3": "run copy", "P4": "run copy", "P5": "run copy", "P6": "run copy",
+    "P2b": "run copy", "P3b": "run copy", "P14a": "run copy", "P14b": "run copy",
+    "P15a": "run reverse", "P15b": "run copy", "P15c": "run copy", "P16": "tile transpose",
+    "P17a": "run copy", "P19": "run copy", "P20": "run copy", "P20b": "run reverse",
+    "P22": "run, copy or reverse by s[0]", "P19b": "run copy", "P25a": "run, nothing read",
+    "P25b": "run reverse", "P25c": "run copy", "P25d": "tile transpose", "P30": "tile transpose",
+}
+#: the reduced rank where merging changes it (the others keep theirs)
+RANKS = {"P14a": 1, "P14b": 1, "P17a": 1, "P15c": 2, "P20": 3, "P25b": 2, "P25c": 3}
+
+
+def _route(plan) -> str:
+    if plan.route == "tile":
+        return "tile transpose"
+    inner = plan.dims[-1]
+    if inner.stride == 0:
+        return "run, nothing read"
+    if abs(inner.stride) != 1:
+        return "run, element by element"
+    if inner.mirror_if_s:
+        return "run, copy or reverse by s[0]"
+    return "run copy" if inner.stride == 1 else "run reverse"
+
+
+def _recorded_map(case: gp.Case):
+    """The map and keywords that a relayout case hands its wrapper."""
+    seen = {}
+
+    def record(x, dims, **kw):
+        seen.update(x=x, dims=tuple(dims), **kw)
+        return relayout(x, dims, **kw)
+
+    case.call(record, *case.args)
+    return seen
+
+
+def _check_plan(m):
+    """The reduced map, through relayout_reference, computes the original's
+    output bit for bit, and reads the original's box, inside the input."""
+    dims, base, epilogue = m["dims"], m.get("base", 0), m.get("epilogue", "copy")
+    plan = gather._relayout_plan(dims, base, epilogue)
+    assert plan.route in gather.RELAYOUT_ROUTES and 1 <= len(plan.dims) <= 4
+    kw = dict(s=m.get("s"), epilogue=epilogue, scale=m.get("scale", 1.0), k=m.get("k", 0))
+    want = gather.relayout_reference(m["x"], dims, base=base, **kw)
+    got = gather.relayout_reference(m["x"], plan.dims, base=plan.base, **kw)
+    assert gp.same_bits(got.reshape(want.shape), want)
+    if epilogue != "antidiagonal":
+        assert gather._read_box(plan.dims, plan.base) == gather._read_box(dims, base)
+        lo, hi = gather._read_box(plan.dims, plan.base)
+        assert 0 <= lo and hi < m["x"].numel()
+    if plan.route == "tile":
+        assert abs(plan.dims[plan.unit].stride) == 1 and plan.unit < len(plan.dims) - 1
+    return plan
+
+
+@pytest.mark.parametrize("geometry", ["PROBE", "RAGGED"])
+@pytest.mark.parametrize("name", [p.name for p in gp.PROBES if p.kernel == "relayout"])
+def test_relayout_plan_of_each_probe(name, geometry):
+    probe = next(p for p in gp.PROBES if p.name == name)
+    m = _recorded_map(probe.build(getattr(gp, geometry), gp.Draw(CPU, SEED)))
+    plan = _check_plan(m)
+    assert _route(plan) == ROUTES[name]
+    assert len(plan.dims) == RANKS.get(name, len(m["dims"]))
+
+
+@pytest.mark.parametrize("name", [e.name for e in gp.EDGES if e.kernel == "relayout"])
+def test_relayout_plan_of_each_edge(name):
+    edge = next(e for e in gp.EDGES if e.name == name)
+    _check_plan(_recorded_map(edge.build(gp.Draw(CPU, SEED))))
+
+
+def test_relayout_plan_merges_and_keeps():
+    plan = gather._relayout_plan
+    # P20's (8, 12, q, 96) view: img and cpc merge; q runs backwards, so stays
+    assert plan((Dim(8, 12 * 56 * 96), Dim(12, 56 * 96), Dim(56, -96), Dim(96, 1)), 55 * 96) == (
+        "run", (Dim(96, 56 * 96), Dim(56, -96), Dim(96, 1)), 55 * 96, 2)
+    # negative strides merge where the rule holds; a roll or a mirror blocks it
+    assert plan((Dim(4, -6), Dim(3, -2)), 23).dims == (Dim(12, -2),)
+    assert plan((Dim(4, 6), Dim(3, 2, roll=1)), 0).dims == (Dim(4, 6), Dim(3, 2, roll=1))
+    assert plan((Dim(4, 6), Dim(3, 2, roll=3)), 0).dims == (Dim(12, 2),)  # a whole turn
+    assert plan((Dim(4, 6, mirror_if_s=True), Dim(3, 2)), 0).route == "run"
+    assert len(plan((Dim(4, 6, mirror_if_s=True), Dim(3, 2)), 0).dims) == 2
+    # the row epilogues keep dim 0, size 1 included; other size-1 dims go
+    assert plan((Dim(1, 7), Dim(5, 3), Dim(3, 1)), 0, "row_below_s").dims == (
+        Dim(1, 7), Dim(15, 1))
+    assert plan((Dim(1, 7), Dim(5, 3), Dim(3, 1)), 0, "copy").dims == (Dim(15, 1),)
+    assert plan((Dim(1, 7), Dim(1, 3)), 4, "copy") == ("run", (Dim(1, 1),), 4, 0)
+    # the anti-diagonal: first and last dims, the ones between as one
+    assert plan((Dim(9, 1), Dim(3, 5), Dim(2, 8), Dim(21, 2)), 0, "antidiagonal").dims == (
+        Dim(9, 0), Dim(6, 0), Dim(21, 0))
+    # the tile's unit dim is the innermost of the +-1 dims before the last
+    assert plan((Dim(3, 1), Dim(4, -1), Dim(5, 12)), 3)[::3] == ("tile", 1)
+
+
+def test_relayout_plan_splits_runs_reverses_and_gathers():
+    """A roll that splits each run, a stride of -1, and a map with no stride
+    of +-1, which the run route reads element by element inside its box."""
+    x = torch.arange(600, dtype=torch.int16).view(torch.bfloat16)
+    s = torch.tensor([7] + [0] * 7, dtype=torch.int32)
+    for dims, base, route in (([Dim(20, 30), Dim(30, 1, roll_by_s=True)], 0, "run copy"),
+                              ([Dim(20, 30), Dim(30, -1, roll=4)], 29, "run reverse"),
+                              ([Dim(20, 29), Dim(6, 3)], 0, "run, element by element"),
+                              ([Dim(30, 1), Dim(20, 30)], 0, "tile transpose")):
+        p = _check_plan(dict(x=x, dims=tuple(dims), base=base, s=s))
+        assert _route(p) == route
+

@@ -121,12 +121,29 @@ def test_library_is_keyed_by_the_sources():
                      "relayout.cu", "crop_deinterleave.cu"}
     # the shared headers are hashed too: editing one builds a new library
     assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh",
-                                                                     "stage.cuh"}
+                                                                     "stage.cuh", "span.cuh"}
     assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_step_draws",
                                        "cn_s2d_prologue", "cn_maxpool_fwd", "cn_pool_lrn_fwd",
                                        "cn_pool_lrn_bwd", "cn_copy_add", "cn_crop_window",
                                        "cn_relayout", "cn_crop_deinterleave"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_kernel_names_match_the_sources():
+    """Each wrapper's pattern (ops.KERNEL_NAMES, read by traces) names a
+    __global__ function of csrc/; relayout's, both of its routes."""
+    import re
+
+    from convnet_tpu_torch.ops import KERNEL_NAMES
+
+    kernels = set()
+    for src in _build._hashed_files():
+        kernels |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                  src.read_text()))
+    for name, pattern in KERNEL_NAMES.items():
+        assert any(re.search(pattern, k) for k in kernels), name
+    assert {k for k in kernels if re.search(KERNEL_NAMES["relayout"], k)} == {
+        "relayout_run_kernel", "relayout_tile_kernel"}
 
 
 @pytest.mark.parametrize("beta,q", [(0.75, 3), (1.0, 4), (1.25, 5), (0.6, 0), (5.0, 0)])
@@ -980,3 +997,30 @@ def test_crop_deinterleave_writes_nan_outside_its_input(cuda):
     got = gather.crop_deinterleave(x, zero, off, zero)
     assert torch.isnan(got.float()).flatten(1).all(1).tolist() == [False, True, True, False]
     assert gp.same_bits(got, gather.crop_deinterleave_reference(x, zero, off, zero))
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("name", [e.name for e in gp.EDGES])
+def test_gather_edges_match_their_plain_versions(cuda, name, unaligned):
+    """The geometries that reach every branch of crop_window.cu and
+    relayout.cu (gather_probe.EDGES: column origins 0-15, rows of no whole
+    16-byte word, u8 and bf16, windows outside the input, a roll that
+    splits a run, reversed runs of 203, ragged tiles, the row epilogues and
+    the anti-diagonal at other ranks), from aligned inputs and from inputs
+    one element off a 16-byte boundary: one launch each, bit for bit."""
+    edge = next(e for e in gp.EDGES if e.name == name)
+    case = edge.build(gp.Draw(cuda, 5, unaligned=unaligned))
+    counts = (gather.CROP_WINDOW_LAUNCHES, gather.RELAYOUT_LAUNCHES)
+    got = gp.run_edge(edge, case)
+    after = (gather.CROP_WINDOW_LAUNCHES, gather.RELAYOUT_LAUNCHES)
+    assert [a - b for a, b in zip(after, counts)] == ([1, 0] if edge.kernel == "crop_window"
+                                                      else [0, 1])
+    assert gp.same_bits(got, gp.run_edge(edge, case, "plain")), name
+
+
+@pytest.mark.parametrize("name", ["P1-fix", "P13b"])
+def test_crop_window_at_the_bench_batch(cuda, name):
+    """crop_window at 4096 images: the persistent grid walks many rows a warp."""
+    probe = next(p for p in gp.PROBES if p.name == name)
+    case = probe.build(gp.PROBE._replace(b=gp.BATCH), gp.Draw(cuda, 9))
+    assert gp.same_bits(gp.run(probe, case), gp.run(probe, case, "plain"))
