@@ -232,7 +232,9 @@ any failure raises and the script exits non-zero:
    bit equal to its plain version on the card: at the probes' shapes, at
    a ragged shape (7 images of 252 x 760 cropped to 220 x 660) with the
    offsets at both ends of their range in turn, and from inputs one
-   element past a 16-byte boundary; windows that leave their input
+   element past a 16-byte boundary; the edge geometries that reach every
+   branch of the three kernels (gather_probe.EDGES), aligned and not;
+   P1-fix, P13b, P24 and P31 at batch 4096; windows that leave their input
    written as zeros (crop_window, in u8 and bf16) and NaN
    (crop_deinterleave), as the plain versions write them, and a relayout
    map that reads outside its input refused before any launch. (b)
@@ -4031,8 +4033,9 @@ GATHER_MAIN = {"crop_window": ("P1-fix", "batch"), "relayout": ("P30", None),
 def check_gather_kernels(dev, card) -> dict:
     """Phase 12a: every sub-probe of tools/gather_probe.py through its
     kernel, bit for bit equal to its plain version on the card, in each of
-    GATHER_RUNS; its EDGES (every branch of crop_window.cu and relayout.cu)
-    from aligned and unaligned inputs; crop_window at the bench's batch;
+    GATHER_RUNS; its EDGES (every branch of crop_window.cu, relayout.cu
+    and crop_deinterleave.cu) from aligned and unaligned inputs;
+    crop_window and crop_deinterleave at the bench's batch;
     then windows that leave their input, written as the plain
     versions write them (crop_window: zeros; crop_deinterleave: NaN) in
     u8 and bf16, and a relayout map that reads outside its input
@@ -4056,8 +4059,8 @@ def check_gather_kernels(dev, card) -> dict:
                 raise AssertionError(f"phase 12a: {p.name} ({p.kernel}) {label} is not bit for "
                                      f"bit its plain version (max |diff| "
                                      f"{gp.max_abs_err(got, want)})")
-    # the geometries that reach every branch of crop_window.cu and
-    # relayout.cu, from aligned inputs and inputs off a 16-byte boundary
+    # the geometries that reach every branch of the three kernels, from
+    # aligned inputs and inputs off a 16-byte boundary
     for e in gp.EDGES:
         for unaligned in (False, True):
             case = e.build(gp.Draw(dev, 12, unaligned=unaligned))
@@ -4067,8 +4070,9 @@ def check_gather_kernels(dev, card) -> dict:
                 raise AssertionError(f"phase 12a: {e.kernel} {e.name} (unaligned {unaligned}) is "
                                      f"not bit for bit its plain version (max |diff| "
                                      f"{gp.max_abs_err(got, want)})")
-    # crop_window at the bench's batch: many rows a warp
-    for name in ("P1-fix", "P13b"):
+    # at the bench's batch: crop_window's many rows a warp, crop_deinterleave's
+    # many items a CTA
+    for name in ("P1-fix", "P13b", "P24", "P31"):
         p = next(p for p in gp.PROBES if p.name == name)
         case = p.build(gp.PROBE._replace(b=gp.BATCH), gp.Draw(dev, 12))
         got, want = gp.run(p, case), gp.run(p, case, "plain")
@@ -4110,7 +4114,8 @@ def check_gather_kernels(dev, card) -> dict:
     torch.cuda.synchronize()
     print(f"[{card}] phase 12a: the {len(gp.PROBES)} gather sub-probes bit for bit equal to "
           f"their plain versions {', '.join(r[0] for r in GATHER_RUNS)}, the {len(gp.EDGES)} "
-          f"edge geometries aligned and not, P1-fix and P13b at batch {gp.BATCH} (max |diff| "
+          f"edge geometries aligned and not, P1-fix, P13b, P24 and P31 at batch {gp.BATCH} "
+          f"(max |diff| "
           f"by kernel {errs}); windows outside their input zeros (crop_window) and NaN "
           f"(crop_deinterleave), a map outside its input refused; "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4155,7 +4160,8 @@ def check_gather_probes(root: Path, dev, card):
                 raise AssertionError(f"phase 12b: {l['probe']}'s trace holds {acts}")
             traced[l["probe"]] = {"kernel_us": sum(a["mean_us"] for a in acts.values()),
                                   "library_us": l["trace"]["library"] and sum(
-                                      a["mean_us"] for a in l["trace"]["library"].values())}
+                                      a["mean_us"] for a in l["trace"]["library"].values()),
+                                  "tries": l["trace"]["tries"]}
     c = versus["launches"]
     if (c["crop_deinterleave"] < PROBE_CALLS or c["s2d_prologue"] < PROBE_CALLS
             or any(v for k, v in c.items() if k not in ("crop_deinterleave", "s2d_prologue"))):

@@ -3,7 +3,7 @@
 by the port's kernels and timed. Prints one JSON line per sub-probe:
 
     python -m convnet_tpu_torch.tools.gather_probe [--device cuda|cpu]
-        [--seed N] [--calls 20] [--batch 4096] [--trace]
+        [--seed N] [--calls 20] [--batch 4096] [--trace] [--probes P21,P24]
 
 The TPU scripts are compile-only: each lowers one Mosaic primitive of a
 gather form of the per-image crop (uint8 256 x 256 x 3 -> bf16 224 x 224,
@@ -39,7 +39,9 @@ line times `crop_deinterleave` with flips against `ops/s2d_relayout.py`
 on the same --batch uint8 images and crops. Inputs are drawn from --seed.
 --trace adds to each single-block line the torch.profiler durations of
 the kernel's and the library call's device activities, the gaps between
-calls left out. EDGES holds the geometries that only the card checks run.
+calls left out, and how many traces that took (a trace that dropped
+activities is taken again). EDGES holds the geometries that only the card checks run
+(every branch of the three kernels).
 The run's device is the card unless --device cpu is given; with no card it
 exits before measuring anything.
 """
@@ -48,7 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -423,14 +425,14 @@ SITES = {k: sorted({p.site.split()[0] for p in PROBES if p.kernel == k},
                    key=lambda s: (s.split(":")[0], int(s.split(":")[1]))) for k in KERNELS}
 
 
-# -- edge geometries: every branch of crop_window.cu and relayout.cu ---------------
+# -- edge geometries: every branch of the three gather kernels ----------------------
 
 
 class Edge(NamedTuple):
     """A geometry that no sub-probe reaches, for the card's bit-for-bit
     checks (chip_smoke.py phase 12a, tests/test_torch_port_kernels.py)."""
     name: str
-    kernel: str  # crop_window or relayout
+    kernel: str  # crop_window, relayout or crop_deinterleave
     build: Callable[[Draw], Case]
 
 
@@ -454,6 +456,38 @@ def _edge_map(in_shape, dims, *, base=0, s0=0, epilogue="copy", u8=False, scale=
                                               scale=scale, k=k), None, "none")
     return build
 
+
+def _crops(h: int, l: int, p: int, q: int, oy, ox, fl=None, u8: bool = True) -> Callable:
+    """len(ox) images of h x l, image i cropped to 4p x 12q from row oy[i]
+    and pixel ox[i] (NaN where the crop leaves it), flipped by fl (None:
+    no flags)."""
+    def build(d: Draw) -> Case:
+        x = (d.u8 if u8 else d.bf16)((len(ox), h, l))
+        oy_, ox_ = (d.t(np.asarray(v, np.int32)) for v in (oy, ox))
+        kw = dict(p=p, q=q)
+        if fl is None:
+            return Case((oy_, ox_, x), lambda f, oy, ox, x: f(x, oy, ox, None, **kw), None,
+                        "none")
+        fl_ = d.t(np.asarray(fl, np.int32))
+        return Case((oy_, ox_, fl_, x), lambda f, oy, ox, fl, x: f(x, oy, ox, fl, **kw), None,
+                    "none")
+    return build
+
+
+def _origins(n: int):
+    """n images' (oy, ox, fl): crop origins 0..16 in turn (3 ox mod 16 takes
+    all 16 values; 16 is flush with the right edge of the edges' images),
+    rows 0 and 1 in turn (1 flush with the bottom), then a crop that leaves
+    the input on the right and one at the bottom; flags -1, 0, 1, 2."""
+    return ([i % 2 for i in range(n - 2)] + [0, 2], [i % 17 for i in range(n - 2)] + [17, 0],
+            [i % 4 - 1 for i in range(n)])
+
+
+_OY, _OX, _FL = _origins(19)
+#: 66 and 44 images: on a card of up to 132 SMs, items of 16 and 8 of the
+#: 20 crop rows (the last item 4 rows)
+_OY66, _OX66, _FL66 = _origins(66)
+_OY44, _OX44, _ = _origins(44)
 
 EDGES: List[Edge] = [
     # crop_window: column origins of 0-15 elements (one image each), a row
@@ -512,6 +546,32 @@ EDGES: List[Edge] = [
         (1,), [Dim(40, 0)], epilogue="antidiagonal", k=31)),
     Edge("antidiagonal, four dims", "relayout", _edge_map(
         (1,), [Dim(9, 0), Dim(3, 0), Dim(2, 0), Dim(21, 0)], epilogue="antidiagonal", k=9)),
+    # crop_deinterleave: every byte offset of the crop's origin, u8 and
+    # bf16, flips on and off, q % 8 == 0 (whole 16-byte words), another
+    # even q (words across two cpc) and odd q (2-byte stores), items of one
+    # crop row (few images) and of several with the last one short, crops
+    # flush with the right and bottom edges and crops outside, B = 1, and
+    # rows of 15,600 elements
+    Edge("crop origins 0-16, q = 8, p = 3, u8, flips", "crop_deinterleave",
+         _crops(13, 144, 3, 8, _OY, _OX, _FL)),
+    Edge("crop origins 0-16, q = 8, p = 3, bf16, flips", "crop_deinterleave",
+         _crops(13, 144, 3, 8, _OY, _OX, _FL, u8=False)),
+    Edge("crop origins 0-16, q = 7, p = 5, u8, flips", "crop_deinterleave",
+         _crops(22, 132, 5, 7, [2 * y for y in _OY], _OX, _FL)),
+    Edge("crop origins 0-16, q = 7, p = 2, bf16", "crop_deinterleave",
+         _crops(9, 132, 2, 7, _OY, _OX, u8=False)),
+    Edge("crop origins 0-16, q = 10, p = 3, u8", "crop_deinterleave",
+         _crops(13, 168, 3, 10, _OY, _OX)),
+    Edge("66 images, items of 16 rows and 4, q = 8, u8, flips", "crop_deinterleave",
+         _crops(21, 144, 5, 8, _OY66, _OX66, _FL66)),
+    Edge("44 images, items of 8 rows and 4, q = 7, bf16", "crop_deinterleave",
+         _crops(21, 132, 5, 7, _OY44, _OX44, u8=False)),
+    Edge("B = 1, crop flush right and bottom, u8, flip", "crop_deinterleave",
+         _crops(256, 768, 56, 56, [32], [32], [1])),
+    Edge("q = 1300, u8, flips", "crop_deinterleave",
+         _crops(13, 15609, 3, 1300, [0, 1, 0], [0, 3, 4], [1, 0, 1])),
+    Edge("q = 1300, bf16, flips", "crop_deinterleave",
+         _crops(9, 15609, 2, 1300, [1, 0, 2], [3, 0, 0], [0, 1, 1], u8=False)),
 ]
 
 
@@ -610,24 +670,29 @@ def versus_jitter_s2d(device: torch.device, batch: int, calls: int, seed: int,
     }
 
 
-def traced(fn: Callable[[], object], calls: int, tries: int = 3) -> Dict:
+def traced(fn: Callable[[], object], calls: int, tries: int = 8) -> Tuple[Dict, int]:
     """The card's activities over `calls` calls of fn under torch.profiler
     (CUDA activity alone): by name, their count a call and mean µs. Their
     durations leave out the gaps between them that device_ms includes. A
     trace that holds fewer activities than calls (the profiler dropped
-    some) is taken again, up to `tries` times."""
+    some, or all: it has returned an empty trace now and then on the
+    card) is taken again after a pause that grows with each try, up to
+    `tries` traces. Returns the activities and the traces it took; raises
+    RuntimeError if none holds them all."""
     import os
     import tempfile
+    import time
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for t in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)  # let CUPTI hand over the records before the flush
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
@@ -640,30 +705,40 @@ def traced(fn: Callable[[], object], calls: int, tries: int = 3) -> Dict:
                 a[0] += 1
                 a[1] += float(ev.get("dur", 0))
         if sum(n for n, _ in acts.values()) >= calls:
-            break
-    return {name: {"per_call": n / calls, "mean_us": t / n} for name, (n, t) in acts.items()}
+            return {name: {"per_call": n / calls, "mean_us": d / n}
+                    for name, (n, d) in acts.items()}, t
+        time.sleep(0.05 * t)
+    raise RuntimeError(f"torch.profiler traced {sum(n for n, _ in acts.values())} device "
+                       f"activities over {calls} calls in each of {tries} tries")
 
 
 def probe_lines(device: torch.device, batch: int = BATCH, calls: int = 20, seed: int = 0,
-                trace: bool = False) -> List[Dict]:
-    """Every sub-probe's lines; with `trace`, on the card, each single-block
-    line also holds `trace`: the kernel's and the library call's device
-    activities (traced)."""
+                trace: bool = False, names: Optional[List[str]] = None) -> List[Dict]:
+    """Every sub-probe's lines, or only those of `names` (then without the
+    last line); with `trace`, on the card, each single-block line also
+    holds `trace`: the kernel's and the library call's device activities
+    (traced) and the traces they took."""
     facts = card.device_facts(device)
+    unknown = set(names or ()) - {p.name for p in PROBES}
+    if unknown:
+        raise ValueError(f"no sub-probe {sorted(unknown)}")
+    probes = [p for p in PROBES if names is None or p.name in names]
     lines = []
-    for p in PROBES:
+    for p in probes:
         line = measure(p, PROBE, device, calls, seed, facts)
         if trace and device.type == "cuda":
             case = p.build(PROBE, Draw(device, seed))
-            line["trace"] = {"kernel": traced(lambda: run(p, case), calls),
-                             "library": case.library and traced(case.library, calls)}
+            kernel, tries = traced(lambda: run(p, case), calls)
+            library, more = traced(case.library, calls) if case.library else (None, 0)
+            line["trace"] = {"kernel": kernel, "library": library, "tries": tries + more}
         lines.append(line)
-    for p in PROBES:
+    for p in probes:
         if p.per_image:
             lines.append(measure(p, PROBE._replace(b=batch), device, calls, seed, facts, batch))
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-    lines.append(versus_jitter_s2d(device, batch, calls, seed, facts))
+    if names is None:
+        lines.append(versus_jitter_s2d(device, batch, calls, seed, facts))
     return lines
 
 
@@ -677,10 +752,13 @@ def main(argv=None) -> int:
     p.add_argument("--trace", action="store_true",
                    help="on the card, also trace each single-block line's kernel and library "
                         "call with torch.profiler (their device activities, gaps left out)")
+    p.add_argument("--probes", metavar="P21,P24",
+                   help="only these sub-probes (comma-separated), without the last line")
     add_device_argument(p)
     a = p.parse_args(argv)
     dev = resolve_device(a.device)
-    for line in probe_lines(dev, a.batch, a.calls, a.seed, a.trace):
+    names = a.probes.split(",") if a.probes else None
+    for line in probe_lines(dev, a.batch, a.calls, a.seed, a.trace, names):
         print(json.dumps(line), flush=True)
     return 0
 

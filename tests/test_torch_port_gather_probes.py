@@ -248,6 +248,37 @@ def test_crop_deinterleave_at_a_ragged_shape(mode):
         assert gp.same_bits(got[b], want), b
 
 
+@pytest.mark.parametrize("name", [e.name for e in gp.EDGES if e.kernel == "crop_deinterleave"])
+def test_crop_deinterleave_edge_against_numpy(name):
+    """Each crop_deinterleave edge geometry's plain version against the
+    formula of test_crop_deinterleave_at_a_ragged_shape (the identity for
+    a bf16 input); an image whose crop leaves its input is NaN (0x7fc0),
+    whole."""
+    edge = next(e for e in gp.EDGES if e.name == name)
+    case = edge.build(gp.Draw(CPU, SEED))
+    got = gp.run_edge(edge, case, "plain")
+    oy, ox = (a.numpy() for a in case.args[:2])
+    fl = case.args[2].numpy() if len(case.args) == 4 else np.zeros_like(ox)
+    x = case.args[-1]
+    b, w, cw = got.shape
+    p, q = w // 4, cw // 12
+    h, l = x.shape[1:]
+    u8 = x.dtype == torch.uint8
+    xn = x.numpy() if u8 else x.float().numpy()
+    nan = torch.full((w, cw), float("nan"), dtype=torch.bfloat16)
+    for i in range(b):
+        if oy[i] < 0 or oy[i] + w > h or ox[i] < 0 or 3 * ox[i] + cw > l:
+            assert gp.same_bits(got[i], nan), i
+            continue
+        crop = xn[i, oy[i]:oy[i] + w, 3 * ox[i]:3 * ox[i] + cw].reshape(p, 4, q, 4, 3)
+        if fl[i] > 0:
+            crop = crop[:, :, ::-1, ::-1, :]
+        v = crop.transpose(1, 0, 3, 4, 2).reshape(w, cw).astype(np.float32)
+        if u8:
+            v = v * np.float32(1 / 255.0) - np.float32(0.45)
+        assert gp.same_bits(got[i], torch.from_numpy(v).to(torch.bfloat16)), i
+
+
 def test_relayout_at_a_ragged_shape():
     d, g = _ragged("random")
     x = d.bf16((g.h, g.l))
@@ -316,6 +347,16 @@ def test_gather_probe_on_the_cpu(capsys):
         assert (l["library"] == "none") == (l["library_ms"] is None) and "trace" not in l
     assert [l["batch"] for l in lines[40:-1]] == [2] * len(per_image)
     assert lines[-1]["metric"] == "crop_deinterleave_vs_jitter_s2d" and lines[-1]["batch"] == 2
+
+
+def test_gather_probe_runs_the_probes_named(capsys):
+    assert gp.main(["--device", "cpu", "--batch", "2", "--calls", "1",
+                    "--probes", "P31,P21"]) == 0
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [(l["probe"], l["batch"]) for l in lines] == [("P21", None), ("P31", None),
+                                                         ("P31", 2)]
+    with pytest.raises(ValueError, match="no sub-probe"):
+        gp.main(["--device", "cpu", "--probes", "P99"])
 
 
 # -- relayout's host plan (ops/gather.py _relayout_plan) ----------------------------

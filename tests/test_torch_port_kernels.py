@@ -1002,19 +1002,22 @@ def test_crop_deinterleave_writes_nan_outside_its_input(cuda):
 @pytest.mark.parametrize("unaligned", [False, True])
 @pytest.mark.parametrize("name", [e.name for e in gp.EDGES])
 def test_gather_edges_match_their_plain_versions(cuda, name, unaligned):
-    """The geometries that reach every branch of crop_window.cu and
-    relayout.cu (gather_probe.EDGES: column origins 0-15, rows of no whole
-    16-byte word, u8 and bf16, windows outside the input, a roll that
+    """The geometries that reach every branch of crop_window.cu,
+    relayout.cu and crop_deinterleave.cu (gather_probe.EDGES: column and
+    crop origins at every byte of a 16-byte word, rows of no whole 16-byte
+    word, u8 and bf16, windows and crops outside the input, a roll that
     splits a run, reversed runs of 203, ragged tiles, the row epilogues and
-    the anti-diagonal at other ranks), from aligned inputs and from inputs
-    one element off a 16-byte boundary: one launch each, bit for bit."""
+    the anti-diagonal at other ranks, flips, even and odd q, items of one
+    crop row and of several, the last one short, rows of 15,600 elements),
+    from aligned inputs and from inputs one element off a 16-byte boundary:
+    one launch each, bit for bit."""
     edge = next(e for e in gp.EDGES if e.name == name)
     case = edge.build(gp.Draw(cuda, 5, unaligned=unaligned))
-    counts = (gather.CROP_WINDOW_LAUNCHES, gather.RELAYOUT_LAUNCHES)
+    counters = ("CROP_WINDOW_LAUNCHES", "RELAYOUT_LAUNCHES", "CROP_DEINTERLEAVE_LAUNCHES")
+    counts = [getattr(gather, c) for c in counters]
     got = gp.run_edge(edge, case)
-    after = (gather.CROP_WINDOW_LAUNCHES, gather.RELAYOUT_LAUNCHES)
-    assert [a - b for a, b in zip(after, counts)] == ([1, 0] if edge.kernel == "crop_window"
-                                                      else [0, 1])
+    moved = [getattr(gather, c) - n for c, n in zip(counters, counts)]
+    assert moved == [int(edge.kernel == k) for k in gp.KERNELS], moved
     assert gp.same_bits(got, gp.run_edge(edge, case, "plain")), name
 
 
@@ -1024,3 +1027,15 @@ def test_crop_window_at_the_bench_batch(cuda, name):
     probe = next(p for p in gp.PROBES if p.name == name)
     case = probe.build(gp.PROBE._replace(b=gp.BATCH), gp.Draw(cuda, 9))
     assert gp.same_bits(gp.run(probe, case), gp.run(probe, case, "plain"))
+
+
+@pytest.mark.parametrize("name", ["P24", "P31"])
+def test_crop_deinterleave_at_the_bench_batch(cuda, name):
+    """crop_deinterleave at 4096 images: the persistent grid walks many
+    items a CTA, through both buffers."""
+    probe = next(p for p in gp.PROBES if p.name == name)
+    case = probe.build(gp.PROBE._replace(b=gp.BATCH), gp.Draw(cuda, 9))
+    before = gather.CROP_DEINTERLEAVE_LAUNCHES
+    got = gp.run(probe, case)
+    assert gather.CROP_DEINTERLEAVE_LAUNCHES == before + 1
+    assert gp.same_bits(got, gp.run(probe, case, "plain"))
