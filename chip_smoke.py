@@ -153,7 +153,26 @@ any failure raises and the script exits non-zero:
    (one path diverging alone would be a kernel fault; both, the
    dynamics); at x0.25 the kernel path must stay finite and meet (a)'s
    bars on the normalized set. A JSON line holds
-   phase 8's numbers (and phase 5b's checkpoint seconds).
+   phase 8's numbers (and phase 5b's checkpoint seconds). (g) HDF5 in the
+   formats h5py writes, on a machine without h5py: every committed fixture
+   of convnet_tpu_torch/testdata/hdf5 (libver "latest" files, dense links
+   and attributes, every chunk index, the lzf, fletcher32, scaleoffset and
+   nbit filters, enum, compound and variable-length types) read with
+   hdf5.py, each dataset held to its digest of h5py's read, and the
+   libver "latest" checkpoint fixture (dense links) through
+   checkpoint.load; a DataHandler from the CIFAR-10 data template
+   (examples/cifar10/cifar10_train_data.pbtxt) over the fixture shard
+   (256 rows of 32x32x3 uint8 and int32 labels, chunked a row a chunk
+   with an extensible-array index, lzf + shuffle + fletcher32) and its
+   libver "latest" mean file, its batches array-equal to those over the
+   same rows written by the port's own writer (superblock 0,
+   create_appendable); both files' get_batch host ms without the prefetch
+   thread and the share of them spent in the filters; and cifar10_conv
+   (examples/cifar10/cifar10_conv.pbtxt, full width, f32, batch 128)
+   trained 10 steps through Trainer over the fixture shard: every loss
+   finite, every parameter moved, each step launching lrn_fwd 2, lrn_bwd
+   2, dropout 2 and step_draws 1 times. A JSON line holds phase 8g's
+   numbers and the card's name and power limit.
 9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
    examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
    128, uint8 256x256 images with random 224 crops and flips, dropout 0.5)
@@ -2892,6 +2911,153 @@ def check_hdf5_path(dev, directory: Path, card):
             "extract_vs_predictor_max_abs": err, "bar": tol}, launches
 
 
+# phase 8g: the CIFAR-10 data template over the committed fixture shard and
+# mean file (convnet_tpu_torch/testdata/hdf5, written by h5py in libver
+# "latest" with lzf + shuffle + fletcher32), against the same rows written by
+# the port's own writer; FORMAT_BATCHES batches compared and timed,
+# FORMAT_STEPS steps of cifar10_conv over the shard
+CIFAR_MODEL = REPO / "examples" / "cifar10" / "cifar10_conv.pbtxt"
+CIFAR_DATA = REPO / "examples" / "cifar10" / "cifar10_train_data.pbtxt"
+FORMAT_BATCHES, FORMAT_STEPS = 20, 10
+
+
+def cifar_template_text(data: Path, mean: Path, pipeline: bool = True) -> str:
+    """The CIFAR-10 data template with its file paths pointed at `data` and
+    `mean` (as its own comment says: "swap file paths for your local
+    shards"), its prefetch thread on or off."""
+    text = CIFAR_DATA.read_text()
+    for old, new in (("/data/cifar10/train.h5", data), ("/data/cifar10/mean.h5", mean)):
+        if old not in text:
+            raise AssertionError(f"phase 8g: the CIFAR-10 template no longer names {old}")
+        text = text.replace(old, str(new))
+    return text if pipeline else text.replace("pipeline_loads: true", "pipeline_loads: false")
+
+
+def check_hdf5_formats(dev, directory: Path, card):
+    """Phase 8g. (a) Every committed HDF5 fixture read with hdf5.py and each
+    dataset held to its digest (sha256, dtype and shape of h5py's read);
+    the libver "latest" checkpoint fixture through checkpoint.load. (b) A
+    DataHandler from the CIFAR-10 data template over the fixture shard and
+    its mean file against one over the same rows and mean written by the
+    port's writer (superblock 0; the images through create_appendable):
+    FORMAT_BATCHES batches array-equal, and the mean and std; then each
+    file's DataHandler.get_batch host ms without the prefetch thread
+    (median of FORMAT_BATCHES calls, page cache warm) and the ms of them
+    spent in the chunks' filters (lzf, shuffle, fletcher32). (c)
+    cifar10_conv at full width (f32, batch 128) trains FORMAT_STEPS steps
+    through Trainer over the fixture shard with the template's jitter
+    (flips, the full-pixel mean and std): every logged loss finite, every
+    parameter moved and finite, CIFAR_PER_STEP launches a step. Returns
+    (facts, the steps' launches)."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch import checkpoint, hdf5, testdata
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data import native
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    native.library(native.LZF_SOURCE)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    count, nbytes, problems = testdata.check_hdf5_fixtures()
+    if problems:
+        raise AssertionError(f"phase 8g: the fixtures differ from their digests: {problems}")
+    params, moms, step = checkpoint.load(str(testdata.HDF5_DIR / "checkpoint_latest.h5"))
+    if (step != 9 or moms is None or len(params) != 10
+            or not all(np.isfinite(v).all() for p in params.values() for v in p.values())):
+        raise AssertionError(f"phase 8g: the checkpoint fixture loaded {len(params)} edges at step "
+                             f"{step}")
+    read_s = time.perf_counter() - t0
+    print(f"[{card}] phase 8g (a): lzf.cc built by g++ in {build_s:.3f} s; {count} datasets of the "
+          f"committed fixtures ({nbytes} bytes of elements) read with hdf5.py, each equal to its "
+          f"digest of h5py's read, and the checkpoint fixture's {len(params)} edges (dense links) "
+          f"through checkpoint.load, in {read_s:.3f} s")
+
+    with hdf5.File(testdata.CIFAR_SHARD) as f, hdf5.File(testdata.CIFAR_MEAN) as m:
+        images, labels = f["data"][...], f["labels"][...]
+        mean, std = m["mean"][...], m["std"][...]
+    v0, v0_mean = directory / "cifar10_v0.h5", directory / "cifar10_mean_v0.h5"
+    with hdf5.File(v0, "w") as f:
+        f.create_appendable("data", images.shape[1:], images.dtype, chunk_rows=BATCH).append(images)
+        f.create_dataset("labels", data=labels)
+    with hdf5.File(v0_mean, "w") as m:
+        m.create_dataset("mean", data=mean)
+        m.create_dataset("std", data=std)
+    files = {"latest": (testdata.CIFAR_SHARD, testdata.CIFAR_MEAN), "v0": (v0, v0_mean)}
+    a, b = (DataHandler(parse_dataset_config(cifar_template_text(*files[k]))) for k in files)
+    try:
+        for i in range(FORMAT_BATCHES):
+            x, y = a.get_batch(), b.get_batch()
+            if set(x) != set(y) or not all(x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                                           for k in y):
+                raise AssertionError(f"phase 8g: batch {i} over the fixture shard differs from the "
+                                     "same rows written by the port")
+        (_, ma, sa), (_, mb, sb) = a.jitter_specs()["input"], b.jitter_specs()["input"]
+        if not (np.array_equal(ma, mb) and np.array_equal(sa, sb) and np.array_equal(ma, mean)):
+            raise AssertionError("phase 8g: the mean files read differently")
+    finally:
+        a.close()
+        b.close()
+    batch_ms, mean_ms, decode_ms = {}, {}, {}
+    for key, (data_path, mean_path) in files.items():
+        data = DataHandler(parse_dataset_config(cifar_template_text(data_path, mean_path, False)))
+        layouts = [s._ds._layout for s in data.streams.values()]
+        data.get_batch()  # the first builds each chunk index
+        before = sum(layout.decode_seconds for layout in layouts)
+        times = [_ms(data.get_batch) for _ in range(FORMAT_BATCHES)]
+        decode_ms[key] = (sum(layout.decode_seconds for layout in layouts) - before) * 1e3 / len(times)
+        batch_ms[key], mean_ms[key] = statistics.median(times), sum(times) / len(times)
+        data.close()
+    share = decode_ms["latest"] / mean_ms["latest"]
+    print(f"[{card}] phase 8g (b): the CIFAR-10 template over the fixture shard (libver latest, "
+          f"extensible-array index, lzf + shuffle + fletcher32) gives {FORMAT_BATCHES} batches "
+          f"array-equal to those over the same rows written by the port (superblock 0); "
+          f"DataHandler.get_batch host ms per {BATCH}-row batch without prefetch (median of "
+          f"{FORMAT_BATCHES}, page cache warm): latest {batch_ms['latest']:.4f} (mean "
+          f"{mean_ms['latest']:.4f}, of which the filters {decode_ms['latest']:.4f}: {share:.3f}), "
+          f"v0 {batch_ms['v0']:.4f} (mean {mean_ms['v0']:.4f})")
+
+    model = read_model(str(CIFAR_MODEL))
+    model.display_after = 1  # a logged loss every step
+    graph = build_graph(model)
+    data = DataHandler(parse_dataset_config(cifar_template_text(*files["latest"])))
+    logged = []
+    trainer = Trainer(graph, data, device=dev, log_fn=logged.append)
+    p_init = clone_state(trainer.state)["params"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(max_iter=FORMAT_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    data.close()
+    expect_launches("phase 8g's cifar10_conv steps", launches, CIFAR_PER_STEP, FORMAT_STEPS)
+    losses = [float(m.group(1)) for m in (re.search(r"^step \d+ loss (\S+)", line) for line in logged)
+              if m]
+    if len(losses) != FORMAT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 8g: cifar10_conv's logged losses {losses}")
+    for name, p in trainer.state["params"].items():
+        for k, v in p.items():
+            if not torch.isfinite(v).all() or torch.equal(v, p_init[name][k]):
+                raise AssertionError(f"phase 8g: cifar10_conv's {name}/{k} did not move or is not "
+                                     "finite")
+    print(f"[{card}] phase 8g (c): cifar10_conv (full width, f32, batch {BATCH}) trained "
+          f"{FORMAT_STEPS} steps over the fixture shard in {train_s:.3f} s: losses {losses}, every "
+          f"parameter moved; launches {launches}")
+    facts = {"fixture_datasets": count, "fixture_bytes": nbytes, "lzf_build_s": build_s,
+             "fixtures_read_s": read_s, "get_batch_ms": batch_ms, "get_batch_mean_ms": mean_ms,
+             "filters_ms": decode_ms,
+             "filters_share_latest": share, "cifar10_conv_losses": losses,
+             "cifar10_conv_train_s": train_s, "launches": launches}
+    return facts, launches
+
+
 def check_remat(dev, state, jitter, batch, card):
     """Phase 8d: one AlexNet train step with remat on and one with it off,
     from the same state and batch: the parameters equal, or within
@@ -4399,12 +4565,14 @@ def main(argv=None) -> int:
                                                                card)
         hdf5_facts, hdf5_launches = check_hdf5_path(dev, tmp8, card)
         normalize, normalize_launches = check_normalize(dev, tmp8, card)
+        formats, formats_launches = check_hdf5_formats(dev, tmp8, card)
     remat = check_remat(dev, state0, train_jitter, batches8[0], card)
     print(json.dumps({"phase8": {"read_ms": cache_ms, "learning": learned,
                                  "steps_per_launch": launch, "remat": remat,
                                  "hdf5": hdf5_facts, "normalize": normalize,
                                  "checkpoint_5b": checkpoint_facts}},
                      default=str))
+    print(json.dumps({"phase8g": dict(formats, card=card)}, default=str))
 
     # -- 9. the mesh path: ranks sharing the card, and a 1x1 mesh over nccl -----
     mesh_ranks = check_mesh_ranks(dev, card)
@@ -4443,6 +4611,8 @@ def main(argv=None) -> int:
              # its extract; phase 8f's eager steps over the per-channel mean
              # and std at eps x NORM_LEARN
              **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches,
+             # phase 8g: cifar10_conv's Trainer over the libver "latest" shard
+             "hdf5_latest_cifar10": formats_launches,
              # phase 10: the pipeline bench's paths and the bench's step
              **measure_paths,
              # phase 11: the copy probe's tilings (counted in its process)

@@ -12,6 +12,9 @@ ctypes (counterpart of `convnet_tpu/data/native.py`).
   JAX package's libjpeg loader, `convnet_tpu_torch/native/dataloader.cc`
   (g++, -ljpeg); it is built only when an all-JPEG IMAGE_RAW stream opens
   it.
+- `lzf_decompress` decodes one chunk of h5py's lzf filter for
+  `convnet_tpu_torch/hdf5.py` with `convnet_tpu_torch/native/lzf.cc`; it
+  is built when a file's first lzf chunk is read.
 
 Each library is keyed by a hash of its source and flags and lives under
 `<checkout>/build/convnet_tpu_torch/`; it is built in a temporary
@@ -38,6 +41,7 @@ _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "convnet_tpu_torch"
 RAW_CACHE_SOURCE = _PKG / "native" / "raw_cache.cc"
 LOADER_SOURCE = _PKG / "native" / "dataloader.cc"
+LZF_SOURCE = _PKG / "native" / "lzf.cc"
 # native/Makefile's flags; the raw cache links no libjpeg
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 HEADER = 16  # "CNTC" | uint32 version | uint64 row_bytes
@@ -105,6 +109,28 @@ def _loader_lib() -> ctypes.CDLL:
     lib.loader_load.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def _lzf_lib() -> ctypes.CDLL:
+    lib = library(LZF_SOURCE)
+    lib.lzf_decode.restype = ctypes.c_int64
+    lib.lzf_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    return lib
+
+
+def lzf_decompress(data: bytes, size: int) -> bytes:
+    """One LZF block decoded, as h5py's lzf filter decodes a chunk: into
+    `size` bytes first, a buffer grown by len(data) while it is too small.
+    Data that is not LZF raises OSError."""
+    lib = _lzf_lib()
+    while True:
+        out = np.empty(max(size, 1), np.uint8)
+        n = lib.lzf_decode(data, len(data), out.ctypes.data, size)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n != -1:
+            raise OSError("invalid data for LZF decompression")
+        size += max(len(data), 1)
 
 
 def _read_sidecar(path: str):

@@ -1,27 +1,53 @@
-"""The subset of HDF5 that the port's files use, read and written with numpy
-and the standard library, so that the port needs no h5py; a checkpoint
-written by either package still loads in the other
-(docs/checkpoint_format.md).
+"""The HDF5 that the port reads and writes, with numpy and the standard
+library, so that the port needs no h5py: every file that the JAX package
+reads through h5py reads here as h5py reads it (the same keys in the same
+order, attributes, shapes, dtypes and values), and a checkpoint written by
+either package loads in the other (docs/checkpoint_format.md).
 
 The API is the part of h5py's that the port calls: `File(path, "r" | "w")`
-as a context manager, `Group` (`[]`, `in`, `keys`, `items`,
+as a context manager, `Group` (`[]`, `in`, `get`, `keys`, `items`,
 `create_group`, `create_dataset`, `create_appendable`), `Dataset`
 (`shape`, `dtype`, `[...]`, a slice or an integer array on the first axis,
-sorted or not, repeats allowed) and `.attrs` on both.
+sorted or not, repeats allowed), `Datatype` (a committed type's `dtype`)
+and `.attrs` on each.
 
-Read: superblock version 0 or 1; version 1 object headers with their
-continuation blocks; symbol-table groups (a v1 B-tree of type 0, any
-depth, over SNOD nodes and a local heap); dataspaces (version 1 and 2,
-scalar and null included); fixed-point and IEEE float types of either byte
-order, fixed-length strings and variable-length strings (global heap);
-attribute messages version 1 to 3; layout message version 3: compact,
-contiguous (read through a memory map of the file, so a row read touches
-only its rows) and chunked (a v1 B-tree of type 1; only the chunks that
-hold the asked rows are read), with the deflate and shuffle filters.
-Anything else raises NotImplementedError naming it: superblock 2 or 3 and
-version 2 object headers (libver "latest"), link messages, dense
-attribute storage, shared messages, other filters (fletcher32, szip,
-lzf, ...), other datatype classes.
+Read:
+- superblock versions 0 to 3 (libver "earliest" to "latest"); version 1
+  and version 2 object headers with their continuation blocks; every
+  metadata checksum (Jenkins' lookup3, as HDF5 computes it) is verified,
+  and a mismatch raises OSError;
+- groups: symbol tables (a v1 B-tree over SNOD nodes and a local heap),
+  and link messages, held in the group's header or, past 8 links, in a
+  fractal heap indexed by a version 2 B-tree; hard, soft and external
+  links (an external file is looked for at its own path, then in the
+  directory of the file that links to it, then in the working
+  directory). Keys come in h5py's order: by name, or by creation order in
+  a group made with track_order;
+- attributes in the object header or in dense storage (a fractal heap
+  and a v2 B-tree), by name or, where the object tracks it, by creation
+  order;
+- layouts: compact, contiguous (read through a memory map of the file, so
+  a row read touches only its rows) and chunked, from data layout
+  messages 1 to 4, with every chunk index: the v1 B-tree, and version 4's
+  single chunk, implicit, fixed array, extensible array (both paged) and
+  v2 B-tree. Only the chunks that hold the asked rows are read;
+  unwritten chunks read as the fill value;
+- filters: deflate, shuffle, fletcher32 (verified: a mismatch raises
+  OSError), lzf (decoded by `native/lzf.cc`, built with g++ at first
+  use), scaleoffset (integer, and float D-scale, to the bit as HDF5
+  decodes it) and nbit;
+- datatypes: integers (with h5py's mapping of a reduced precision or a
+  bit offset), IEEE floats, fixed and variable-length strings, bitfields,
+  opaque, enums (a FALSE/TRUE enum is np.bool_), compounds (nested, with
+  h5py's names, offsets and itemsize), arrays, variable-length sequences
+  (an object array of arrays), and committed datatypes shared by a
+  dataset or an attribute.
+Still refused with NotImplementedError naming them: object and region
+references, virtual datasets, raw data in external files, the szip
+filter and plugin filters (ids from 256, lzf's 32000 apart: h5py's stock
+build reads none either), shared object header messages (a superblock
+extension's shared-message table), fractal heaps with I/O filters and
+non-IEEE floats.
 
 Write: superblock version 0 with 8-byte offsets and lengths, version 1
 object headers, symbol-table groups (as many SNOD leaves and B-tree levels
@@ -35,10 +61,12 @@ end-of-file address are written at close.
 
 from __future__ import annotations
 
+import bisect
 import mmap
 import os
 import struct
-from typing import Dict, Iterator, List, Optional, Tuple
+import time
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 import zlib
 
 import numpy as np
@@ -48,16 +76,19 @@ UNDEF = 0xFFFFFFFFFFFFFFFF  # the undefined address
 
 # message types
 _NIL, _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_OLD, _FILL = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5
-_LINK, _LAYOUT, _GROUP_INFO, _FILTERS, _ATTRIBUTE = 0x6, 0x8, 0xA, 0xB, 0xC
-_CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0x10, 0x11, 0x15
+_LINK, _EXTERNAL_FILES, _LAYOUT, _GROUP_INFO, _FILTERS, _ATTRIBUTE = 0x6, 0x7, 0x8, 0xA, 0xB, 0xC
+_SHARED_TABLE, _CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0xF, 0x10, 0x11, 0x15
 
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
                  6: "scaleoffset", 32000: "lzf", 32001: "blosc", 32004: "lz4", 32015: "zstd"}
 _CLASS_NAMES = {0: "fixed-point", 1: "floating-point", 2: "time", 3: "string", 4: "bitfield",
                 5: "opaque", 6: "compound", 7: "reference", 8: "enumerated",
                 9: "variable-length", 10: "array"}
+_REFERENCE_NAMES = {0: "object reference", 1: "region reference"}
 # IEEE layouts by size: (exponent location, exponent size, mantissa size, bias)
 _IEEE = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127), 8: (52, 11, 52, 1023)}
+# HDF5's default limit on the soft and external links one lookup follows
+_MAX_LINK_HOPS = 16
 
 # what the writer uses: the library's defaults for a version 0 superblock
 _LEAF_K = 4  # a symbol-table node holds up to 2K links
@@ -69,15 +100,461 @@ def _pad8(n: int) -> int:
     return (n + 7) & ~7
 
 
-class _Type:
-    """A parsed datatype: `dtype` is numpy's, object for a variable-length
-    string, whose `utf8` says its character set."""
+def _enc_size(n: int) -> int:
+    """The bytes HDF5 gives a field that holds numbers up to n
+    (H5VM_limit_enc_size)."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
 
-    def __init__(self, dtype: np.dtype, vlen: bool = False, utf8: bool = False):
-        self.dtype, self.vlen, self.utf8 = dtype, vlen, utf8
+
+def _le(b, at: int, n: int) -> int:
+    return int.from_bytes(b[at : at + n], "little")
+
+
+# -- checksums and bit streams ----------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M32
+
+
+def lookup3(data) -> int:
+    """Bob Jenkins' lookup3 `hashlittle` with an initial value of 0, as HDF5
+    checksums its metadata (H5_checksum_lookup3)."""
+    data = bytes(data)
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & _M32
+    if n == 0:
+        return c
+    full = (n - 1) // 12  # the last 1 to 12 bytes take the final mix
+    words = struct.unpack_from(f"<{3 * full}I", data)
+    for i in range(0, 3 * full, 3):
+        a = (a + words[i]) & _M32
+        b = (b + words[i + 1]) & _M32
+        c = (c + words[i + 2]) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 4)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 6)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 8)
+        b = (b + a) & _M32
+        a = ((a - c) & _M32) ^ _rot(c, 16)
+        c = (c + b) & _M32
+        b = ((b - a) & _M32) ^ _rot(a, 19)
+        a = (a + c) & _M32
+        c = ((c - b) & _M32) ^ _rot(b, 4)
+        b = (b + a) & _M32
+    x, y, z = struct.unpack("<3I", data[12 * full :].ljust(12, b"\0"))
+    a, b, c = (a + x) & _M32, (b + y) & _M32, (c + z) & _M32
+    c = ((c ^ b) - _rot(b, 14)) & _M32
+    a = ((a ^ c) - _rot(c, 11)) & _M32
+    b = ((b ^ a) - _rot(a, 25)) & _M32
+    c = ((c ^ b) - _rot(b, 16)) & _M32
+    a = ((a ^ c) - _rot(c, 4)) & _M32
+    b = ((b ^ a) - _rot(a, 14)) & _M32
+    c = ((c ^ b) - _rot(b, 24)) & _M32
+    return c
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's Fletcher-32 (H5_checksum_fletcher32): the sums of big-endian
+    16-bit words, folded to 16 bits after every 360 words as the library
+    folds them, so that the result is the library's to the bit."""
+    n = len(data) // 2
+    words = np.frombuffer(data, ">u2", count=n).astype(np.int64)
+    full = n // 360
+    blocks = words[: full * 360].reshape(full, 360)
+    lens = [360] * full
+    sums = blocks.sum(1).tolist()
+    weighted = (blocks @ np.arange(360, 0, -1, dtype=np.int64)).tolist()
+    tail = words[full * 360 :]
+    if len(tail):
+        lens.append(len(tail))
+        sums.append(int(tail.sum()))
+        weighted.append(int(tail @ np.arange(len(tail), 0, -1, dtype=np.int64)))
+    s1 = s2 = 0
+    for t, total, ramp in zip(lens, sums, weighted):
+        s2 += t * s1 + ramp  # sum2 adds sum1 after each word
+        s1 += total
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return (s2 << 16) | s1
+
+
+def _uint(cols: np.ndarray) -> np.ndarray:
+    """Little-endian unsigned integers from an (n, k) uint8 array, k <= 8."""
+    pad = np.zeros((cols.shape[0], 8), np.uint8)
+    pad[:, : cols.shape[1]] = cols
+    return pad.view("<u8").reshape(-1)
+
+
+def _msb_values(bits: np.ndarray) -> np.ndarray:
+    """Unsigned integers from an (n, w) array of bits, most significant
+    first, w <= 64."""
+    pad = np.zeros((bits.shape[0], 64), np.uint8)
+    pad[:, 64 - bits.shape[1] :] = bits
+    return np.packbits(pad, axis=1).view(">u8").reshape(-1).astype(np.uint64)
+
+
+def _bit_rows(buf: bytes, n: int, width: int) -> np.ndarray:
+    """The first n * width bits of buf, most significant bit of each byte
+    first, as n rows of `width` bits."""
+    if len(buf) * 8 < n * width:
+        raise OSError("a filtered chunk holds fewer bits than its elements need")
+    bits = np.unpackbits(np.frombuffer(buf, np.uint8), count=n * width)
+    return bits.reshape(n, width)
+
+
+# -- filters ---------------------------------------------------------------------
+
+
+def _unshuffle(raw: bytes, width: int) -> bytes:
+    """Byte planes back to elements."""
+    n = len(raw) // width
+    planes = np.frombuffer(raw, np.uint8, count=n * width).reshape(width, n)
+    return planes.T.tobytes() + raw[n * width :]
+
+
+def _unfletcher32(raw: bytes, where: str) -> bytes:
+    """The chunk without its checksum, which must match HDF5's or HDF5's
+    byte-swapped one (what HDF5 before 1.6.3 wrote; the library takes
+    both)."""
+    body, stored = raw[:-4], _le(raw, len(raw) - 4, 4)
+    got = fletcher32(body)
+    swapped = ((got & 0x00FF00FF) << 8) | ((got >> 8) & 0x00FF00FF)
+    if stored not in (got, swapped):
+        raise OSError(f"{where}: data error detected by the fletcher32 checksum")
+    return body
+
+
+def _unlzf(raw: bytes, size: int) -> bytes:
+    from convnet_tpu_torch.data import native  # its g++ build of native/lzf.cc
+
+    return native.lzf_decompress(raw, size)
+
+
+def _scaleoffset(raw: bytes, cd, where: str) -> bytes:
+    """H5Z_FILTER_SCALEOFFSET's decode: each element's `minbits` bits (a
+    most-significant-first stream after a 21-byte header holding minbits
+    and the minimum), plus the minimum; float D-scale divides by 10^scale
+    first; the all-ones value is the fill value where one is defined."""
+    scale_type, scale, n, cls, size, signed, order, fill_defined = cd[:8]
+    minbits = _le(raw, 0, 4)
+    minval = _le(raw, 5, min(8, raw[4]))
+    udt = np.dtype(f"<u{size}")
+    if minbits == size * 8:  # full precision: stored as is
+        out = np.frombuffer(raw, udt, count=n, offset=21)
+    else:
+        v = _msb_values(_bit_rows(raw[21:], n, minbits)) if minbits else np.zeros(n, np.uint64)
+        full = np.uint64((1 << minbits) - 1)
+        fill = np.frombuffer(struct.pack(f"<{len(cd) - 8}I", *cd[8:]), udt, count=1)[0] \
+            if fill_defined else None
+        if cls == 0:  # integer
+            out = ((v + np.uint64(minval & ((1 << 8 * size) - 1))) & np.uint64((1 << 8 * size) - 1))
+            out = out.astype(udt)
+        elif scale_type != 0:
+            raise NotImplementedError(f"{where}: the scaleoffset filter's float E-scale")
+        else:  # float D-scale, in the element's own precision, as the C code computes it
+            ft, it = (np.float32, np.int32) if size == 4 else (np.float64, np.int64)
+            low = np.frombuffer(struct.pack("<Q", minval)[:size], ft)[0]
+            scaled = v.astype(np.uint64).view(np.int64).astype(it).astype(ft)
+            out = (scaled / ft(10.0 ** scale) + low).astype(ft).view(udt)
+        if fill is not None:
+            out = np.where(v == full, fill, out).astype(udt)
+    if order:  # the dataset's type is big-endian: back to its byte order
+        out = out.astype(udt.newbyteorder(">"))
+    return np.ascontiguousarray(out).tobytes()
+
+
+def _nbit_fields(cd, at: int, base: int, out: list) -> int:
+    """The fields of one nbit element from its parameters at cd[at:]: an
+    atomic (element offset, size, order, precision, bit offset) or a no-op
+    (element offset, size); returns the index past them."""
+    cls = cd[at]
+    if cls == 1:  # atomic
+        size, order, precision, offset = cd[at + 1 : at + 5]
+        out.append((base, size, order, precision, offset))
+        return at + 5
+    if cls == 2:  # array: the base type's fields, once an element
+        total, step = cd[at + 1], cd[at + 3]  # the array's size, then its base type's
+        inner: list = []
+        end = _nbit_fields(cd, at + 2, 0, inner)
+        for i in range(total // step):
+            out.extend((f[0] + base + i * step,) + f[1:] for f in inner)
+        return end
+    if cls == 3:  # compound: each member at its offset
+        nmembers = cd[at + 2]
+        at += 3
+        for _ in range(nmembers):
+            offset = cd[at]
+            at = _nbit_fields(cd, at + 1, base + offset, out)
+        return at
+    if cls == 4:  # no-op: the bytes as they are
+        out.append((base, cd[at + 1]))
+        return at + 2
+    raise OSError(f"nbit parameters of class {cls}")
+
+
+def _nbit(raw: bytes, cd) -> bytes:
+    """H5Z_FILTER_NBIT's decode: each atomic field's `precision` bits (most
+    significant first, one stream over all elements) put back at its bit
+    offset, no-op fields' bytes copied, every other bit zero."""
+    if cd[1] or len(cd) < 5:  # nothing to compress: the chunk is stored as it is
+        return raw
+    n, size = cd[2], cd[4]
+    fields: list = []
+    _nbit_fields(cd, 3, 0, fields)  # each type: its class, its size, then what the class needs
+    width = sum(f[3] if len(f) == 5 else 8 * f[1] for f in fields)
+    bits = _bit_rows(raw, n, width)
+    out = np.zeros((n, size), np.uint8)
+    col = 0
+    for f in fields:
+        if len(f) == 2:  # no-op
+            at, nbytes = f
+            out[:, at : at + nbytes] = np.packbits(bits[:, col : col + 8 * nbytes], axis=1)
+            col += 8 * nbytes
+            continue
+        at, nbytes, order, precision, offset = f
+        value = _msb_values(bits[:, col : col + precision]) << np.uint64(offset)
+        col += precision
+        as_bytes = value.astype(np.dtype(f"{'>' if order else '<'}u8")).view(np.uint8).reshape(n, 8)
+        out[:, at : at + nbytes] = as_bytes[:, 8 - nbytes :] if order else as_bytes[:, :nbytes]
+    return out.tobytes()
+
+
+# -- datatypes -------------------------------------------------------------------
+
+
+class _Type:
+    """A parsed datatype. `dtype` is the numpy dtype h5py gives, `stored`
+    the numpy dtype of the bytes as the file holds them (the same where
+    h5py's elements are those bytes), and `convert(stored array, reader,
+    decode)` gives the elements as h5py gives them where the two differ
+    (None where they do not): `decode` gives variable-length strings as
+    str (attributes) rather than bytes (datasets), as h5py does."""
+
+    def __init__(self, dtype, stored=None, convert: Optional[Callable] = None):
+        self.dtype = np.dtype(dtype)
+        self.stored = self.dtype if stored is None else np.dtype(stored)
+        self.convert = convert
+
+    def to_h5py(self, arr: np.ndarray, r: "_Reader", decode: bool) -> np.ndarray:
+        return arr if self.convert is None else self.convert(arr, r, decode)
+
+
+def _fixed_point(signed: bool, offset: int, precision: int, dtype: np.dtype) -> Callable:
+    """An integer of `precision` bits at bit `offset`, sign-extended, as
+    HDF5 converts it to h5py's full-width integer of the same size."""
+
+    def convert(arr, r, decode):
+        v = (arr.astype(np.uint64) >> np.uint64(offset)) & np.uint64((1 << precision) - 1)
+        if signed and precision:
+            sign = np.uint64(1 << (precision - 1))
+            v = ((v ^ sign) - sign).view(np.int64)
+        return v.astype(dtype)
+
+    return convert
+
+
+def _array_type(base: _Type, dims) -> _Type:
+    # numpy expands a subarray dtype into trailing axes, so the base
+    # type's conversion applies to the expanded array as it is
+    return _Type(np.dtype((base.dtype, tuple(dims))), np.dtype((base.stored, tuple(dims))),
+                 base.convert)
+
+
+def _compound_type(names, offsets, types, size) -> _Type:
+    layout = {"names": names, "offsets": offsets, "itemsize": size}
+    dtype = np.dtype(dict(layout, formats=[t.dtype for t in types]))
+    stored = np.dtype(dict(layout, formats=[t.stored for t in types]))
+    if names == ["r", "i"] and types[0].dtype == types[1].dtype and types[0].dtype.kind == "f":
+        part = types[0].dtype  # h5py's complex number, of twice the part's size
+        cdtype = np.dtype(f"{part.str[0]}c{2 * part.itemsize}")
+
+        def complex_convert(arr, r, decode):
+            out = np.empty(arr.shape, cdtype)
+            out.real, out.imag = arr["r"], arr["i"]
+            return out
+
+        return _Type(cdtype, stored, complex_convert)
+
+    def convert(arr, r, decode):  # member by member: padding bytes read as zeros, as in h5py
+        out = np.zeros(arr.shape, dtype)
+        for name, t in zip(names, types):
+            out[name] = t.to_h5py(arr[name], r, decode)
+        return out
+
+    return _Type(dtype, stored, convert)
+
+
+def _vlen_type(base: Optional[_Type], utf8: bool, width: int) -> _Type:
+    """A variable-length string (base None) or sequence: each element a
+    heap ID (length, global heap collection, index) of `width` bytes."""
+    if base is None:
+        dtype = np.dtype("O", metadata={"vlen": str if utf8 else bytes})
+    else:
+        dtype = np.dtype("O", metadata={"vlen": base.dtype})
+
+    def convert(arr, r, decode):
+        flat = np.ascontiguousarray(arr).reshape(-1)
+        raw = flat.tobytes()
+        out = np.empty(len(flat), dtype)
+        for i in range(len(flat)):
+            at = i * width
+            length = _le(raw, at, 4)
+            data = r.gheap_object(_le(raw, at + 4, r.O), _le(raw, at + 4 + r.O, 4)) if length else b""
+            if base is None:
+                data = data[:length]
+                out[i] = data.decode("utf-8" if utf8 else "ascii") if decode else data
+            else:
+                items = np.frombuffer(data, base.stored, count=length).copy()
+                out[i] = base.to_h5py(items, r, decode)
+        return out.reshape(arr.shape)
+
+    return _Type(dtype, np.dtype((np.void, width)), convert)
+
+
+def _names(b: bytes, at: int, count: int, version: int) -> Tuple[List[bytes], int]:
+    """`count` null-terminated names from b[at:], each padded to 8 bytes
+    before datatype message version 3."""
+    out = []
+    for _ in range(count):
+        end = b.index(b"\0", at)
+        out.append(b[at:end])
+        at = end + 1 if version >= 3 else at + (end - at + 8) // 8 * 8
+    return out, at
 
 
 # -- reading ---------------------------------------------------------------------
+
+
+class _SoftLink(NamedTuple):
+    path: str
+
+
+class _ExternalLink(NamedTuple):
+    filename: str
+    path: str
+
+
+class _LinkTable(NamedTuple):
+    """A group stored with link messages: the messages in its header, and
+    its link info message (None in a group without one)."""
+
+    messages: List[bytes]
+    info: Optional[bytes]
+
+
+class _FractalHeap:
+    """A fractal heap (FRHP): its objects by heap ID. Managed objects lie in
+    direct blocks (FHDB) under a tree of indirect blocks (FHIB), tiny ones
+    inside their ID, huge ones in blocks of their own."""
+
+    def __init__(self, r: "_Reader", addr: int):
+        self.r = r
+        O, L, mm = r.O, r.L, r.mm
+        pos = r.block(addr, b"FRHP", "fractal heap header")
+        self.id_len, filter_len = struct.unpack_from("<HH", mm, pos + 5)
+        flags = mm[pos + 9]
+        max_managed = r.u(pos + 10, 4)
+        self.huge_btree = r.u(pos + 14 + L, O)
+        p = pos + 14 + 10 * L + 2 * O  # past the space and object counts
+        self.width = r.u(p, 2)
+        self.start, self.max_direct = r.u(p + 2, L), r.u(p + 2 + L, L)
+        self.max_bits = r.u(p + 2 + 2 * L, 2)
+        self.root = r.u(p + 6 + 2 * L, O)
+        self.root_rows = r.u(p + 6 + 2 * L + O, 2)
+        end = p + 8 + 2 * L + O
+        if filter_len:
+            raise NotImplementedError(f"{r.path}: a fractal heap with I/O filters at {addr}")
+        r.verify(pos, end, "fractal heap header")
+        self.checksummed = bool(flags & 0x02)
+        self.off_size = (self.max_bits + 7) // 8
+        # H5HF_hdr_finish_init_phase1: offsets within the largest direct
+        # block, or within the largest managed object, whichever is shorter
+        self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, _enc_size(max_managed))
+        self.direct_rows = (self.max_direct.bit_length() - self.start.bit_length()) + 2
+        self._blocks: Optional[List[Tuple[int, int, int]]] = None  # (heap offset, address, size)
+        self._verified: set = set()
+
+    def _row_size(self, row: int) -> int:
+        return self.start if row == 0 else self.start << (row - 1)
+
+    def _walk(self, addr: int, rows: int, offset: int, out: list):
+        r = self.r
+        pos = r.block(addr, b"FHIB", "fractal heap indirect block")
+        p = pos + 5 + r.O + self.off_size
+        for row in range(rows):
+            size = self._row_size(row)
+            for _ in range(self.width):
+                child = r.u(p, r.O)
+                p += r.O
+                if not r.undefined(child):
+                    if row < self.direct_rows:
+                        out.append((offset, child, size))
+                    else:  # an indirect block as wide as this row's block
+                        child_rows = size.bit_length() - (self.start * self.width).bit_length() + 1
+                        self._walk(child, child_rows, offset, out)
+                offset += size
+        r.verify(pos, p, "fractal heap indirect block")
+
+    def _direct_blocks(self) -> List[Tuple[int, int, int]]:
+        if self._blocks is None:
+            blocks: list = []
+            if not self.r.undefined(self.root):
+                if self.root_rows == 0:
+                    blocks.append((0, self.root, self.start))
+                else:
+                    self._walk(self.root, self.root_rows, 0, blocks)
+            self._blocks = sorted(blocks)
+        return self._blocks
+
+    def get(self, hid: bytes) -> bytes:
+        r = self.r
+        kind = (hid[0] >> 4) & 0x03
+        if kind == 2:  # tiny: the object is inside the ID
+            if self.id_len <= 18:
+                return bytes(hid[1 : 2 + (hid[0] & 0x0F)])
+            return bytes(hid[2 : 3 + (((hid[0] & 0x0F) << 8) | hid[1])])
+        if kind == 1:  # huge: a block of its own
+            if r.O + r.L <= self.id_len - 1:
+                addr, length = _le(hid, 1, r.O), _le(hid, 1 + r.O, r.L)
+            else:
+                key = _le(hid, 1, min(self.id_len - 1, 8))
+                for rec in r.btree2(self.huge_btree):
+                    if _le(rec, r.O + r.L, r.L) == key:
+                        addr, length = _le(rec, 0, r.O), _le(rec, r.O, r.L)
+                        break
+                else:
+                    raise OSError(f"{r.path}: huge heap object {key} not found")
+            pos = r.addr(addr)
+            return bytes(r.mm[pos : pos + length])
+        if kind != 0:
+            raise OSError(f"{r.path}: heap ID of type {kind}")
+        offset = _le(hid, 1, self.off_size)
+        length = _le(hid, 1 + self.off_size, self.len_size)
+        blocks = self._direct_blocks()
+        i = bisect.bisect_right(blocks, (offset, UNDEF, UNDEF)) - 1
+        if i < 0 or offset + length > blocks[i][0] + blocks[i][2]:
+            raise OSError(f"{r.path}: heap offset {offset} is in no direct block")
+        start, addr, size = blocks[i]
+        pos = r.block(addr, b"FHDB", "fractal heap direct block")
+        if self.checksummed and addr not in self._verified:
+            at = pos + 5 + r.O + self.off_size  # the checksum, zeroed for its own sum
+            image = bytes(r.mm[pos:at]) + b"\0\0\0\0" + bytes(r.mm[at + 4 : pos + size])
+            if lookup3(image) != r.u(at, 4):
+                raise OSError(f"{r.path}: fractal heap direct block at {addr}: checksum mismatch")
+            self._verified.add(addr)
+        at = pos + offset - start
+        return bytes(r.mm[at : at + length])
 
 
 class _Reader:
@@ -86,6 +563,7 @@ class _Reader:
 
     def __init__(self, path: str):
         self.path = path
+        self.file: Optional["File"] = None  # the File this reader serves
         self._fh = open(path, "rb")
         size = os.fstat(self._fh.fileno()).st_size
         if size < len(SIGNATURE):
@@ -93,13 +571,18 @@ class _Reader:
             raise OSError(f"{path}: not an HDF5 file ({size} bytes)")
         self.mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
         self._gheaps: Dict[int, Dict[int, bytes]] = {}
+        self._heaps: Dict[int, _FractalHeap] = {}
         at = 0  # the superblock sits at 0 or past a user block of 512 * 2^n bytes
         while self.mm[at : at + 8] != SIGNATURE:
             at = 512 if at == 0 else at * 2
             if at + 8 > size:
                 self.close()
                 raise OSError(f"{path}: not an HDF5 file (no signature)")
-        self._superblock(at)
+        try:
+            self._superblock(at)
+        except BaseException:
+            self.close()
+            raise
 
     def close(self):
         if self.mm is not None:
@@ -110,13 +593,26 @@ class _Reader:
     def _superblock(self, at: int):
         mm = self.mm
         version = mm[at + 8]
-        if version not in (0, 1):
-            raise NotImplementedError(
-                f"{self.path}: HDF5 superblock version {version} (written with libver "
-                f"'latest' or 'v108' and up); only versions 0 and 1 are read")
-        self.O, self.L = mm[at + 13], mm[at + 14]
+        if version > 3:
+            raise NotImplementedError(f"{self.path}: HDF5 superblock version {version}")
+        if version >= 2:
+            self.O, self.L = mm[at + 9], mm[at + 10]
+        else:
+            self.O, self.L = mm[at + 13], mm[at + 14]
         if self.O not in (2, 4, 8) or self.L not in (2, 4, 8):
             raise NotImplementedError(f"{self.path}: {self.O}-byte offsets, {self.L}-byte lengths")
+        if version >= 2:
+            self.base = self.u(at + 12, self.O)
+            extension = self.u(at + 12 + self.O, self.O)
+            self.root = self.u(at + 12 + 3 * self.O, self.O)
+            self.verify(at, at + 12 + 4 * self.O, "superblock")
+            if not self.undefined(extension):
+                _, msgs = self.header(extension)
+                if any(t == _SHARED_TABLE for t, _, _ in msgs):
+                    raise NotImplementedError(
+                        f"{self.path}: shared object header messages (the superblock extension "
+                        "holds a shared-message table)")
+            return
         pos = at + (28 if version == 1 else 24)
         self.base = self.u(pos, self.O)
         root = pos + 4 * self.O  # past the base address and the three that follow it
@@ -134,83 +630,190 @@ class _Reader:
     def undefined(self, a: int) -> bool:
         return a == (1 << (8 * self.O)) - 1
 
+    def block(self, addr: int, signature: bytes, what: str) -> int:
+        """The map position of the block at `addr`, whose signature must be
+        `signature`."""
+        pos = self.addr(addr)
+        if self.mm[pos : pos + 4] != signature:
+            raise OSError(f"{self.path}: no {what} at {addr}")
+        return pos
+
+    def verify(self, start: int, end: int, what: str):
+        """The lookup3 checksum of mm[start:end] must be the one stored at
+        `end`."""
+        if lookup3(self.mm[start:end]) != self.u(end, 4):
+            raise OSError(f"{self.path}: {what} at {start - self.base}: checksum mismatch")
+
     # -- object headers
 
-    def messages(self, addr: int) -> List[Tuple[int, bytes]]:
-        """(type, data) of each message of the object header at `addr`,
-        continuation blocks followed."""
+    def header(self, addr: int) -> Tuple[int, List[Tuple[int, bytes, Optional[int]]]]:
+        """The flags of the object header at `addr` (0 for version 1) and
+        (type, data, creation order or None) of each message, continuation
+        blocks followed and shared messages resolved."""
         mm, pos = self.mm, self.addr(addr)
         if mm[pos : pos + 4] == b"OHDR":
-            raise NotImplementedError(
-                f"{self.path}: version 2 object header at {addr} (written with libver "
-                "'latest' or 'v108' and up); only version 1 headers are read")
-        if mm[pos] != 1:
+            flags = mm[pos + 5]
+            p = pos + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            size_len = 1 << (flags & 0x03)
+            start = p + size_len
+            end = start + self.u(p, size_len)
+            self.verify(pos, end, "object header")
+            blocks, head = [(start, end)], 6 if flags & 0x04 else 4
+        elif mm[pos] == 1:
+            flags, blocks, head = 0, [(pos + 16, pos + 16 + self.u(pos + 8, 4))], 8
+        else:
             raise NotImplementedError(f"{self.path}: object header version {mm[pos]} at {addr}")
-        blocks = [(pos + 16, self.u(pos + 8, 4))]
         out = []
         while blocks:
-            start, length = blocks.pop(0)
-            p, end = start, start + length
-            while p + 8 <= end:
-                mtype, size, flags = self.u(p, 2), self.u(p + 2, 2), mm[p + 4]
-                data = mm[p + 8 : p + 8 + size]
-                p += 8 + size
+            p, end = blocks.pop(0)
+            while p + head <= end:
+                if head == 8:
+                    mtype, size, mflags, order = self.u(p, 2), self.u(p + 2, 2), mm[p + 4], None
+                else:
+                    mtype, size, mflags = mm[p], self.u(p + 1, 2), mm[p + 3]
+                    order = self.u(p + 4, 2) if head == 6 else None
+                data = bytes(mm[p + head : p + head + size])
+                p += head + size
                 if mtype == _CONTINUATION:
-                    blocks.append((self.addr(int.from_bytes(data[: self.O], "little")),
-                                   int.from_bytes(data[self.O : self.O + self.L], "little")))
+                    at, length = _le(data, 0, self.O), _le(data, self.O, self.L)
+                    if head == 8:
+                        blocks.append((self.addr(at), self.addr(at) + length))
+                    else:
+                        cpos = self.block(at, b"OCHK", "object header continuation block")
+                        self.verify(cpos, cpos + length - 4, "object header continuation block")
+                        blocks.append((cpos + 4, cpos + length - 4))
                     continue
                 if mtype == _NIL:
                     continue
-                if flags & 0x02:
-                    raise NotImplementedError(
-                        f"{self.path}: shared message (type {mtype:#x}) at {addr}")
-                out.append((mtype, data))
-        return out
+                if mflags & 0x02:
+                    data = self.shared(mtype, data)
+                out.append((mtype, data, order))
+        return flags, out
+
+    def messages(self, addr: int) -> List[Tuple[int, bytes, Optional[int]]]:
+        """(type, data, creation order) of each message of the object header
+        at `addr`."""
+        return self.header(addr)[1]
+
+    def shared(self, mtype: int, b: bytes) -> bytes:
+        """The message of type `mtype` that a shared message points to: the
+        one in a committed object's header."""
+        version, kind = b[0], b[1]
+        if version == 1:  # a symbol-table entry: the name's offset, then the address
+            at = 8 + self.L
+        elif version == 2 or (version == 3 and kind == 2):
+            at = 2
+        elif version == 3 and kind == 1:
+            raise NotImplementedError(
+                f"{self.path}: shared object header messages (a message of type {mtype:#x} in the "
+                "shared-message heap)")
+        else:
+            raise NotImplementedError(f"{self.path}: shared message version {version}, type {kind}")
+        target = _le(b, at, self.O)
+        for t, data, _ in self.messages(target):
+            if t == mtype:
+                return data
+        raise OSError(f"{self.path}: no message of type {mtype:#x} in the object at {target}")
 
     # -- datatypes, dataspaces, attributes
 
     def datatype(self, b: bytes, at: int = 0) -> Tuple[_Type, int]:
         """The datatype encoded at b[at:] and the bytes it takes."""
-        cls, bits, size = b[at] & 0x0F, b[at + 1 : at + 4], int.from_bytes(b[at + 4 : at + 8], "little")
-        if cls == 0:  # fixed-point
-            order = ">" if bits[0] & 1 else "<"
-            offset, precision = struct.unpack_from("<HH", b, at + 8)
-            if size not in (1, 2, 4, 8) or offset or precision != 8 * size:
-                raise NotImplementedError(
-                    f"{self.path}: {size}-byte integer of {precision} bits at offset {offset}")
-            kind = "i" if bits[0] & 0x08 else "u"
-            return _Type(np.dtype(f"{order}{kind}{size}")), 12
+        cls, version = b[at] & 0x0F, b[at] >> 4
+        bits = b[at + 1] | b[at + 2] << 8 | b[at + 3] << 16
+        size = _le(b, at + 4, 4)
+        p = at + 8
+        order = ">" if bits & 0x01 else "<"
+        if cls in (0, 4):  # fixed-point; a bitfield is h5py's unsigned integer
+            offset, precision = struct.unpack_from("<HH", b, p)
+            if size not in (1, 2, 4, 8):
+                raise NotImplementedError(f"{self.path}: {size}-byte integer")
+            kind = "i" if cls == 0 and bits & 0x08 else "u"
+            dtype = np.dtype(f"{order}{kind}{size}")
+            if cls == 4 or (offset == 0 and precision == 8 * size):
+                return _Type(dtype), 12
+            return _Type(dtype, f"{order}u{size}",
+                         _fixed_point(kind == "i", offset, precision, dtype)), 12
         if cls == 1:  # floating-point
-            if bits[0] & 0x40:
+            if bits & 0x40:
                 raise NotImplementedError(f"{self.path}: VAX-order float")
-            order = ">" if bits[0] & 1 else "<"
-            offset, precision, eloc, esize, mloc, msize, bias = struct.unpack_from(
-                "<HHBBBBI", b, at + 8)
+            offset, precision, eloc, esize, mloc, msize, bias = struct.unpack_from("<HHBBBBI", b, p)
             if _IEEE.get(size) != (eloc, esize, msize, bias) or offset or mloc or precision != 8 * size:
-                raise NotImplementedError(f"{self.path}: {size}-byte non-IEEE float")
+                raise NotImplementedError(
+                    f"{self.path}: {size}-byte non-IEEE float ({precision} bits at offset {offset})")
             return _Type(np.dtype(f"{order}f{size}")), 20
         if cls == 3:  # fixed-length string
-            return _Type(np.dtype(f"S{size}")), 8
-        if cls == 9 and bits[0] & 0x0F == 1:  # variable-length string
-            _, used = self.datatype(b, at + 8)
-            return _Type(np.dtype(object), vlen=True, utf8=bool(bits[1] & 0x0F)), 8 + used
-        what = "variable-length sequence" if cls == 9 else _CLASS_NAMES.get(cls, f"class {cls}")
-        raise NotImplementedError(f"{self.path}: HDF5 datatype {what}")
+            utf8 = (bits >> 4) & 0x0F == 1
+            return _Type(np.dtype(f"S{size}", metadata={"h5py_encoding": "utf-8" if utf8 else "ascii"})), 8
+        if cls == 5:  # opaque: h5py's void of its size (past its tag)
+            return _Type(np.dtype(f"V{size}")), 8 + (bits & 0xFF)
+        if cls == 6:  # compound
+            names, offsets, types = [], [], []
+            for _ in range(bits & 0xFFFF):
+                (name,), p = _names(b, p, 1, version)
+                if version >= 3:
+                    offset, p = _le(b, p, _enc_size(size)), p + _enc_size(size)
+                else:
+                    offset, p = _le(b, p, 4), p + 4
+                dims = ()
+                if version == 1:  # a member's own dimensions, before array types
+                    dims = struct.unpack_from("<4I", b, p + 12)[: b[p]]
+                    p += 28
+                t, used = self.datatype(b, p)
+                p += used
+                names.append(name.decode("utf-8"))
+                offsets.append(offset)
+                types.append(_array_type(t, dims) if dims else t)
+            return _compound_type(names, offsets, types, size), p - at
+        if cls == 7:
+            what = _REFERENCE_NAMES.get(bits & 0x0F, f"reference of type {bits & 0x0F}")
+            raise NotImplementedError(f"{self.path}: HDF5 datatype {what}")
+        if cls == 8:  # enumerated: h5py's dtype of the base, with the members
+            base, used = self.datatype(b, p)
+            names, p = _names(b, p + used, bits & 0xFFFF, version)
+            values = np.frombuffer(b, base.stored, count=len(names), offset=p)
+            p += len(names) * base.stored.itemsize
+            members = dict(zip(names, base.to_h5py(values, self, False).tolist()))
+            if members == {b"FALSE": 0, b"TRUE": 1}:  # h5py's bool
+                return _Type(np.bool_, base.stored,
+                             lambda a, r, d: base.to_h5py(a, r, d).astype(np.bool_)), p - at
+            dtype = np.dtype(base.dtype, metadata={"enum": {k.decode("utf-8"): v
+                                                            for k, v in members.items()}})
+            return _Type(dtype, base.stored, lambda a, r, d: base.to_h5py(a, r, d).view(dtype)), p - at
+        if cls == 9:  # variable-length string or sequence
+            base, used = self.datatype(b, p)
+            width = 8 + self.O
+            if bits & 0x0F == 1:
+                return _vlen_type(None, (bits >> 8) & 0x0F == 1, width), 8 + used
+            return _vlen_type(base, False, width), 8 + used
+        if cls == 10:  # array
+            ndims = b[p]
+            p += 1 if version >= 3 else 4
+            dims = struct.unpack_from(f"<{ndims}I", b, p)
+            p += 4 * ndims * (1 if version >= 3 else 2)  # version 2 adds permutations
+            base, used = self.datatype(b, p)
+            return _array_type(base, dims), p + used - at
+        raise NotImplementedError(f"{self.path}: HDF5 datatype {_CLASS_NAMES.get(cls, f'class {cls}')}")
 
-    def dataspace(self, b: bytes) -> Optional[Tuple[int, ...]]:
-        """The shape (maximum dims are not needed to read); None for a null
-        dataspace."""
-        version, rank = b[0], b[1]
+    def dataspace(self, b: bytes):
+        """(shape, maximum shape with None for unlimited); (None, None) for a
+        null dataspace."""
+        version, rank, flags = b[0], b[1], b[2]
         if version == 1:
             at = 8
         elif version == 2:
             if b[3] == 2:
-                return None
+                return None, None
             at = 4
         else:
             raise NotImplementedError(f"{self.path}: dataspace message version {version}")
         L = self.L
-        return tuple(int.from_bytes(b[at + i * L : at + (i + 1) * L], "little") for i in range(rank))
+        dims = tuple(_le(b, at + i * L, L) for i in range(rank))
+        if not flags & 0x01:
+            return dims, dims
+        top = (1 << (8 * L)) - 1
+        maxdims = tuple(_le(b, at + (rank + i) * L, L) for i in range(rank))
+        return dims, tuple(None if m == top else m for m in maxdims)
 
     def attribute(self, b: bytes):
         """(name, value) of an attribute message, values as h5py gives
@@ -218,40 +821,55 @@ class _Reader:
         version = b[0]
         if version not in (1, 2, 3):
             raise NotImplementedError(f"{self.path}: attribute message version {version}")
-        if version > 1 and b[1] & 0x03:
-            raise NotImplementedError(f"{self.path}: attribute with a shared datatype or dataspace")
+        flags = b[1] if version > 1 else 0
+        if flags & 0x02:
+            raise NotImplementedError(
+                f"{self.path}: shared object header messages (an attribute's shared dataspace)")
         nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
         pad = _pad8 if version == 1 else (lambda n: n)
         at = 9 if version == 3 else 8
         name = bytes(b[at : at + nsize]).rstrip(b"\0").decode("utf-8")
         at += pad(nsize)
-        dtype, _ = self.datatype(b, at)
+        tb = self.shared(_DATATYPE, b[at : at + tsize]) if flags & 0x01 else b[at : at + tsize]
+        dtype, _ = self.datatype(tb)
         at += pad(tsize)
-        shape = self.dataspace(b[at : at + ssize])
+        shape, _ = self.dataspace(b[at : at + ssize])
         at += pad(ssize)
         if shape is None:
             return name, None
         return name, self.values(bytes(b[at:]), dtype, shape)
 
+    def attributes(self, msgs, tracked: bool) -> Dict:
+        """An object's attributes, from its attribute messages and its dense
+        storage, in h5py's order: by creation order where the object tracks
+        it, else by name."""
+        found = []  # (creation order, name, value)
+        for t, data, order in msgs:
+            if t == _ATTRIBUTE:
+                found.append((order or 0,) + self.attribute(data))
+            elif t == _ATTRIBUTE_INFO:
+                at = 2 + (2 if data[1] & 0x01 else 0)
+                heap, btree = _le(data, at, self.O), _le(data, at + self.O, self.O)
+                if self.undefined(heap):
+                    continue
+                h = self.heap(heap)
+                for rec in self.btree2(btree):  # heap ID, flags, creation order, name hash
+                    if rec[8] & 0x02:
+                        raise NotImplementedError(
+                            f"{self.path}: shared object header messages (a shared attribute)")
+                    found.append((_le(rec, 9, 4),) + self.attribute(h.get(rec[:8])))
+        found.sort(key=(lambda x: x[0]) if tracked else (lambda x: x[1].encode("utf-8")))
+        return {name: value for _, name, value in found}
+
     def values(self, raw: bytes, t: _Type, shape: Tuple[int, ...], decode: bool = True):
-        """Elements of type t from their stored bytes; variable-length
-        strings as str where `decode` (attributes), else as bytes (datasets,
-        as h5py gives them)."""
+        """Elements of type t from their stored bytes, as h5py gives them;
+        variable-length strings as str where `decode` (attributes), else as
+        bytes (datasets)."""
         n = int(np.prod(shape, dtype=np.int64))
-        if t.vlen:
-            arr = np.empty(n, object)
-            width = 8 + self.O  # length, collection address, index
-            for i in range(n):
-                at = width * i
-                length = int.from_bytes(raw[at : at + 4], "little")
-                coll = int.from_bytes(raw[at + 4 : at + 4 + self.O], "little")
-                index = int.from_bytes(raw[at + 4 + self.O : at + width], "little")
-                data = self.gheap_object(coll, index)[:length]
-                arr[i] = data.decode("utf-8" if t.utf8 else "ascii") if decode else data
-            arr = arr.reshape(shape)
-        else:
-            arr = np.frombuffer(raw, t.dtype, count=n).reshape(shape).copy()
-        return arr[()] if shape == () else arr
+        arr = np.frombuffer(raw, t.stored, count=n)
+        arr = arr.reshape(tuple(shape) + arr.shape[1:])
+        arr = arr.copy() if t.convert is None else t.to_h5py(arr, self, decode)
+        return arr[()] if arr.ndim == 0 else arr
 
     def gheap_object(self, coll: int, index: int) -> bytes:
         if coll not in self._gheaps:
@@ -269,7 +887,12 @@ class _Reader:
             self._gheaps[coll] = objs
         return self._gheaps[coll][index]
 
-    # -- B-trees, symbol tables
+    def heap(self, addr: int) -> _FractalHeap:
+        if addr not in self._heaps:
+            self._heaps[addr] = _FractalHeap(self, addr)
+        return self._heaps[addr]
+
+    # -- B-trees, symbol tables, links
 
     def btree(self, addr: int, node_type: int, key_size: int) -> Iterator[Tuple[bytes, int]]:
         """(left key, child address) of each leaf entry of the v1 B-tree at
@@ -287,6 +910,45 @@ class _Reader:
                 yield from self.btree(child, node_type, key_size)
             else:
                 yield key, child
+
+    def btree2(self, addr: int) -> Iterator[bytes]:
+        """Each record of the version 2 B-tree at `addr` (BTHD), in key
+        order, at any depth."""
+        pos = self.block(addr, b"BTHD", "v2 B-tree header")
+        node_size, rec_size, depth = self.u(pos + 6, 4), self.u(pos + 10, 2), self.u(pos + 12, 2)
+        root, root_records = self.u(pos + 16, self.O), self.u(pos + 16 + self.O, 2)
+        self.verify(pos, pos + 18 + self.O + self.L, "v2 B-tree header")
+        # H5B2__hdr_init: the widths of an internal node's child counts
+        leaf_max = (node_size - 10) // rec_size
+        count_size = _enc_size(leaf_max)
+        cum_max, cum_size = [leaf_max], [0]
+        for d in range(1, depth + 1):
+            ptr = self.O + count_size + (cum_size[d - 1] if d > 1 else 0)
+            node_max = (node_size - (10 + ptr)) // (rec_size + ptr)
+            cum_max.append((node_max + 1) * cum_max[d - 1] + node_max)
+            cum_size.append(_enc_size(cum_max[d]))
+        if not self.undefined(root):
+            yield from self._btree2_node(root, root_records, depth, rec_size, count_size, cum_size)
+
+    def _btree2_node(self, addr, nrec, depth, rec_size, count_size, cum_size) -> Iterator[bytes]:
+        if depth == 0:
+            pos = self.block(addr, b"BTLF", "v2 B-tree leaf")
+            end = pos + 6 + nrec * rec_size
+            self.verify(pos, end, "v2 B-tree leaf")
+            for i in range(nrec):
+                yield bytes(self.mm[pos + 6 + i * rec_size : pos + 6 + (i + 1) * rec_size])
+            return
+        pos = self.block(addr, b"BTIN", "v2 B-tree internal node")
+        p = pos + 6 + nrec * rec_size
+        children = []
+        for _ in range(nrec + 1):
+            children.append((self.u(p, self.O), self.u(p + self.O, count_size)))
+            p += self.O + count_size + (cum_size[depth - 1] if depth > 1 else 0)
+        self.verify(pos, p, "v2 B-tree internal node")
+        for i, (child, count) in enumerate(children):
+            yield from self._btree2_node(child, count, depth - 1, rec_size, count_size, cum_size)
+            if i < nrec:
+                yield bytes(self.mm[pos + 6 + i * rec_size : pos + 6 + (i + 1) * rec_size])
 
     def links(self, btree: int, heap: int) -> Dict[str, int]:
         """{name: object header address} of a symbol-table group."""
@@ -307,34 +969,69 @@ class _Reader:
                 out[name] = self.u(e + self.O, self.O)
         return out
 
+    def link(self, b: bytes):
+        """(name, target, creation order) of a link message: the target an
+        object header address, a _SoftLink or an _ExternalLink."""
+        if b[0] != 1:
+            raise NotImplementedError(f"{self.path}: link message version {b[0]}")
+        flags, at = b[1], 2
+        kind = 0
+        if flags & 0x08:
+            kind, at = b[at], at + 1
+        order = None
+        if flags & 0x04:
+            order, at = _le(b, at, 8), at + 8
+        if flags & 0x10:
+            at += 1  # the name's character set
+        size = 1 << (flags & 0x03)
+        length, at = _le(b, at, size), at + size
+        name, at = b[at : at + length].decode("utf-8"), at + length
+        if kind == 0:
+            return name, _le(b, at, self.O), order
+        value = b[at + 2 : at + 2 + _le(b, at, 2)]
+        if kind == 1:
+            return name, _SoftLink(value.decode("utf-8")), order
+        if kind == 64:  # flags byte, then the file's name and the object's path
+            filename, path = value[1:].split(b"\0")[:2]
+            return name, _ExternalLink(filename.decode("utf-8"), path.decode("utf-8")), order
+        raise NotImplementedError(f"{self.path}: user-defined link {name!r} of type {kind}")
+
+    def members(self, links) -> Dict[str, object]:
+        """{name: target} of a group's links, in h5py's order: by name, or by
+        creation order where the group tracks it."""
+        if not isinstance(links, _LinkTable):
+            return dict(sorted(self.links(*links).items(), key=lambda kv: kv[0].encode("utf-8")))
+        found = [self.link(m) for m in links.messages]
+        tracked = False
+        if links.info is not None:
+            info = links.info
+            tracked = bool(info[1] & 0x01)
+            at = 2 + (8 if tracked else 0)
+            heap, btree = _le(info, at, self.O), _le(info, at + self.O, self.O)
+            if not self.undefined(heap):  # dense storage: the name index's records
+                h = self.heap(heap)
+                found += [self.link(h.get(rec[4:])) for rec in self.btree2(btree)]
+        found.sort(key=(lambda x: x[2]) if tracked else (lambda x: x[0].encode("utf-8")))
+        return {name: target for name, target, _ in found}
+
     def open(self, addr: int, name: str):
-        """The Group or Dataset whose object header is at `addr`."""
-        msgs = self.messages(addr)
-        types = {t for t, _ in msgs}
-        attrs: Dict = {}
-        for t, data in msgs:
-            if t == _ATTRIBUTE:
-                key, value = self.attribute(data)
-                attrs[key] = value
-            elif t == _ATTRIBUTE_INFO:
-                flags = data[1]
-                at = 2 + (2 if flags & 1 else 0)
-                if not self.undefined(int.from_bytes(data[at : at + self.O], "little")):
-                    raise NotImplementedError(
-                        f"{self.path}: dense attribute storage (fractal heap) on {name!r}")
-        attrs = dict(sorted(attrs.items(), key=lambda kv: kv[0].encode("utf-8")))  # h5py's order
+        """The Group, Dataset or Datatype whose object header is at `addr`."""
+        flags, msgs = self.header(addr)
+        types = {t for t, _, _ in msgs}
+        attrs = self.attributes(msgs, tracked=bool(flags & 0x04))
         if _SYMBOL_TABLE in types:
-            data = next(d for t, d in msgs if t == _SYMBOL_TABLE)
-            btree = int.from_bytes(data[: self.O], "little")
-            heap = int.from_bytes(data[self.O : 2 * self.O], "little")
-            return Group(name, attrs, reader=self, links=(btree, heap))
+            data = next(d for t, d, _ in msgs if t == _SYMBOL_TABLE)
+            return Group(name, attrs, reader=self, links=(_le(data, 0, self.O), _le(data, self.O, self.O)))
+        if types & {_LINK, _LINK_INFO, _GROUP_INFO}:
+            table = _LinkTable([d for t, d, _ in msgs if t == _LINK],
+                               next((d for t, d, _ in msgs if t == _LINK_INFO), None))
+            return Group(name, attrs, reader=self, links=table)
         if _LAYOUT in types:
             return Dataset(name, attrs, layout=_StoredLayout(self, msgs, name))
-        if types & {_LINK, _LINK_INFO, _GROUP_INFO}:
-            raise NotImplementedError(
-                f"{self.path}: {name!r} is a group with link messages (compact or dense link "
-                "storage); only symbol-table groups are read")
-        raise NotImplementedError(f"{self.path}: {name!r} is neither a group nor a dataset")
+        if _DATATYPE in types:
+            t, _ = self.datatype(next(d for mt, d, _ in msgs if mt == _DATATYPE))
+            return Datatype(name, attrs, t.dtype)
+        raise NotImplementedError(f"{self.path}: {name!r} is neither a group, a dataset nor a datatype")
 
 
 class _StoredLayout:
@@ -342,44 +1039,92 @@ class _StoredLayout:
 
     def __init__(self, r: _Reader, msgs, name: str):
         self.r, self.name = r, name
+        self.where = f"{r.path}: {name!r}"
         self.filters: List[Tuple[int, Tuple[int, ...]]] = []
         self.fill = None
-        shape = dtype = None
-        layout = None
-        for t, b in msgs:
-            if t == _DATASPACE:
-                shape = r.dataspace(b)
-            elif t == _DATATYPE:
-                dtype, _ = r.datatype(b)
-            elif t == _LAYOUT:
+        shape = maxshape = t = layout = None
+        for mt, b, _ in msgs:
+            if mt == _DATASPACE:
+                shape, maxshape = r.dataspace(b)
+            elif mt == _DATATYPE:
+                t, _ = r.datatype(b)
+            elif mt == _LAYOUT:
                 layout = b
-            elif t == _FILTERS:
+            elif mt == _FILTERS:
                 self.filters = self._pipeline(b)
-            elif t in (_FILL, _FILL_OLD):
-                self.fill = self._fill(t, b)
-        self.type = dtype
-        # variable-length strings are stored as heap IDs: length, collection, index
-        self.stored = np.dtype((np.void, 8 + r.O)) if dtype.vlen else dtype.dtype
+            elif mt in (_FILL, _FILL_OLD):
+                self.fill = self._fill(mt, b)
+            elif mt == _EXTERNAL_FILES:
+                raise NotImplementedError(f"{self.where}: raw data in external files")
+        self.type = t
+        self.stored = t.stored
+        self._sub = self.stored.shape  # an array type's own axes, after the dataset's
         self.shape = shape if shape is not None else (0,)
-        if layout[0] != 3:
-            raise NotImplementedError(f"{r.path}: {name!r}: data layout message version {layout[0]}")
-        self.kind = layout[1]
-        O = r.O
-        if self.kind == 0:  # compact
-            size = struct.unpack_from("<H", layout, 2)[0]
-            self.compact = bytes(layout[4 : 4 + size])
-        elif self.kind == 1:  # contiguous
-            self.address = int.from_bytes(layout[2 : 2 + O], "little")
-        elif self.kind == 2:  # chunked
-            rank = layout[2]
-            self.address = int.from_bytes(layout[3 : 3 + O], "little")
-            self.chunk = struct.unpack_from(f"<{rank - 1}I", layout, 3 + O)
+        self.maxshape = maxshape if maxshape is not None else self.shape
+        self.decode_seconds = 0.0  # time spent in the filters of the chunks read
+        self.skip_edge_filters = False
+        self._layout(layout)
+        if self.filters and self.kind != 2:
+            raise NotImplementedError(f"{self.where}: filters on an unchunked dataset")
+
+    def _layout(self, b: bytes):
+        O, version = self.r.O, b[0]
+        if version in (1, 2):  # rank + 1 dimensions, the last a chunk's element size
+            rank, self.kind = b[1], b[2]
+            at = 8
+            if self.kind in (1, 2):
+                self.address, at = _le(b, at, O), at + O
+            dims = struct.unpack_from(f"<{rank}I", b, at)
+            at += 4 * rank
+            if self.kind == 0:
+                self.compact = bytes(b[at + 4 : at + 4 + _le(b, at, 4)])
+            elif self.kind == 2:
+                self.chunk, self.index = tuple(dims[:-1]), "btree1"
+        elif version in (3, 4):
+            self.kind = b[1]
+            if self.kind == 0:
+                self.compact = bytes(b[4 : 4 + _le(b, 2, 2)])
+            elif self.kind == 1:
+                self.address = _le(b, 2, O)
+            elif self.kind == 2 and version == 3:
+                rank = b[2]
+                self.address = _le(b, 3, O)
+                self.chunk, self.index = struct.unpack_from(f"<{rank - 1}I", b, 3 + O), "btree1"
+            elif self.kind == 2:
+                self._chunk_layout(b)
+        else:
+            raise NotImplementedError(f"{self.where}: data layout message version {version}")
+        if self.kind == 3:
+            raise NotImplementedError(f"{self.where}: a virtual dataset (layout class 3)")
+        if self.kind > 3:
+            raise NotImplementedError(f"{self.where}: layout class {self.kind}")
+        if self.kind == 2:
+            self.chunk = tuple(self.chunk)
+            self.chunk_bytes = int(np.prod(self.chunk, dtype=np.int64)) * self.stored.itemsize
             self._index: Optional[Dict[Tuple[int, ...], Tuple[int, int, int]]] = None
             self._last: Tuple = (None, None)
-        else:
-            raise NotImplementedError(f"{r.path}: {name!r}: layout class {self.kind}")
-        if self.filters and self.kind != 2:
-            raise NotImplementedError(f"{r.path}: {name!r}: filters on an unchunked dataset")
+
+    def _chunk_layout(self, b: bytes):
+        """A version 4 chunked layout: its chunk dimensions and its chunk
+        index's type and address."""
+        r = self.r
+        flags, ndims, enc = b[2], b[3], b[4]
+        self.chunk = tuple(_le(b, 5 + i * enc, enc) for i in range(ndims - 1))
+        self.skip_edge_filters = bool(flags & 0x01)  # partial edge chunks unfiltered
+        at = 5 + ndims * enc
+        kind = b[at]
+        at += 1
+        if kind == 1:  # single chunk
+            self.single = None
+            if flags & 0x02:
+                self.single = (_le(b, at, r.L), _le(b, at + r.L, 4))
+                at += r.L + 4
+        elif kind in (3, 4, 5):  # fixed array, extensible array, v2 B-tree: their parameters
+            at += {3: 1, 4: 5, 5: 6}[kind]
+        elif kind != 2:
+            raise NotImplementedError(f"{self.where}: chunk index type {kind}")
+        self.index = {1: "single", 2: "implicit", 3: "farray", 4: "earray", 5: "btree2"}[kind]
+        self.address = _le(b, at, r.O)
 
     def _pipeline(self, b: bytes):
         version, n = b[0], b[1]
@@ -397,10 +1142,6 @@ class _StoredLayout:
             at += 4 + (_pad8(name_len) if version == 1 else name_len)
             vals = struct.unpack_from(f"<{nvals}I", b, at)
             at += 4 * nvals + (4 if version == 1 and nvals % 2 else 0)
-            if fid not in (1, 2):
-                raise NotImplementedError(
-                    f"{self.r.path}: {self.name!r}: the {_FILTER_NAMES.get(fid, f'id {fid}')} "
-                    "filter; only deflate and shuffle are read")
             out.append((fid, vals))
         return out
 
@@ -421,19 +1162,21 @@ class _StoredLayout:
         return None
 
     def filled(self, shape) -> np.ndarray:
-        out = np.zeros(shape, self.type.dtype)
-        if self.fill is not None and not self.type.vlen:
-            out[...] = np.frombuffer(self.fill, self.type.dtype, count=1)[0]
+        """Stored elements of `shape` holding the fill value."""
+        out = np.zeros(shape, self.stored)
+        if (self.fill is not None and len(self.fill) == self.stored.itemsize
+                and not self.type.dtype.hasobject):
+            out[...] = np.frombuffer(self.fill, self.stored, count=1)[0]
         return out
 
     # -- element reads
 
     def _stored(self, shape) -> np.ndarray:
-        """A view of the stored elements (a variable-length string's as its
-        heap ID)."""
+        """A view of the stored elements."""
         dt = self.stored
         if self.kind == 0:
-            return np.frombuffer(self.compact, dt, count=int(np.prod(shape))).reshape(shape)
+            count = int(np.prod(shape, dtype=np.int64))
+            return np.frombuffer(self.compact, dt, count=count).reshape(tuple(shape) + self._sub)
         return np.ndarray(shape, dt, buffer=self.r.mm, offset=self.r.addr(self.address))
 
     def read(self, rows: np.ndarray) -> np.ndarray:
@@ -441,37 +1184,231 @@ class _StoredLayout:
         of any shape and order, repeats allowed."""
         shape = rows.shape + tuple(self.shape[1:])
         if self.kind == 2:
-            out = self._chunked(rows.reshape(-1)).reshape(shape)
+            out = self._chunked(rows.reshape(-1)).reshape(shape + self._sub)
         elif (self.kind == 1 and self.r.undefined(self.address)) or 0 in self.shape:
-            return self.filled(shape)
+            out = self.filled(shape)
         else:
             out = self._stored(self.shape)[rows]
-        if self.type.vlen:
-            return self.r.values(out.tobytes(), self.type, shape, decode=False)
-        return out
+        return self.type.to_h5py(out, self.r, False)
 
     def read_all(self) -> np.ndarray:
         if self.shape == ():
             if self.kind == 1 and self.r.undefined(self.address):
-                return self.filled(())
-            out = np.array(self._stored(()))
-            return self.r.values(out.tobytes(), self.type, (), decode=False) if self.type.vlen else out
+                out = self.filled(())
+            else:
+                out = np.array(self._stored(()))
+            return self.type.to_h5py(out, self.r, False)
         return self.read(np.arange(self.shape[0]))
 
-    # -- chunked
+    # -- chunked: the chunk indexes
 
     def _chunk_index(self) -> Dict[Tuple[int, ...], Tuple[int, int, int]]:
         """{chunk's first element: (address, stored bytes, filter mask)}."""
         if self._index is None:
             self._index = {}
             if not self.r.undefined(self.address):
-                rank = len(self.chunk)
-                key_size = 8 + 8 * (rank + 1)
-                for key, child in self.r.btree(self.address, 1, key_size):
-                    size, mask = struct.unpack_from("<II", key, 0)
-                    offset = struct.unpack_from(f"<{rank}Q", key, 8)
-                    self._index[offset] = (child, size, mask)
+                {"btree1": self._btree1, "single": self._single, "implicit": self._implicit,
+                 "farray": self._farray, "earray": self._earray,
+                 "btree2": self._btree2}[self.index]()
         return self._index
+
+    def _btree1(self):
+        rank = len(self.chunk)
+        for key, child in self.r.btree(self.address, 1, 8 + 8 * (rank + 1)):
+            size, mask = struct.unpack_from("<II", key, 0)
+            self._index[struct.unpack_from(f"<{rank}Q", key, 8)] = (child, size, mask)
+
+    def _single(self):
+        size, mask = self.single or (self.chunk_bytes, 0)
+        self._index[(0,) * len(self.chunk)] = (self.address, size, mask)
+
+    def _max_grid(self) -> List[Optional[int]]:
+        """Chunks along each axis at the maximum shape (None: unlimited)."""
+        return [None if m is None else -(-m // c) for m, c in zip(self.maxshape, self.chunk)]
+
+    def _put(self, first: int, addr: np.ndarray, size: np.ndarray, mask: np.ndarray):
+        """Index entries from the elements numbered first, first + 1, ... of
+        a fixed or extensible array: element i is the chunk whose
+        coordinates, in chunks, are i in row-major order over the maximum
+        shape, the unlimited axis moved first (HDF5's swizzle)."""
+        keep = np.flatnonzero(addr != np.uint64((1 << (8 * self.r.O)) - 1))
+        if not len(keep):
+            return
+        idx = first + keep.astype(np.int64)
+        grid = self._max_grid()
+        order = [d for d, g in enumerate(grid) if g is None] + [d for d, g in enumerate(grid) if g is not None]
+        rest = [grid[d] for d in order if grid[d] is not None]
+        if len(order) > len(rest):  # the unlimited axis counts the rest's whole grids
+            lead, rem = np.divmod(idx, int(np.prod(rest, dtype=np.int64)))
+            parts = [lead] + (list(np.unravel_index(rem, rest)) if rest else [])
+        else:
+            parts = list(np.unravel_index(idx, rest))
+        coords = [None] * len(grid)
+        for d, part in zip(order, parts):
+            coords[d] = (part * self.chunk[d]).tolist()
+        for offset, a, s, m in zip(zip(*coords), addr[keep].tolist(), size[keep].tolist(),
+                                   mask[keep].tolist()):
+            self._index[offset] = (a, s, m)
+
+    def _elements(self, raw: bytes, count: int, width: int, filtered: bool):
+        """(addresses, sizes, filter masks) of `count` index elements of
+        `width` bytes: an address, then for a filtered chunk its size (as
+        wide as the element leaves) and its filter mask."""
+        O = self.r.O
+        cols = np.frombuffer(raw, np.uint8, count=count * width).reshape(count, width)
+        addr = _uint(cols[:, :O])
+        if not filtered:
+            return addr, np.full(count, self.chunk_bytes, np.uint64), np.zeros(count, np.uint64)
+        return addr, _uint(cols[:, O : width - 4]), _uint(cols[:, width - 4 :])
+
+    def _implicit(self):
+        """Every chunk at its place in one allocation, in row-major order
+        over the maximum shape."""
+        count = int(np.prod(self._max_grid(), dtype=np.int64))
+        addr = self.address + np.arange(count, dtype=np.uint64) * np.uint64(self.chunk_bytes)
+        self._put(0, addr, np.full(count, self.chunk_bytes, np.uint64), np.zeros(count, np.uint64))
+
+    def _farray(self):
+        """A fixed array (FAHD, FADB), its elements in pages of 2^bits where
+        there are more, each page present where its bit says so."""
+        r, O, L = self.r, self.r.O, self.r.L
+        pos = r.block(self.address, b"FAHD", "fixed array header")
+        filtered, width, page_bits = r.mm[pos + 5], r.mm[pos + 6], r.mm[pos + 7]
+        count, dblock = r.u(pos + 8, L), r.u(pos + 8 + L, O)
+        r.verify(pos, pos + 8 + L + O, "fixed array header")
+        if r.undefined(dblock):
+            return
+        dp = r.block(dblock, b"FADB", "fixed array data block")
+        page = 1 << page_bits
+        at = dp + 6 + O
+        if count <= page:
+            r.verify(dp, at + count * width, "fixed array data block")
+            self._put(0, *self._elements(r.mm[at : at + count * width], count, width, filtered))
+            return
+        pages = -(-count // page)
+        bitmap = r.mm[at : at + (pages + 7) // 8]
+        r.verify(dp, at + len(bitmap), "fixed array data block")
+        start = at + len(bitmap) + 4
+        for i in range(pages):
+            if not bitmap[i // 8] & (0x80 >> (i % 8)):
+                continue
+            n = min(page, count - i * page)
+            p = start + i * (page * width + 4)
+            r.verify(p, p + n * width, "fixed array data block page")
+            self._put(i * page, *self._elements(r.mm[p : p + n * width], n, width, filtered))
+
+    def _earray(self):
+        """An extensible array (EAHD): its first elements in the index block
+        (EAIB), the rest in data blocks (EADB) that the index block or its
+        super blocks (EASB) point to, a super block's data blocks in pages
+        where they hold more than 2^bits elements."""
+        r, O, L = self.r, self.r.O, self.r.L
+        pos = r.block(self.address, b"EAHD", "extensible array header")
+        filtered, width, max_bits, in_index, dblock_min, sblock_min, page_bits = r.mm[pos + 5 : pos + 12]
+        iblock = r.u(pos + 12 + 6 * L, O)
+        r.verify(pos, pos + 12 + 6 * L + O, "extensible array header")
+        if r.undefined(iblock):
+            return
+        offset_size = (max_bits + 7) // 8
+        page = 1 << page_bits
+        # H5EA__hdr_init: super block s holds 2^(s/2) data blocks of 2^((s+1)/2) * min elements
+        sblocks, first = [], in_index
+        for s in range(1 + max_bits - (dblock_min.bit_length() - 1)):
+            ndata, nelem = 1 << (s // 2), (1 << ((s + 1) // 2)) * dblock_min
+            sblocks.append((ndata, nelem, first))
+            first += ndata * nelem
+        ip = r.block(iblock, b"EAIB", "extensible array index block")
+        at = ip + 6 + O
+        self._put(0, *self._elements(r.mm[at : at + in_index * width], in_index, width, filtered))
+        at += in_index * width
+        direct = 2 * (sblock_min.bit_length() - 1)  # super blocks whose data blocks the index block holds
+        daddrs = [r.u(at + i * O, O) for i in range(2 * (sblock_min - 1))]
+        at += len(daddrs) * O
+        saddrs = [r.u(at + i * O, O) for i in range(len(sblocks) - direct)]
+        r.verify(ip, at + len(saddrs) * O, "extensible array index block")
+        d = 0
+        for ndata, nelem, start in sblocks[:direct]:
+            for j in range(ndata):
+                if not r.undefined(daddrs[d]):
+                    self._ea_data(daddrs[d], nelem, start + j * nelem, width, filtered, offset_size,
+                                  page, None)
+                d += 1
+        for s, saddr in enumerate(saddrs, direct):
+            if r.undefined(saddr):
+                continue
+            ndata, nelem, start = sblocks[s]
+            sp = r.block(saddr, b"EASB", "extensible array super block")
+            at = sp + 6 + O + offset_size
+            bitmap = None
+            if nelem > page:  # each data block's page bits, bit j * pages + i
+                bitmap = r.mm[at : at + ndata * ((nelem // page + 7) // 8)]
+                at += len(bitmap)
+            addrs = [r.u(at + j * O, O) for j in range(ndata)]
+            r.verify(sp, at + ndata * O, "extensible array super block")
+            for j, a in enumerate(addrs):
+                if not r.undefined(a):
+                    self._ea_data(a, nelem, start + j * nelem, width, filtered, offset_size, page,
+                                  None if bitmap is None else (bitmap, j * (nelem // page)))
+
+    def _ea_data(self, addr, nelem, first, width, filtered, offset_size, page, pages):
+        r = self.r
+        dp = r.block(addr, b"EADB", "extensible array data block")
+        at = dp + 6 + r.O + offset_size
+        if nelem <= page:
+            r.verify(dp, at + nelem * width, "extensible array data block")
+            self._put(first, *self._elements(r.mm[at : at + nelem * width], nelem, width, filtered))
+            return
+        r.verify(dp, at, "extensible array data block")
+        at += 4
+        for i in range(nelem // page):
+            if pages is not None:
+                bitmap, bit = pages
+                if not bitmap[(bit + i) // 8] & (0x80 >> ((bit + i) % 8)):
+                    continue
+            p = at + i * (page * width + 4)
+            r.verify(p, p + page * width, "extensible array data block page")
+            self._put(first + i * page, *self._elements(r.mm[p : p + page * width], page, width,
+                                                        filtered))
+
+    def _btree2(self):
+        """A v2 B-tree of chunk records: address, (for filtered chunks) size
+        and filter mask, then the chunk's coordinates in chunks."""
+        O, rank = self.r.O, len(self.chunk)
+        for rec in self.r.btree2(self.address):
+            scaled = struct.unpack_from(f"<{rank}Q", rec, len(rec) - 8 * rank)
+            offset = tuple(s * c for s, c in zip(scaled, self.chunk))
+            if len(rec) == O + 8 * rank:
+                self._index[offset] = (_le(rec, 0, O), self.chunk_bytes, 0)
+            else:
+                end = len(rec) - 8 * rank
+                self._index[offset] = (_le(rec, 0, O), _le(rec, O, end - 4 - O), _le(rec, end - 4, 4))
+
+    # -- chunked: the reads
+
+    def _decode(self, raw: bytes, active) -> bytes:
+        """A chunk's bytes through the filters it went through, last first."""
+        for fid, vals in reversed(active):
+            if fid == 1:
+                raw = zlib.decompress(raw)
+            elif fid == 2:
+                width = vals[0] if vals else self.stored.itemsize
+                if width > 1:  # one-byte elements shuffle to themselves
+                    raw = _unshuffle(raw, width)
+            elif fid == 3:
+                raw = _unfletcher32(raw, self.where)
+            elif fid == 5:
+                raw = _nbit(raw, vals)
+            elif fid == 6:
+                raw = _scaleoffset(raw, vals, self.where)
+            elif fid == 32000:
+                raw = _unlzf(raw, vals[2] if len(vals) > 2 and vals[2] else self.chunk_bytes)
+            elif fid >= 256:
+                raise NotImplementedError(
+                    f"{self.where}: plugin filter id {fid} ({_FILTER_NAMES.get(fid, 'unregistered')})")
+            else:
+                raise NotImplementedError(
+                    f"{self.where}: the {_FILTER_NAMES.get(fid, f'id {fid}')} filter")
+        return raw
 
     def _chunk(self, offset: Tuple[int, ...]) -> Optional[np.ndarray]:
         """One chunk's elements, or None where none was written."""
@@ -483,19 +1420,16 @@ class _StoredLayout:
         addr, size, mask = entry
         dt = self.stored
         active = [(fid, vals) for i, (fid, vals) in enumerate(self.filters) if not mask >> i & 1]
-        if not active:
-            return np.ndarray(self.chunk, dt, buffer=self.r.mm, offset=self.r.addr(addr))
+        if self.skip_edge_filters and any(o + c > n for o, c, n in zip(offset, self.chunk, self.shape)):
+            active = []
         pos = self.r.addr(addr)
-        raw = bytes(self.r.mm[pos : pos + size])
-        for fid, vals in reversed(active):
-            if fid == 1:
-                raw = zlib.decompress(raw)
-            else:  # shuffle: byte planes back to elements
-                width = vals[0] if vals else dt.itemsize
-                n = len(raw) // width
-                planes = np.frombuffer(raw, np.uint8, count=n * width).reshape(width, n)
-                raw = planes.T.tobytes() + raw[n * width :]
-        arr = np.frombuffer(raw, dt, count=int(np.prod(self.chunk))).reshape(self.chunk)
+        if not active:
+            return np.ndarray(self.chunk, dt, buffer=self.r.mm, offset=pos)
+        t0 = time.perf_counter()
+        raw = self._decode(bytes(self.r.mm[pos : pos + size]), active)
+        count = int(np.prod(self.chunk, dtype=np.int64))
+        arr = np.frombuffer(raw, dt, count=count).reshape(self.chunk + self._sub)
+        self.decode_seconds += time.perf_counter() - t0
         self._last = (offset, arr)
         return arr
 
@@ -505,7 +1439,7 @@ class _StoredLayout:
         once, its rows gathered by a fancy index into a temporary, and the
         temporary scattered to their places in the result, two copies."""
         shape = (len(rows),) + tuple(self.shape[1:])
-        out = np.zeros(shape, self.stored) if self.type.vlen else self.filled(shape)
+        out = self.filled(shape)
         c0 = self.chunk[0]
         band = rows // c0
         order = np.argsort(band, kind="stable")
@@ -544,7 +1478,7 @@ class AttributeManager(dict):
 
 
 class Group:
-    """A group of named members, each a Group or a Dataset."""
+    """A group of named members, each a Group, a Dataset or a Datatype."""
 
     def __init__(self, name: str, attrs: Dict, reader: Optional[_Reader] = None,
                  links=None, writer: Optional["_Writer"] = None):
@@ -555,23 +1489,32 @@ class Group:
 
     def _table(self) -> Dict:
         if self._members is None:
-            self._members = dict(self._reader.links(*self._links))
+            self._members = self._reader.members(self._links)
         return self._members
 
-    def _child(self, name: str):
+    def _child(self, name: str, hops: int = 0):
         item = self._table()[name]
         if isinstance(item, int):  # an object header not yet opened
             path = f"{self.name.rstrip('/')}/{name}"
             item = self._table()[name] = self._reader.open(item, path)
+        elif isinstance(item, (_SoftLink, _ExternalLink)):
+            if hops >= _MAX_LINK_HOPS:
+                raise KeyError(f"{name!r} in {self.name!r}: too many links")
+            if isinstance(item, _SoftLink):  # a path from this group, or from the root
+                return self._lookup(item.path, hops + 1)
+            return self._reader.file._external(item.filename)._lookup(item.path, hops + 1)
         return item
 
-    def __getitem__(self, path: str):
-        node = self
-        for part in [p for p in path.split("/") if p]:
+    def _lookup(self, path: str, hops: int = 0):
+        node = self._reader.file if path.startswith("/") and self._reader is not None else self
+        for part in [p for p in path.split("/") if p and p != "."]:
             if not isinstance(node, Group) or part not in node._table():
                 raise KeyError(f"{path!r} not in {self.name!r}")
-            node = node._child(part)
+            node = node._child(part, hops)
         return node
+
+    def __getitem__(self, path: str):
+        return self._lookup(path)
 
     def __contains__(self, path: str) -> bool:
         try:
@@ -580,6 +1523,12 @@ class Group:
             return False
         return True
 
+    def get(self, path: str, default=None):
+        try:
+            return self[path]
+        except KeyError:
+            return default
+
     def __iter__(self):
         return iter(self.keys())
 
@@ -587,11 +1536,14 @@ class Group:
         return len(self._table())
 
     def keys(self) -> List[str]:
+        if self._reader is not None:  # in h5py's order already
+            return list(self._table())
         return sorted(self._table(), key=lambda n: n.encode("utf-8"))
 
     def items(self):
-        return [(n, self._child(n)) for n in self.keys()]
-
+        """(name, member) pairs; a member a link does not reach is None,
+        as in h5py."""
+        return [(n, self.get(n)) for n in self.keys()]
     # -- writing
 
     def _add(self, name: str, item):
@@ -704,6 +1656,27 @@ class Dataset:
             self._filled = 0
 
 
+
+
+class Datatype:
+    """A committed (named) datatype: its `dtype` as h5py gives it, and its
+    attributes."""
+
+    def __init__(self, name: str, attrs: Dict, dtype: np.dtype):
+        self.name, self.dtype = name, dtype
+        self.attrs = AttributeManager(attrs, writable=False)
+
+
+def _external_paths(filename: str, parent: str) -> List[str]:
+    """Where HDF5 looks for an external link's file (H5F_prefix_open_file,
+    without the HDF5_EXT_PREFIX search path): an absolute name as it is,
+    then the name, or an absolute name's last part, in the directory of
+    the file that holds the link, then in the working directory."""
+    out = [filename] if os.path.isabs(filename) else []
+    base = os.path.basename(filename) if out else filename
+    return out + [os.path.join(os.path.dirname(os.path.abspath(parent)), base), base]
+
+
 class File(Group):
     """An HDF5 file: its root group. mode "r" reads an existing file, "w"
     creates one (truncating); the file is written in full at close."""
@@ -711,6 +1684,7 @@ class File(Group):
     def __init__(self, path, mode: str = "r"):
         path = os.fspath(path)
         self.filename, self.mode = path, mode
+        self._externals: Dict[str, "File"] = {}  # the files external links opened
         if mode == "r":
             r = _Reader(path)
             try:
@@ -721,12 +1695,25 @@ class File(Group):
                 r.close()
                 raise
             super().__init__("/", root.attrs, reader=r, links=root._links)
+            r.file = self
         elif mode == "w":
             super().__init__("/", {}, writer=_Writer(path))
         else:
             raise ValueError(f"mode {mode!r}: only 'r' and 'w' are supported")
 
+    def _external(self, filename: str) -> "File":
+        if filename not in self._externals:
+            found = next((p for p in _external_paths(filename, self.filename) if os.path.isfile(p)),
+                         None)
+            if found is None:
+                raise KeyError(f"{self.filename}: external link to {filename!r}: no such file")
+            self._externals[filename] = File(found)
+        return self._externals[filename]
+
     def close(self):
+        for f in self._externals.values():
+            f.close()
+        self._externals.clear()
         if self._reader is not None:
             self._reader.close()
         elif self._writer is not None and not self._writer.closed:

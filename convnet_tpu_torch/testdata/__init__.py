@@ -1,0 +1,95 @@
+"""Committed test data of the port, and the means to check it.
+
+`hdf5/` holds small HDF5 files that h5py wrote in the formats the JAX
+package reads through h5py and the port reads through its own
+`convnet_tpu_torch/hdf5.py` (libver "latest" files, dense links and
+attributes, every chunk index, the lzf, fletcher32, scaleoffset and nbit
+filters, enum, compound and variable-length types), among them a CIFAR-10
+shard and its mean file for the CIFAR-10 data template. `hdf5/digests.json`
+holds, for each dataset of each file, the sha256 of its elements, its dtype
+and its shape as h5py read them. `tests/torch_port_hdf5_fixtures.py` writes
+both (it needs h5py); `check_hdf5_fixtures` reads every file with the port's
+reader (no h5py) and holds each dataset to its digest.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import struct
+from pathlib import Path
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+
+HDF5_DIR = Path(__file__).resolve().parent / "hdf5"
+HDF5_DIGESTS = HDF5_DIR / "digests.json"
+# the CIFAR-10 shard: 256 rows of 32x32x3 uint8 images and int32 labels,
+# chunked a row a chunk (an extensible-array index), lzf + shuffle +
+# fletcher32; and its full-pixel mean and std
+CIFAR_SHARD = HDF5_DIR / "cifar10_train_latest.h5"
+CIFAR_MEAN = HDF5_DIR / "cifar10_mean_latest.h5"
+
+
+def _update(h, arr: np.ndarray):
+    if arr.dtype.names:  # field by field, so that padding bytes do not count
+        for name in arr.dtype.names:
+            _update(h, arr[name])
+    elif arr.dtype.hasobject:
+        for x in arr.reshape(-1):
+            b = x if isinstance(x, bytes) else np.ascontiguousarray(x).tobytes()
+            h.update(struct.pack("<Q", len(b)))
+            h.update(b)
+    else:
+        h.update(np.ascontiguousarray(arr).tobytes())
+
+
+def digest(arr) -> str:
+    """The sha256 of an array's elements: their bytes in C order, a
+    structured array's field by field; an object array's elements each as
+    its bytes (a bytes object, or an array's C-order bytes) after its
+    length as 8 little-endian bytes."""
+    h = hashlib.sha256()
+    _update(h, np.asarray(arr))
+    return h.hexdigest()
+
+
+def describe(arr) -> Dict:
+    arr = np.asarray(arr)
+    return {"sha256": digest(arr), "dtype": str(arr.dtype), "shape": list(arr.shape)}
+
+
+def datasets(group, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(path, dataset) of every dataset that the group's links reach, in
+    the group's key order, groups entered depth first: an h5py group or
+    the port's, alike (a link that reaches nothing is skipped)."""
+    for name in group.keys():
+        item = group.get(name)
+        path = f"{prefix}/{name}"
+        if hasattr(item, "keys"):
+            yield from datasets(item, path)
+        elif hasattr(item, "shape"):
+            yield path, item
+
+
+def check_hdf5_fixtures() -> Tuple[int, int, List[str]]:
+    """Every committed fixture read with the port's reader: (datasets
+    checked, bytes of their elements, what differs from the digests)."""
+    from convnet_tpu_torch import hdf5
+
+    want = json.loads(HDF5_DIGESTS.read_text())
+    count, nbytes, problems = 0, 0, []
+    for name, entries in want.items():
+        with hdf5.File(HDF5_DIR / name) as f:
+            got = {}
+            for path, ds in datasets(f):
+                arr = np.asarray(ds[()])
+                got[path] = describe(arr)
+                nbytes += arr.nbytes
+            if list(got) != list(entries):
+                problems.append(f"{name}: datasets {list(got)}, digests of {list(entries)}")
+            for path, entry in entries.items():
+                count += 1
+                if got.get(path) != entry:
+                    problems.append(f"{name}{path}: read {got.get(path)}, digest {entry}")
+    return count, nbytes, problems
