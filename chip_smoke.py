@@ -119,10 +119,14 @@ any failure raises and the script exits non-zero:
    trace's correlation id, what an eager step does (and so by its
    capture's count): exactly so for every replay inside the window, at
    most so for the first and the last, which the profiler's start and
-   stop may cut. (b) Where PIL imports:
-   JPEG and mixed JPEG/PNG lists through IMAGE_RAW (each reader printed),
-   SLIDING_WINDOW's features on the card against the CPU, and through the
-   extract CLI, and a TXT stream. (c) From one state
+   stop may cut. (b) The committed JPEG fixtures decoded by the JPEG
+   loader's own decoder (no libjpeg, no PIL) against libjpeg-turbo's
+   digests; then, where PIL imports: JPEG and mixed JPEG/PNG lists through
+   IMAGE_RAW (each reader printed; the JPEG-only list must take the native
+   reader), one line of host rows/s of the native loader and the PIL
+   reader over 256 JPEGs of 500x375 at raw 256, SLIDING_WINDOW's features
+   on the card against the CPU, and through the extract CLI, and a TXT
+   stream. (c) From one state
    and 8 staged batches, replays of the captured step against eager
    steps: each step's crops, flips and dropout keys and masks
    array-equal, parameters and momenta array-equal or within UPDATE_TOL;
@@ -2343,18 +2347,126 @@ def check_learning(directory: Path, card):
     raise AssertionError("AlexNet did not learn the raw cache at any eps of the ladder")
 
 
+def check_jpeg_fixtures(card):
+    """Phase 8b, first part (no PIL): every committed JPEG fixture decoded
+    by the JPEG loader's own decoder (g++-built, no libjpeg) against the
+    digests of libjpeg-turbo's decode of it, at 1 and 3 colours and the
+    scales 1/1 to 1/8."""
+    from convnet_tpu_torch import testdata
+
+    t0 = time.perf_counter()
+    count, nbytes, problems = testdata.check_jpeg_fixtures()
+    seconds = time.perf_counter() - t0
+    print(f"[{card}] phase 8b: {count} decodes of {len(list(testdata.JPEG_DIR.glob('*.jpg')))} "
+          f"committed JPEG fixtures ({nbytes} bytes of pixels) against libjpeg-turbo's digests: "
+          f"{len(problems)} differ; {seconds:.3f} s with the loader's build")
+    if problems:
+        raise AssertionError("the JPEG decoder differs from libjpeg's digests:\n" +
+                             "\n".join(problems[:20]))
+    return {"decodes": count, "pixel_bytes": nbytes, "differ": 0, "seconds": seconds}
+
+
+def photo_jpegs(directory: Path, n: int = 256, size=(500, 375), seed: int = 18):
+    """n JPEGs of ImageNet's commonest size (500x375, PIL's quality 90,
+    4:2:0): colour fields bilinear from a 1/4 grid, with grain of sigma 12.
+    They average about 115 KB, as ILSVRC-2012's training files do (its
+    archive, ILSVRC2012_img_train.tar, holds 138 GiB for 1,281,167 files),
+    about 0.61 bytes a pixel. Needs PIL."""
+    from PIL import Image
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = size
+    paths = []
+    for i in range(n):
+        coarse = rng.integers(0, 256, (h // 4 + 1, w // 4 + 1, 3), dtype=np.uint8)
+        field = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int16)
+        grain = rng.normal(0, 12, (h, w, 3)).round().astype(np.int16)
+        p = directory / f"photo{i:03d}.jpg"
+        Image.fromarray(np.clip(field + grain, 0, 255).astype(np.uint8)).save(p, quality=90)
+        paths.append(str(p))
+    return paths
+
+
+def jpeg_rows_per_second(directory: Path, card, raw: int = 256, threads: int = 8, passes: int = 3):
+    """Host rows/s of the IMAGE_RAW readers over the same 256 JPEGs of
+    500x375 at raw `raw` with the loader's default threads: the native
+    loader (`NativeImageLoader.load`) and the PIL reader
+    (`decode_and_resize` on a pool of as many threads, as RawImageStream
+    runs it); the best of `passes` passes of all rows, after one warm pass.
+    Beside them, one thread's full-size RGB decode of each file, ms a file:
+    the loader's decoder (`jpeg_decode_file`) and PIL's (`Image.open(p)
+    .convert("RGB")`, libjpeg-turbo with SIMD in Pillow's wheels). Needs PIL
+    to write the files."""
+    import concurrent.futures
+
+    import numpy as np
+    from PIL import Image
+
+    from convnet_tpu_torch.data import native
+    from convnet_tpu_torch.data.image_iterators import decode_and_resize
+
+    paths = photo_jpegs(directory)
+
+    def decode_ms(fn):
+        fn(paths[0])
+        t0 = time.perf_counter()
+        for p in paths:
+            fn(p)
+        return (time.perf_counter() - t0) * 1e3 / len(paths)
+
+    own_ms = decode_ms(lambda p: native.jpeg_decode_file(p, 3))
+    pil_ms = decode_ms(lambda p: Image.open(p).convert("RGB"))
+    idx = np.arange(len(paths))
+    loader = native.NativeImageLoader(paths, raw, 3, threads)
+    pool = concurrent.futures.ThreadPoolExecutor(threads)
+
+    def pil():
+        return np.stack(list(pool.map(lambda p: decode_and_resize(p, raw, 3), paths)))
+
+    def best(fn):
+        out = fn()
+        times = []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return out, len(paths) / min(times)
+
+    try:
+        rows_native, native_rate = best(lambda: loader.load(idx))
+        rows_pil, pil_rate = best(pil)
+    finally:
+        loader.close()
+        pool.shutdown()
+    facts = {"files": len(paths), "size": "500x375", "raw": raw, "threads": threads,
+             "file_kb": sum(os.path.getsize(p) for p in paths) / len(paths) / 1024,
+             "bytes_per_pixel": sum(os.path.getsize(p) for p in paths) / len(paths) / (500 * 375),
+             "native_rows_s": native_rate, "pil_rows_s": pil_rate,
+             "native_over_pil": native_rate / pil_rate, "host_cores": os.cpu_count(),
+             "decode_ms": own_ms, "pil_decode_ms": pil_ms,
+             "native_vs_pil_max_abs": int(np.abs(rows_native.astype(np.int16) -
+                                                 rows_pil.astype(np.int16)).max()),
+             "card": card}
+    print(f"[{card}] phase 8b JPEG rows/s: {json.dumps(facts)}")
+    return facts
+
+
 def check_image_streams(dev, card):
     """Phase 8b, where PIL imports: 16 JPEGs and 4 PNGs of mixed sizes
-    through IMAGE_RAW (a JPEG-only list and the mixed one, each reader's
-    backend printed), SLIDING_WINDOW through a forward on the card and the
-    CPU and through the extract CLI (its checkpoint and output written by
-    the port's hdf5.py) and TXT through a DataHandler; the card's forward
-    of one batch against the CPU's read of the same files."""
+    through IMAGE_RAW (a JPEG-only list, which must take the native reader,
+    and the mixed one, which must take PIL; each reader's backend printed),
+    the rows/s of both readers over 256 JPEGs of 500x375, SLIDING_WINDOW
+    through a forward on the card and the CPU and through the extract CLI
+    (its checkpoint and output written by the port's hdf5.py) and TXT
+    through a DataHandler; the card's forward of one batch against the
+    CPU's read of the same files."""
     try:
         from PIL import Image
     except ImportError:
         print(f"[{card}] phase 8b: needs PIL, which does not import on this machine; not run")
-        return
+        return None
     import tempfile
 
     import numpy as np
@@ -2400,6 +2512,10 @@ def check_image_streams(dev, card):
             raise AssertionError(f"IMAGE_RAW batches {reads}")
         if reads["mixed"][0] != "pil":
             raise AssertionError("a list with PNGs must take the PIL reader")
+        if reads["jpeg"][0] != "native":
+            raise AssertionError("a JPEG-only list must take the native reader")
+        (tmp / "rates").mkdir()
+        rates = jpeg_rows_per_second(tmp / "rates", card)
         window = "image_size: 16 window_stride: 16 num_colors: 3"
         model = parse_model("""
             name: "windows" seed: 1
@@ -2456,6 +2572,7 @@ def check_image_streams(dev, card):
               f"{np.array_equal(rows, want)}")
         if not np.array_equal(rows, want):
             raise AssertionError("the TXT stream's rows differ from numpy's read")
+    return rates
 
 
 def _stacked(batches, lo, hi):
@@ -4558,7 +4675,7 @@ def main(argv=None) -> int:
         tmp8 = Path(tmp8)
         cache_ms = write_learnable_set(tmp8, card)
         learned = check_learning(tmp8, card)
-        check_image_streams(dev, card)
+        jpeg = {"fixtures": check_jpeg_fixtures(card), "rows_s": check_image_streams(dev, card)}
         launch = check_steps_per_launch(dev, graph, state0, train_jitter, batches8, card)
         launch["step_ms"] = launch_times(graph, state0, train_jitter, batches8, card)
         launch["trainer_img_s"], rate_launches = trainer_rates(dev, graph, train_jitter, tmp8,
@@ -4569,7 +4686,7 @@ def main(argv=None) -> int:
     remat = check_remat(dev, state0, train_jitter, batches8[0], card)
     print(json.dumps({"phase8": {"read_ms": cache_ms, "learning": learned,
                                  "steps_per_launch": launch, "remat": remat,
-                                 "hdf5": hdf5_facts, "normalize": normalize,
+                                 "hdf5": hdf5_facts, "normalize": normalize, "jpeg": jpeg,
                                  "checkpoint_5b": checkpoint_facts}},
                      default=str))
     print(json.dumps({"phase8g": dict(formats, card=card)}, default=str))

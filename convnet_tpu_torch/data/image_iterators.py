@@ -1,13 +1,14 @@
 """Image-file streams: JPEG and other image lists, sliding windows, text
 matrices (counterpart of `convnet_tpu/data/image_iterators.py`).
 
-An IMAGE_RAW list decodes with the native libjpeg loader when every file
-is a JPEG (`data/native.py`, built at first use), else with PIL on a pool
-of threads; the choice is the JAX package's (`_all_jpeg` sniffs the magic
-bytes of files without a known extension). The two decoders are close,
-not equal, so `RawImageStream.backend` says which one a stream took
-("native" or "pil") and `backend_reason` why it took PIL, and the Trainer
-and the extract CLI log both. Resizing is the
+An IMAGE_RAW list decodes with the native JPEG loader when every file is
+a JPEG (`data/native.py`, built with g++ at first use; its decoder gives
+libjpeg-turbo's bytes, as the JAX package's libjpeg loader does), else
+with PIL on a pool of threads; the choice is the JAX package's
+(`_all_jpeg` sniffs the magic bytes of files without a known extension).
+PIL's decode is close to libjpeg's, not equal, so `RawImageStream.backend`
+says which reader a stream took ("native" or "pil") and `backend_reason`
+why it took PIL, and the Trainer and the extract CLI log both. Resizing is the
 reference's: the shorter side to raw_image_size, then a center crop of the
 longer side; the random crop happens on the device.
 """

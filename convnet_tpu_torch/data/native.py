@@ -8,10 +8,13 @@ ctypes (counterpart of `convnet_tpu/data/native.py`).
   nothing else. A failed build raises with g++'s messages: there is no
   quiet fall back to numpy. `raw_cache_gather_reference` is the plain
   version (a numpy memmap read), for the tests.
-- `NativeImageLoader` decodes JPEG lists with the port's own copy of the
-  JAX package's libjpeg loader, `convnet_tpu_torch/native/dataloader.cc`
-  (g++, -ljpeg); it is built only when an all-JPEG IMAGE_RAW stream opens
-  it.
+- `NativeImageLoader` decodes JPEG lists with the port's counterpart of
+  the JAX package's libjpeg loader, `convnet_tpu_torch/native/dataloader.cc`,
+  whose decoder (`native/jpeg_decode.h`) gives libjpeg-turbo's bytes with
+  no library behind it: g++ builds it with no flag but `CXX_FLAGS`
+  (`LOADER_LIBS` is empty). It is built only when an all-JPEG IMAGE_RAW
+  stream opens it, or when `jpeg_decode_file` decodes one file (the tests
+  and the committed fixtures' check).
 - `lzf_decompress` decodes one chunk of h5py's lzf filter for
   `convnet_tpu_torch/hdf5.py` with `convnet_tpu_torch/native/lzf.cc`; it
   is built when a file's first lzf chunk is read.
@@ -28,6 +31,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import struct
 import subprocess
 import tempfile
@@ -41,8 +45,9 @@ _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "convnet_tpu_torch"
 RAW_CACHE_SOURCE = _PKG / "native" / "raw_cache.cc"
 LOADER_SOURCE = _PKG / "native" / "dataloader.cc"
+LOADER_LIBS = ()  # the decoder is the port's own: no libjpeg
 LZF_SOURCE = _PKG / "native" / "lzf.cc"
-# native/Makefile's flags; the raw cache links no libjpeg
+# native/Makefile's flags
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 HEADER = 16  # "CNTC" | uint32 version | uint64 row_bytes
 
@@ -51,8 +56,13 @@ _lock = threading.Lock()
 
 
 def _library_path(source: Path, libs) -> Path:
+    """Where the build of `source` lives: keyed by the flags, the source and
+    every header beside it that it includes (dataloader.cc's jpeg_decode.h)."""
     h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(libs)).encode())
-    h.update(source.read_bytes())
+    text = source.read_bytes()
+    h.update(text)
+    for name in sorted(set(re.findall(rb'#include "([^"]+)"', text))):
+        h.update((source.parent / name.decode()).read_bytes())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -100,7 +110,7 @@ def _raw_cache_lib() -> ctypes.CDLL:
 
 
 def _loader_lib() -> ctypes.CDLL:
-    lib = library(LOADER_SOURCE, ("-ljpeg",))
+    lib = library(LOADER_SOURCE, LOADER_LIBS)
     lib.loader_create.restype = ctypes.c_void_p
     lib.loader_create.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -108,7 +118,33 @@ def _loader_lib() -> ctypes.CDLL:
     lib.loader_load.restype = ctypes.c_int
     lib.loader_load.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.jpeg_decode_file.restype = ctypes.c_int
+    lib.jpeg_decode_file.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
     return lib
+
+
+def jpeg_decode_file(path, num_colors: int, min_side: int = 0):
+    """One JPEG file decoded by the loader's decoder as the loader decodes
+    it before the resize: (H, W, num_colors) uint8 at the power-of-2 DCT
+    scale whose shorter side still covers `min_side` (0: full size), or
+    None where libjpeg would refuse the file."""
+    lib = _loader_lib()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    # room for 100:1 compression; a file that packs tighter is decoded again
+    out = np.empty(max(os.path.getsize(path) * 100, 1 << 22), np.uint8)
+    for _ in range(2):  # the first call reports the size when out is short
+        rc = lib.jpeg_decode_file(os.fsencode(path), num_colors, min_side, out.ctypes.data,
+                                  out.size, ctypes.byref(w), ctypes.byref(h))
+        if rc == -2:
+            out = np.empty(w.value * h.value * num_colors, np.uint8)
+            continue
+        break
+    if rc != 0:
+        return None
+    return out[: h.value * w.value * num_colors].reshape(h.value, w.value, num_colors)
 
 
 def _lzf_lib() -> ctypes.CDLL:
@@ -142,8 +178,8 @@ def _read_sidecar(path: str):
 
 class NativeImageLoader:
     """Decodes batches of JPEG files into (N, S, S, C) uint8 with the C++
-    worker pool (libjpeg's DCT-scaled decode, bilinear shorter-side resize,
-    center crop)."""
+    worker pool (libjpeg-turbo's DCT-scaled decode, bit for bit; bilinear
+    shorter-side resize; center crop)."""
 
     def __init__(self, paths: List[str], raw_size: int, num_colors: int, threads: int = 8):
         self._lib = _loader_lib()

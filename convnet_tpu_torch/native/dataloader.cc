@@ -1,14 +1,16 @@
-// JPEG loader: libjpeg decode, shorter-side bilinear resize and center
-// crop of a list of image files, fanned out over a persistent worker pool,
+// JPEG loader: JPEG decode, shorter-side bilinear resize and center crop
+// of a list of image files, fanned out over a persistent worker pool,
 // writing straight into a caller-provided uint8 NHWC buffer.
 //
-// The port's own copy of the JPEG half of native/dataloader.cc (the JAX
+// The port's counterpart of the JPEG half of native/dataloader.cc (the JAX
 // package's loader), without its raw-cache half, which
 // convnet_tpu_torch/native/raw_cache.cc holds; convnet_tpu_torch/data/
-// native.py builds it with g++ -ljpeg at first use (NativeImageLoader).
-// The decode takes libjpeg's power-of-2 DCT scaling, as PIL's Image.draft
-// does, and the resize PIL BILINEAR's triangle taps, so the two decode
-// paths stay in parity.
+// native.py builds it with g++ alone at first use (NativeImageLoader).
+// Where the JAX package's loader calls libjpeg, this one decodes with
+// jpeg_decode.h, which gives libjpeg-turbo's bytes at the same settings.
+// The decode takes the power-of-2 DCT scaling, as PIL's Image.draft does,
+// and the resize PIL BILINEAR's triangle taps, so the two decode paths
+// stay in parity.
 //
 // C ABI:
 //   void* loader_create(const char** paths, int n, int raw_size,
@@ -16,15 +18,15 @@
 //   int   loader_load(void* h, const int64_t* indices, int count,
 //                     uint8_t* out);   // out: count*raw*raw*colors
 //   void  loader_destroy(void* h);
+//   int   jpeg_decode_file(const char* path, int colors, int min_side,
+//                          uint8_t* out, int64_t cap, int* w, int* h);
+//         // one file decoded, before the resize: 0, -1 refused, -2 when
+//         // out's cap bytes cannot hold w*h*colors (w and h are set)
 
-#include <cstddef>
-#include <cstdio>
-
-#include <jpeglib.h>  // requires <cstdio>/<cstddef> first (stdio-free header)
+#include "jpeg_decode.h"
 
 #include <atomic>
 #include <condition_variable>
-#include <csetjmp>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -37,65 +39,25 @@
 
 namespace {
 
-struct JpegErrorMgr {
-  jpeg_error_mgr pub;
-  jmp_buf setjmp_buffer;
-};
-
-void jpeg_error_exit(j_common_ptr cinfo) {
-  JpegErrorMgr* err = reinterpret_cast<JpegErrorMgr*>(cinfo->err);
-  longjmp(err->setjmp_buffer, 1);
-}
-
 // Decode a JPEG file to packed RGB (or grayscale). When min_side > 0,
-// uses libjpeg's fractional DCT scaling to decode directly at the
-// smallest scale whose shorter side still covers min_side — the big
-// cost saver when shrinking large photos to training resolution.
+// decodes directly at the smallest power-of-2 DCT scale (1/1, 1/2, 1/4,
+// 1/8, what PIL's Image.draft takes) whose shorter side still covers
+// min_side — the big cost saver when shrinking large photos to training
+// resolution.
 bool DecodeJpeg(const std::string& path, int want_colors,
                 std::vector<uint8_t>* pixels, int* width, int* height,
                 int min_side = 0) {
   FILE* f = fopen(path.c_str(), "rb");
   if (!f) return false;
-  jpeg_decompress_struct cinfo;
-  JpegErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = jpeg_error_exit;
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return false;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = want_colors == 1 ? JCS_GRAYSCALE : JCS_RGB;
-  if (min_side > 0) {
-    // power-of-2 DCT scaling only (1/1, 1/2, 1/4, 1/8) — exactly what
-    // PIL's Image.draft does, keeping the two decode paths in parity
-    const int shorter = cinfo.image_width < cinfo.image_height
-                            ? cinfo.image_width
-                            : cinfo.image_height;
-    int denom = 1;
-    while (denom < 8 && shorter / (denom * 2) >= min_side) denom *= 2;
-    cinfo.scale_num = 1;
-    cinfo.scale_denom = denom;
-  }
-  jpeg_start_decompress(&cinfo);
-  *width = cinfo.output_width;
-  *height = cinfo.output_height;
-  const int ch = cinfo.output_components;
-  pixels->resize(static_cast<size_t>(*width) * *height * ch);
-  std::vector<uint8_t*> rows(cinfo.output_height);
-  for (unsigned r = 0; r < cinfo.output_height; ++r)
-    rows[r] = pixels->data() + static_cast<size_t>(r) * *width * ch;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    jpeg_read_scanlines(&cinfo, rows.data() + cinfo.output_scanline,
-                        cinfo.output_height - cinfo.output_scanline);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
+  std::vector<uint8_t> bytes;
+  uint8_t buf[1 << 16];
+  size_t n;
+  while ((n = fread(buf, 1, sizeof(buf), f)) > 0) bytes.insert(bytes.end(), buf, buf + n);
+  const bool read_ok = !ferror(f);
   fclose(f);
-  return true;
+  if (!read_ok || bytes.empty()) return false;
+  return jpeg_decode::Decode(bytes.data(), bytes.size(), want_colors, min_side, pixels,
+                             width, height);
 }
 
 // Precomputed normalized triangle-filter taps for one resample axis
@@ -319,5 +281,15 @@ int loader_load(void* h, const int64_t* indices, int count, uint8_t* out) {
 }
 
 void loader_destroy(void* h) { delete static_cast<Loader*>(h); }
+
+int jpeg_decode_file(const char* path, int colors, int min_side, uint8_t* out, int64_t cap,
+                     int* w, int* h) {
+  if (!path || (colors != 1 && colors != 3) || !w || !h) return -1;
+  std::vector<uint8_t> pix;
+  if (!DecodeJpeg(path, colors, &pix, w, h, min_side)) return -1;
+  if (static_cast<int64_t>(pix.size()) > cap || !out) return -2;
+  std::memcpy(out, pix.data(), pix.size());
+  return 0;
+}
 
 }  // extern "C"

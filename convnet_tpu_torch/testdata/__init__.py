@@ -10,6 +10,20 @@ holds, for each dataset of each file, the sha256 of its elements, its dtype
 and its shape as h5py read them. `tests/torch_port_hdf5_fixtures.py` writes
 both (it needs h5py); `check_hdf5_fixtures` reads every file with the port's
 reader (no h5py) and holds each dataset to its digest.
+
+`jpeg/` holds small JPEGs of every kind the JPEG loader's decoder
+(`convnet_tpu_torch/native/jpeg_decode.h`) covers: 4:4:4, 4:2:2 and 4:2:0,
+progressive, optimized tables, restart markers, gray, Adobe RGB, quality
+100 and all-ones tables (PIL wrote them), odd sampling factors such as
+4:1:1 and h1v2 and arithmetic coding (libjpeg's encoder), files cut in
+half, and three that libjpeg refuses (a CMYK JPEG, a PNG and random
+bytes). `jpeg/digests.json` holds, for each file, colour count and
+min_side (the loader's DCT-scale rule: 0, 4, 8 and 16 reach the scales 1/1
+to 1/8 on these sizes), the sha256, dtype and shape of libjpeg-turbo's
+decode, or null where libjpeg refuses the file.
+`tests/torch_port_jpeg_fixtures.py` writes both (it needs g++ -ljpeg);
+`check_jpeg_fixtures` decodes every file with the port's decoder (no
+libjpeg, no PIL) and holds each decode to its digest.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ HDF5_DIGESTS = HDF5_DIR / "digests.json"
 # fletcher32; and its full-pixel mean and std
 CIFAR_SHARD = HDF5_DIR / "cifar10_train_latest.h5"
 CIFAR_MEAN = HDF5_DIR / "cifar10_mean_latest.h5"
+JPEG_DIR = Path(__file__).resolve().parent / "jpeg"
+JPEG_DIGESTS = JPEG_DIR / "digests.json"
 
 
 def _update(h, arr: np.ndarray):
@@ -92,4 +108,24 @@ def check_hdf5_fixtures() -> Tuple[int, int, List[str]]:
                 count += 1
                 if got.get(path) != entry:
                     problems.append(f"{name}{path}: read {got.get(path)}, digest {entry}")
+    return count, nbytes, problems
+
+
+def check_jpeg_fixtures() -> Tuple[int, int, List[str]]:
+    """Every committed JPEG decoded by the port's loader at each colour
+    count and min_side of the digests: (decodes checked, bytes decoded,
+    what differs from the digests). A refusal matches a null digest."""
+    from convnet_tpu_torch.data import native
+
+    want = json.loads(JPEG_DIGESTS.read_text())
+    count, nbytes, problems = 0, 0, []
+    for name, entries in want.items():
+        for key, entry in entries.items():
+            colors, min_side = (int(part.split("=")[1]) for part in key.split())
+            arr = native.jpeg_decode_file(str(JPEG_DIR / name), colors, min_side)
+            got = None if arr is None else describe(arr)
+            count += 1
+            nbytes += 0 if arr is None else arr.nbytes
+            if got != entry:
+                problems.append(f"{name} {key}: decoded {got}, digest {entry}")
     return count, nbytes, problems

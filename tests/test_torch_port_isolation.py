@@ -171,6 +171,32 @@ def test_the_ports_jpeg_loader_keeps_the_c_abi():
     assert "cache_gather" not in port_src.read_text()
 
 
+PORT_NATIVE_SOURCES = sorted(
+    p for ext in ("*.cc", "*.h", "*.cu", "*.cuh") for p in (REPO / "convnet_tpu_torch").rglob(ext))
+
+
+@pytest.mark.parametrize("path", PORT_NATIVE_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_source_includes_libjpeg(path):
+    """The port decodes JPEG itself (native/jpeg_decode.h): no C++ or CUDA
+    source of it includes jpeglib.h."""
+    assert not re.search(r"#\s*include\s*[<\"]jpeglib\.h[>\"]", path.read_text())
+
+
+def test_the_jpeg_loader_links_no_libjpeg():
+    """The loader builds with g++ and data/native.py's flags alone: no
+    -ljpeg among them, and the build it loads is keyed by those flags and by
+    the decoder's header as well as dataloader.cc."""
+    from convnet_tpu_torch.data import native
+
+    assert native.LOADER_LIBS == ()
+    assert not any("jpeg" in flag for flag in native.CXX_FLAGS + native.LOADER_LIBS)
+    assert '#include "jpeg_decode.h"' in native.LOADER_SOURCE.read_text()
+    assert PORT_NATIVE_SOURCES.count(native.LOADER_SOURCE.parent / "jpeg_decode.h") == 1
+    lib = native._loader_lib()
+    assert lib._name == str(native._library_path(native.LOADER_SOURCE, native.LOADER_LIBS))
+    assert lib.jpeg_decode_file is not None
+
+
 # With h5py blocked: a checkpoint saved and loaded, an HDF5 stream (its
 # data written chunked by the port's writer) read with a mean file from
 # the port's compute_mean tool, and the extract CLI on the CPU.

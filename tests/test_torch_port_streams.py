@@ -6,11 +6,12 @@ JPEG lists (array-equal, the same reader taken), SLIDING_WINDOW and TXT
 (array-equal), and the extract CLI over SLIDING_WINDOW (f32, within 1e-4:
 the two frameworks' convolutions sum in other orders).
 
-The JAX package's libjpeg loader is the one the port builds from its own
-copy, `convnet_tpu_torch/native/dataloader.cc`, handed to the JAX module
-for the test: the JAX package finds a prebuilt library only where `make
-native` ran. The copy and the JAX package's `native/dataloader.cc`, each
-built as it stands, decode the same JPEG files array-equal."""
+The JAX package's native loader is its own `native/dataloader.cc`, built
+as it stands with g++ -ljpeg into the port's build directory and handed to
+the JAX module for the test (the JAX package finds a prebuilt library only
+where `make native` ran), so the port's IMAGE_RAW JPEG streams, which run
+the port's own decoder, are held to libjpeg's decode. Where g++ cannot
+build it (no jpeglib.h), the cases that read through it skip."""
 
 import os
 import shutil
@@ -41,12 +42,21 @@ def _cfgs(text):
     return config.parse_dataset_config(text), pt_config.parse_dataset_config(text)
 
 
+JAX_LOADER_SOURCE = Path(jax_native.__file__).resolve().parents[2] / "native" / "dataloader.cc"
+
+
 @pytest.fixture
-def jax_loader_from_port(monkeypatch):
-    """The JAX package's native module loads the port's build of its copy
-    of native/dataloader.cc."""
-    pt_native.library(pt_native.LOADER_SOURCE, ("-ljpeg",))
-    path = pt_native._library_path(pt_native.LOADER_SOURCE, ("-ljpeg",))
+def jax_libjpeg_loader(request, monkeypatch):
+    """The JAX package's native module loads its own native/dataloader.cc,
+    built with g++ -ljpeg; a case whose stream takes the native reader
+    skips where that build fails."""
+    try:
+        pt_native.library(JAX_LOADER_SOURCE, ("-ljpeg",))
+    except RuntimeError as e:
+        if request.node.callspec.params.get("backend") == "native":
+            pytest.skip(f"g++ cannot build the JAX package's libjpeg loader here: {e}")
+        return
+    path = pt_native._library_path(JAX_LOADER_SOURCE, ("-ljpeg",))
     monkeypatch.setattr(jax_native, "_LIB_PATHS", [str(path)])
     monkeypatch.setattr(jax_native, "_lib", None)
     assert jax_native.available()
@@ -210,7 +220,7 @@ def _image_raw(listfile, size=24, crop=20):
 
 
 @pytest.mark.parametrize("kind,backend", [("jpeg", "native"), ("png", "pil"), ("noext", "native")])
-def test_image_raw_matches_jax(image_files, jax_loader_from_port, kind, backend):
+def test_image_raw_matches_jax(image_files, jax_libjpeg_loader, kind, backend):
     jcfg, cfg = _image_raw(image_files[kind])
     ours = pt_images.RawImageStream(cfg.data_config[0])
     ref = jax_images.RawImageStream(jcfg.data_config[0])
@@ -228,15 +238,14 @@ def test_image_raw_matches_jax(image_files, jax_loader_from_port, kind, backend)
 
 @pytest.mark.parametrize("size,colors", [(24, 3), (16, 1), (40, 3)])
 def test_port_loader_decodes_as_the_jax_packages(image_files, monkeypatch, size, colors):
-    """The port's copy of the libjpeg loader and the JAX package's
-    `native/dataloader.cc`, each built as it stands with g++ -ljpeg, decode,
-    resize and crop the same JPEG files array-equal (40: an upscale of the
-    24-pixel sides)."""
-    jax_source = Path(pt_native.__file__).resolve().parents[2] / "native" / "dataloader.cc"
-    assert jax_source != pt_native.LOADER_SOURCE
-    pt_native.library(jax_source, ("-ljpeg",))
+    """The port's JPEG loader (its own decoder, built with the port's flags)
+    and the JAX package's `native/dataloader.cc`, built as it stands with
+    g++ -ljpeg, decode, resize and crop the same JPEG files array-equal (40:
+    an upscale of the 24-pixel sides)."""
+    assert JAX_LOADER_SOURCE != pt_native.LOADER_SOURCE
+    pt_native.library(JAX_LOADER_SOURCE, ("-ljpeg",))
     monkeypatch.setattr(jax_native, "_LIB_PATHS",
-                        [str(pt_native._library_path(jax_source, ("-ljpeg",)))])
+                        [str(pt_native._library_path(JAX_LOADER_SOURCE, ("-ljpeg",)))])
     monkeypatch.setattr(jax_native, "_lib", None)
     paths = image_files["jpeg"].read_text().split("\n") + image_files["noext"].read_text().split("\n")
     idx = np.arange(len(paths))[::-1]
