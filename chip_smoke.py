@@ -160,9 +160,11 @@ any failure raises and the script exits non-zero:
    phase 8's numbers (and phase 5b's checkpoint seconds). (g) HDF5 in the
    formats h5py writes, on a machine without h5py: every committed fixture
    of convnet_tpu_torch/testdata/hdf5 (libver "latest" files, dense links
-   and attributes, every chunk index, the lzf, fletcher32, scaleoffset and
-   nbit filters, enum, compound and variable-length types) read with
-   hdf5.py, each dataset held to its digest of h5py's read, and the
+   and attributes, every chunk index, the lzf, szip, fletcher32,
+   scaleoffset and nbit filters, enum, compound, variable-length and
+   reference types, dimension scales, virtual datasets, raw data in
+   external files) read with hdf5.py (lzf.cc and szip.cc built by g++
+   first), each dataset held to its digest of h5py's read, and the
    libver "latest" checkpoint fixture (dense links) through
    checkpoint.load; a DataHandler from the CIFAR-10 data template
    (examples/cifar10/cifar10_train_data.pbtxt) over the fixture shard
@@ -175,8 +177,14 @@ any failure raises and the script exits non-zero:
    (examples/cifar10/cifar10_conv.pbtxt, full width, f32, batch 128)
    trained 10 steps through Trainer over the fixture shard: every loss
    finite, every parameter moved, each step launching lrn_fwd 2, lrn_bwd
-   2, dropout 2 and step_draws 1 times. A JSON line holds phase 8g's
-   numbers and the card's name and power limit.
+   2, dropout 2 and step_draws 1 times. Then the shard's halves, written
+   by the port's writer beside a copy of the virtual shard fixture
+   (cifar10_vds.h5, two source files): the template's batches over it
+   array-equal to those over the shard, and cifar10_conv trained 10 steps
+   over it alike; the get_batch host ms of a 128-row batch over the
+   virtual shard and over the szip fixture shard (128 rows, a row a
+   chunk) and the ms of them spent in the filters. A JSON line holds
+   phase 8g's numbers and the card's name and power limit.
 9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
    examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
    128, uint8 256x256 images with random 224 crops and flips, dropout 0.5)
@@ -3050,6 +3058,66 @@ def cifar_template_text(data: Path, mean: Path, pipeline: bool = True) -> str:
     return text if pipeline else text.replace("pipeline_loads: true", "pipeline_loads: false")
 
 
+def train_cifar10(dev, data_text: str, what: str):
+    """cifar10_conv (full width, f32, batch 128) trained FORMAT_STEPS steps
+    through Trainer over a DataHandler of `data_text`: (losses, seconds,
+    launches), every logged loss finite and every parameter moved and
+    finite, CIFAR_PER_STEP launches a step."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import Trainer
+
+    model = read_model(str(CIFAR_MODEL))
+    model.display_after = 1  # a logged loss every step
+    graph = build_graph(model)
+    data = DataHandler(parse_dataset_config(data_text))
+    logged = []
+    trainer = Trainer(graph, data, device=dev, log_fn=logged.append)
+    p_init = clone_state(trainer.state)["params"]
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(max_iter=FORMAT_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    data.close()
+    expect_launches(f"phase 8g's cifar10_conv steps over {what}", launches, CIFAR_PER_STEP,
+                    FORMAT_STEPS)
+    losses = [float(m.group(1)) for m in (re.search(r"^step \d+ loss (\S+)", line) for line in logged)
+              if m]
+    if len(losses) != FORMAT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 8g: cifar10_conv's logged losses over {what}: {losses}")
+    for name, p in trainer.state["params"].items():
+        for k, v in p.items():
+            if not torch.isfinite(v).all() or torch.equal(v, p_init[name][k]):
+                raise AssertionError(f"phase 8g: cifar10_conv's {name}/{k} over {what} did not move "
+                                     "or is not finite")
+    return losses, train_s, launches
+
+
+def batch_times(data_path: Path, mean_path: Path):
+    """DataHandler.get_batch host ms of the CIFAR-10 template over a file
+    without the prefetch thread: (median, mean, mean ms in the filters) of
+    FORMAT_BATCHES calls after one that builds the chunk indexes."""
+    from convnet_tpu_torch.config import parse_dataset_config
+    from convnet_tpu_torch.data.datahandler import DataHandler
+
+    data = DataHandler(parse_dataset_config(cifar_template_text(data_path, mean_path, False)))
+    layouts = [s._ds._layout for s in data.streams.values()]
+    data.get_batch()
+    before = sum(layout.decode_seconds for layout in layouts)
+    times = [_ms(data.get_batch) for _ in range(FORMAT_BATCHES)]
+    decode_ms = (sum(layout.decode_seconds for layout in layouts) - before) * 1e3 / len(times)
+    data.close()
+    return statistics.median(times), sum(times) / len(times), decode_ms
+
+
 def check_hdf5_formats(dev, directory: Path, card):
     """Phase 8g. (a) Every committed HDF5 fixture read with hdf5.py and each
     dataset held to its digest (sha256, dtype and shape of h5py's read);
@@ -3064,23 +3132,28 @@ def check_hdf5_formats(dev, directory: Path, card):
     cifar10_conv at full width (f32, batch 128) trains FORMAT_STEPS steps
     through Trainer over the fixture shard with the template's jitter
     (flips, the full-pixel mean and std): every logged loss finite, every
-    parameter moved and finite, CIFAR_PER_STEP launches a step. Returns
-    (facts, the steps' launches)."""
-    import re
+    parameter moved and finite, CIFAR_PER_STEP launches a step. (d) The
+    shard's halves written by the port's writer beside a copy of
+    cifar10_vds.h5, a virtual shard over them: FORMAT_BATCHES batches of
+    the template over it array-equal to those over the shard, the same
+    training over it, and get_batch's host ms over it and over the szip
+    fixture shard. Returns (facts, the shard's steps' launches, the
+    virtual shard's)."""
+    import shutil
 
     import numpy as np
-    import torch
 
     from convnet_tpu_torch import checkpoint, hdf5, testdata
-    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.config import parse_dataset_config
     from convnet_tpu_torch.data import native
     from convnet_tpu_torch.data.datahandler import DataHandler
-    from convnet_tpu_torch.graph import build_graph
-    from convnet_tpu_torch.trainer import Trainer
 
     t0 = time.perf_counter()
     native.library(native.LZF_SOURCE)
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.library(native.SZIP_SOURCE)
+    szip_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     count, nbytes, problems = testdata.check_hdf5_fixtures()
     if problems:
@@ -3091,10 +3164,11 @@ def check_hdf5_formats(dev, directory: Path, card):
         raise AssertionError(f"phase 8g: the checkpoint fixture loaded {len(params)} edges at step "
                              f"{step}")
     read_s = time.perf_counter() - t0
-    print(f"[{card}] phase 8g (a): lzf.cc built by g++ in {build_s:.3f} s; {count} datasets of the "
-          f"committed fixtures ({nbytes} bytes of elements) read with hdf5.py, each equal to its "
-          f"digest of h5py's read, and the checkpoint fixture's {len(params)} edges (dense links) "
-          f"through checkpoint.load, in {read_s:.3f} s")
+    print(f"[{card}] phase 8g (a): lzf.cc and szip.cc built by g++ in {build_s:.3f} and "
+          f"{szip_build_s:.3f} s; {count} datasets of the committed fixtures ({nbytes} bytes of "
+          f"elements; references, virtual datasets, external raw data and szip among them) read "
+          f"with hdf5.py, each equal to its digest of h5py's read, and the checkpoint fixture's "
+          f"{len(params)} edges (dense links) through checkpoint.load, in {read_s:.3f} s")
 
     with hdf5.File(testdata.CIFAR_SHARD) as f, hdf5.File(testdata.CIFAR_MEAN) as m:
         images, labels = f["data"][...], f["labels"][...]
@@ -3123,14 +3197,7 @@ def check_hdf5_formats(dev, directory: Path, card):
         b.close()
     batch_ms, mean_ms, decode_ms = {}, {}, {}
     for key, (data_path, mean_path) in files.items():
-        data = DataHandler(parse_dataset_config(cifar_template_text(data_path, mean_path, False)))
-        layouts = [s._ds._layout for s in data.streams.values()]
-        data.get_batch()  # the first builds each chunk index
-        before = sum(layout.decode_seconds for layout in layouts)
-        times = [_ms(data.get_batch) for _ in range(FORMAT_BATCHES)]
-        decode_ms[key] = (sum(layout.decode_seconds for layout in layouts) - before) * 1e3 / len(times)
-        batch_ms[key], mean_ms[key] = statistics.median(times), sum(times) / len(times)
-        data.close()
+        batch_ms[key], mean_ms[key], decode_ms[key] = batch_times(data_path, mean_path)
     share = decode_ms["latest"] / mean_ms["latest"]
     print(f"[{card}] phase 8g (b): the CIFAR-10 template over the fixture shard (libver latest, "
           f"extensible-array index, lzf + shuffle + fletcher32) gives {FORMAT_BATCHES} batches "
@@ -3140,39 +3207,59 @@ def check_hdf5_formats(dev, directory: Path, card):
           f"{mean_ms['latest']:.4f}, of which the filters {decode_ms['latest']:.4f}: {share:.3f}), "
           f"v0 {batch_ms['v0']:.4f} (mean {mean_ms['v0']:.4f})")
 
-    model = read_model(str(CIFAR_MODEL))
-    model.display_after = 1  # a logged loss every step
-    graph = build_graph(model)
-    data = DataHandler(parse_dataset_config(cifar_template_text(*files["latest"])))
-    logged = []
-    trainer = Trainer(graph, data, device=dev, log_fn=logged.append)
-    p_init = clone_state(trainer.state)["params"]
-    reset_launches()
-    t0 = time.perf_counter()
-    trainer.train(max_iter=FORMAT_STEPS)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = read_launches()
-    data.close()
-    expect_launches("phase 8g's cifar10_conv steps", launches, CIFAR_PER_STEP, FORMAT_STEPS)
-    losses = [float(m.group(1)) for m in (re.search(r"^step \d+ loss (\S+)", line) for line in logged)
-              if m]
-    if len(losses) != FORMAT_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"phase 8g: cifar10_conv's logged losses {losses}")
-    for name, p in trainer.state["params"].items():
-        for k, v in p.items():
-            if not torch.isfinite(v).all() or torch.equal(v, p_init[name][k]):
-                raise AssertionError(f"phase 8g: cifar10_conv's {name}/{k} did not move or is not "
-                                     "finite")
+    losses, train_s, launches = train_cifar10(dev, cifar_template_text(*files["latest"]),
+                                              "the fixture shard")
     print(f"[{card}] phase 8g (c): cifar10_conv (full width, f32, batch {BATCH}) trained "
           f"{FORMAT_STEPS} steps over the fixture shard in {train_s:.3f} s: losses {losses}, every "
           f"parameter moved; launches {launches}")
+
+    half = len(labels) // 2
+    for i in range(2):
+        with hdf5.File(directory / f"cifar10_half{i}.h5", "w") as f:
+            f.create_appendable("data", images.shape[1:], images.dtype, chunk_rows=16).append(
+                images[i * half : (i + 1) * half])
+            f.create_dataset("labels", data=labels[i * half : (i + 1) * half])
+    vds = directory / "cifar10_vds.h5"
+    shutil.copy(testdata.HDF5_DIR / "cifar10_vds.h5", vds)
+    a, b = (DataHandler(parse_dataset_config(cifar_template_text(path, testdata.CIFAR_MEAN)))
+            for path in (vds, testdata.CIFAR_SHARD))
+    try:
+        for i in range(FORMAT_BATCHES):
+            x, y = a.get_batch(), b.get_batch()
+            if set(x) != set(y) or not all(x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                                           for k in y):
+                raise AssertionError(f"phase 8g: batch {i} over the virtual shard differs from the "
+                                     "shard's")
+    finally:
+        a.close()
+        b.close()
+    vds_losses, vds_train_s, vds_launches = train_cifar10(
+        dev, cifar_template_text(vds, testdata.CIFAR_MEAN), "the virtual shard")
+    szip_shard = testdata.HDF5_DIR / "cifar10_szip.h5"
+    with hdf5.File(szip_shard) as f:
+        szip_rows = f["labels"].shape[0]
+    for key, path in (("virtual", vds), ("szip", szip_shard)):
+        batch_ms[key], mean_ms[key], decode_ms[key] = batch_times(path, testdata.CIFAR_MEAN)
+    print(f"[{card}] phase 8g (d): the CIFAR-10 template over a virtual shard of the fixture "
+          f"shard's halves (two source files written by the port) gives {FORMAT_BATCHES} batches "
+          f"array-equal to the shard's; cifar10_conv trained {FORMAT_STEPS} steps over it in "
+          f"{vds_train_s:.3f} s: losses {vds_losses}, every parameter moved; launches "
+          f"{vds_launches}")
+    print(f"[{card}] phase 8g (d): DataHandler.get_batch host ms per {BATCH}-row batch without "
+          f"prefetch (median of {FORMAT_BATCHES}, page cache warm): the virtual shard "
+          f"{batch_ms['virtual']:.4f} (mean {mean_ms['virtual']:.4f}, of which its sources' filters "
+          f"{decode_ms['virtual']:.4f}), the szip shard ({szip_rows} rows, a row a chunk) "
+          f"{batch_ms['szip']:.4f} (mean {mean_ms['szip']:.4f}, of which szip "
+          f"{decode_ms['szip']:.4f}), the lzf shard {batch_ms['latest']:.4f}")
     facts = {"fixture_datasets": count, "fixture_bytes": nbytes, "lzf_build_s": build_s,
+             "szip_build_s": szip_build_s,
              "fixtures_read_s": read_s, "get_batch_ms": batch_ms, "get_batch_mean_ms": mean_ms,
              "filters_ms": decode_ms,
              "filters_share_latest": share, "cifar10_conv_losses": losses,
-             "cifar10_conv_train_s": train_s, "launches": launches}
-    return facts, launches
+             "cifar10_conv_train_s": train_s, "launches": launches,
+             "cifar10_conv_losses_virtual": vds_losses, "cifar10_conv_train_s_virtual": vds_train_s,
+             "launches_virtual": vds_launches}
+    return facts, launches, vds_launches
 
 
 def check_remat(dev, state, jitter, batch, card):
@@ -4682,7 +4769,7 @@ def main(argv=None) -> int:
                                                                card)
         hdf5_facts, hdf5_launches = check_hdf5_path(dev, tmp8, card)
         normalize, normalize_launches = check_normalize(dev, tmp8, card)
-        formats, formats_launches = check_hdf5_formats(dev, tmp8, card)
+        formats, formats_launches, vds_launches = check_hdf5_formats(dev, tmp8, card)
     remat = check_remat(dev, state0, train_jitter, batches8[0], card)
     print(json.dumps({"phase8": {"read_ms": cache_ms, "learning": learned,
                                  "steps_per_launch": launch, "remat": remat,
@@ -4729,7 +4816,8 @@ def main(argv=None) -> int:
              # and std at eps x NORM_LEARN
              **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches,
              # phase 8g: cifar10_conv's Trainer over the libver "latest" shard
-             "hdf5_latest_cifar10": formats_launches,
+             # and over the virtual shard of its halves
+             "hdf5_latest_cifar10": formats_launches, "hdf5_vds_cifar10": vds_launches,
              # phase 10: the pipeline bench's paths and the bench's step
              **measure_paths,
              # phase 11: the copy probe's tilings (counted in its process)

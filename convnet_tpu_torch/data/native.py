@@ -17,7 +17,8 @@ ctypes (counterpart of `convnet_tpu/data/native.py`).
   and the committed fixtures' check).
 - `lzf_decompress` decodes one chunk of h5py's lzf filter for
   `convnet_tpu_torch/hdf5.py` with `convnet_tpu_torch/native/lzf.cc`; it
-  is built when a file's first lzf chunk is read.
+  is built when a file's first lzf chunk is read. `szip_decompress` does
+  the same for HDF5's szip filter with `convnet_tpu_torch/native/szip.cc`.
 
 Each library is keyed by a hash of its source and flags and lives under
 `<checkout>/build/convnet_tpu_torch/`; it is built in a temporary
@@ -47,6 +48,7 @@ RAW_CACHE_SOURCE = _PKG / "native" / "raw_cache.cc"
 LOADER_SOURCE = _PKG / "native" / "dataloader.cc"
 LOADER_LIBS = ()  # the decoder is the port's own: no libjpeg
 LZF_SOURCE = _PKG / "native" / "lzf.cc"
+SZIP_SOURCE = _PKG / "native" / "szip.cc"
 # native/Makefile's flags
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 HEADER = 16  # "CNTC" | uint32 version | uint64 row_bytes
@@ -167,6 +169,31 @@ def lzf_decompress(data: bytes, size: int) -> bytes:
         if n != -1:
             raise OSError("invalid data for LZF decompression")
         size += max(len(data), 1)
+
+
+def _szip_lib() -> ctypes.CDLL:
+    lib = library(SZIP_SOURCE)
+    lib.szip_decode.restype = ctypes.c_int64
+    lib.szip_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def szip_decompress(data: bytes, size: int, options_mask: int, pixels_per_block: int,
+                    bits_per_pixel: int, pixels_per_scanline: int) -> bytes:
+    """One szip chunk (without HDF5's size header) decoded into `size`
+    bytes, as libaec's SZ_BufftoBuffDecompress decodes it with the szip
+    filter's parameters. Data that is not szip raises OSError."""
+    lib = _szip_lib()
+    out = np.empty(max(size, 1), np.uint8)
+    n = lib.szip_decode(data, len(data), out.ctypes.data, size, options_mask, pixels_per_block,
+                        bits_per_pixel, pixels_per_scanline)
+    if n < 0:
+        raise OSError({-1: "szip data ends early", -2: "invalid szip data",
+                       -3: f"szip parameters libaec refuses: options {options_mask}, "
+                           f"{pixels_per_block} pixels a block, {bits_per_pixel} bits a pixel, "
+                           f"{pixels_per_scanline} a scanline"}[n])
+    return out[:n].tobytes()
 
 
 def _read_sidecar(path: str):

@@ -32,22 +32,38 @@ Read:
   single chunk, implicit, fixed array, extensible array (both paged) and
   v2 B-tree. Only the chunks that hold the asked rows are read;
   unwritten chunks read as the fill value;
+- raw data in external files (the external file list message): each
+  slot's file read through a memory map, its name resolved as HDF5 does
+  (against HDF5_EXTFILE_PREFIX, "${ORIGIN}" the file's directory, else
+  the working directory); a missing file raises OSError, bytes past a
+  file's end read as zeros;
+- virtual datasets (layout class 3): each mapping's source read through
+  its own layout (chunk reads or a memory map), its file found as an
+  external link's ("." the same file), whole rows mapped onto whole rows
+  where both selections take whole rows; unlimited mappings and printf
+  ("%b") source names, sized as HDF5 sizes them at open (the last
+  available source); a missing source file or dataset, and an element no
+  mapping reaches, read as the fill value. Source files stay open until
+  the virtual dataset's file closes;
 - filters: deflate, shuffle, fletcher32 (verified: a mismatch raises
   OSError), lzf (decoded by `native/lzf.cc`, built with g++ at first
-  use), scaleoffset (integer, and float D-scale, to the bit as HDF5
-  decodes it) and nbit;
+  use), szip (CCSDS 121.0 Rice coding as libaec decodes it, by
+  `native/szip.cc`, built the same way), scaleoffset (integer, and float
+  D-scale, to the bit as HDF5 decodes it) and nbit;
 - datatypes: integers (with h5py's mapping of a reduced precision or a
   bit offset), IEEE floats, fixed and variable-length strings, bitfields,
   opaque, enums (a FALSE/TRUE enum is np.bool_), compounds (nested, with
   h5py's names, offsets and itemsize), arrays, variable-length sequences
-  (an object array of arrays), and committed datatypes shared by a
-  dataset or an attribute.
-Still refused with NotImplementedError naming them: object and region
-references, virtual datasets, raw data in external files, the szip
-filter and plugin filters (ids from 256, lzf's 32000 apart: h5py's stock
-build reads none either), shared object header messages (a superblock
-extension's shared-message table), fractal heaps with I/O filters and
-non-IEEE floats.
+  (an object array of arrays), committed datatypes shared by a dataset or
+  an attribute, and object and region references (`Reference` and
+  `RegionReference`; `group[ref]` opens the object under the name HDF5
+  gives it, `dataset[regref]` reads the selection in h5py's shape), so
+  that datasets with dimension scales open.
+Still refused with NotImplementedError naming them: shared object header
+messages (a superblock extension's shared-message table), plugin filters
+(ids from 256, lzf's 32000 apart: h5py's stock build reads none either),
+fractal heaps with I/O filters, non-IEEE floats, and HDF5 1.12's revised
+references, which h5py does not write.
 
 Write: superblock version 0 with 8-byte offsets and lengths, version 1
 object headers, symbol-table groups (as many SNOD leaves and B-tree levels
@@ -64,6 +80,7 @@ from __future__ import annotations
 import bisect
 import mmap
 import os
+import re
 import struct
 import time
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -84,7 +101,8 @@ _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbi
 _CLASS_NAMES = {0: "fixed-point", 1: "floating-point", 2: "time", 3: "string", 4: "bitfield",
                 5: "opaque", 6: "compound", 7: "reference", 8: "enumerated",
                 9: "variable-length", 10: "array"}
-_REFERENCE_NAMES = {0: "object reference", 1: "region reference"}
+_REFERENCE_NAMES = {0: "object reference", 1: "region reference", 2: "object reference",
+                    3: "region reference", 4: "attribute reference"}
 # IEEE layouts by size: (exponent location, exponent size, mantissa size, bias)
 _IEEE = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127), 8: (52, 11, 52, 1023)}
 # HDF5's default limit on the soft and external links one lookup follows
@@ -239,6 +257,18 @@ def _unlzf(raw: bytes, size: int) -> bytes:
     from convnet_tpu_torch.data import native  # its g++ build of native/lzf.cc
 
     return native.lzf_decompress(raw, size)
+
+
+def _unszip(raw: bytes, cd, where: str) -> bytes:
+    """H5Z_FILTER_SZIP's decode: the element bytes' count (4 bytes,
+    little-endian), then libaec's SZ_BufftoBuffDecompress of the rest with
+    the filter's options mask, pixels per block, bits per pixel and pixels
+    per scanline."""
+    from convnet_tpu_torch.data import native  # its g++ build of native/szip.cc
+
+    if len(raw) < 4 or len(cd) < 4:
+        raise OSError(f"{where}: an szip chunk without its size or parameters")
+    return native.szip_decompress(raw[4:], _le(raw, 0, 4), *cd[:4])
 
 
 def _scaleoffset(raw: bytes, cd, where: str) -> bytes:
@@ -415,8 +445,10 @@ def _vlen_type(base: Optional[_Type], utf8: bool, width: int) -> _Type:
                 data = data[:length]
                 out[i] = data.decode("utf-8" if utf8 else "ascii") if decode else data
             else:
-                items = np.frombuffer(data, base.stored, count=length).copy()
-                out[i] = base.to_h5py(items, r, decode)
+                items = base.to_h5py(np.frombuffer(data, base.stored, count=length).copy(), r, decode)
+                if items.dtype == object and items.dtype.metadata:
+                    items = items.view(np.dtype("O"))  # h5py's sequences of references carry none
+                out[i] = items
         return out.reshape(arr.shape)
 
     return _Type(dtype, np.dtype((np.void, width)), convert)
@@ -431,6 +463,195 @@ def _names(b: bytes, at: int, count: int, version: int) -> Tuple[List[bytes], in
         out.append(b[at:end])
         at = end + 1 if version >= 3 else at + (end - at + 8) // 8 * 8
     return out, at
+
+
+# -- references and selections -----------------------------------------------------
+
+
+class Reference:
+    """An object reference, as h5py's: the address of the object header it
+    points to, 0 for a null reference, which is falsy. A group of the file
+    it was read from opens the object: `f[ref]`."""
+
+    __slots__ = ("address",)
+
+    def __init__(self, address: int = 0):
+        self.address = address
+
+    def __bool__(self) -> bool:
+        return self.address != 0
+
+    def __repr__(self) -> str:
+        return f"<HDF5 object reference{'' if self else ' (null)'}>"
+
+
+class RegionReference(Reference):
+    """A dataset region reference, as h5py's: the dataset's address and a
+    selection of its elements. `f[ref]` is the dataset, `f[ref][ref]` the
+    elements selected, as h5py gives them."""
+
+    __slots__ = ("selection",)
+
+    def __init__(self, address: int = 0, selection: Optional["_Selection"] = None):
+        super().__init__(address)
+        self.selection = selection
+
+    def __repr__(self) -> str:
+        return f"<HDF5 region reference{'' if self else ' (null)'}>"
+
+
+class _Selection(NamedTuple):
+    """A dataspace selection as HDF5 serializes it: "all", "none",
+    "points" (`array` (n, rank), in their order), "blocks" (an irregular
+    hyperslab: `array` (n, 2, rank), each block's first and last
+    coordinates) or "regular" (a regular hyperslab: `dims` per axis
+    (start, stride, count, block), None for an unlimited count or
+    block)."""
+
+    kind: str
+    array: Optional[np.ndarray] = None
+    dims: Optional[Tuple[Tuple[int, int, Optional[int], Optional[int]], ...]] = None
+
+    def unlimited_axis(self) -> Optional[int]:
+        if self.kind == "regular":
+            for d, (_, _, count, block) in enumerate(self.dims):
+                if count is None or block is None:
+                    return d
+        return None
+
+    def axis(self, d: int, limit: int) -> np.ndarray:
+        """A regular hyperslab's coordinates along axis d, below `limit`."""
+        start, stride, count, block = self.dims[d]
+        if count is None:
+            count = max(0, -(-(limit - start) // stride))
+        if block is None:
+            block = max(0, limit - start)
+        c = (start + stride * np.arange(count, dtype=np.int64)[:, None]
+             + np.arange(block, dtype=np.int64)).reshape(-1)
+        return c[c < limit]
+
+    def coords(self, limits) -> np.ndarray:
+        """The coordinates selected below `limits` (n, rank), in HDF5's
+        order: row-major, points as listed."""
+        rank = len(limits)
+        if self.kind == "none":
+            return np.zeros((0, rank), np.int64)
+        if self.kind == "points":
+            return self.array
+        if self.kind == "blocks":
+            flat = np.unique(np.concatenate(
+                [np.ravel_multi_index(tuple(np.indices(e - s + 1).reshape(rank, -1) + s[:, None]), limits)
+                 for s, e in self.array]))
+            return np.stack(np.unravel_index(flat, limits), 1)
+        axes = ([np.arange(n) for n in limits] if self.kind == "all"
+                else [self.axis(d, n) for d, n in enumerate(limits)])
+        grids = np.meshgrid(*axes, indexing="ij")
+        return np.stack([g.reshape(-1) for g in grids], 1).reshape(-1, rank)
+
+    def rows(self, limits) -> Optional[np.ndarray]:
+        """The rows, in order, of a selection that takes whole rows of a
+        dataset of shape `limits`; None for one that does not."""
+        if not limits:
+            return None
+        if self.kind == "all":
+            return np.arange(limits[0])
+        if self.kind == "regular" and all(np.array_equal(self.axis(d, n), np.arange(n))
+                                          for d, n in enumerate(limits[1:], 1)):
+            return self.axis(0, limits[0])
+        if self.kind == "blocks":
+            first, last = self.array[:, 0], self.array[:, 1]
+            if (first[:, 1:] == 0).all() and (last[:, 1:] == np.array(limits[1:]) - 1).all():
+                return np.unique(np.concatenate([np.arange(a, b + 1) for a, b in
+                                                 zip(first[:, 0].tolist(), last[:, 0].tolist())]))
+        return None
+
+    def bounds(self, shape) -> Tuple[int, ...]:
+        """One past the largest coordinate selected along each axis."""
+        if self.kind == "all":
+            return tuple(shape)
+        if self.kind == "regular":
+            return tuple(0 if not count or not block else start + (count - 1) * stride + block
+                         for start, stride, count, block in self.dims)
+        c = self.array.reshape(-1, len(shape))
+        return tuple(c.max(0) + 1) if len(c) else (0,) * len(shape)
+
+
+def _selection(b: bytes, at: int) -> Tuple[_Selection, int]:
+    """The selection serialized at b[at:] (H5S_SELECT_SERIALIZE, versions
+    1 to 3) and the index past it."""
+    kind, version = _le(b, at, 4), _le(b, at + 4, 4)
+    p = at + 8
+    if kind in (0, 3) and version == 1:  # none, all: a reserved word and a length of 0
+        return _Selection("none" if kind == 0 else "all"), p + 8
+    if (kind, version) not in ((1, 1), (1, 2), (2, 1), (2, 2), (2, 3)):
+        raise NotImplementedError(f"a serialized selection of type {kind}, version {version}")
+    regular = False
+    if version == 1:  # reserved, length, rank, count, then 4-byte coordinates
+        rank, n, enc, p = _le(b, p + 8, 4), _le(b, p + 12, 4), 4, p + 16
+    elif kind == 1:  # points: the numbers' width, rank, count
+        enc, rank = b[p], _le(b, p + 1, 4)
+        n, p = _le(b, p + 5, enc), p + 5 + enc
+    elif version == 2:  # a regular hyperslab: flags, length, rank, 8-byte numbers
+        regular, enc, rank, p = bool(b[p] & 0x01), 8, _le(b, p + 5, 4), p + 9
+    else:  # flags, the numbers' width, rank, and for an irregular one its count
+        regular, enc, rank, p = bool(b[p] & 0x01), b[p + 1], _le(b, p + 2, 4), p + 6
+        if not regular:
+            n, p = _le(b, p, enc), p + enc
+    if enc not in (2, 4, 8) or (kind, version, regular) == (2, 2, False):
+        raise NotImplementedError(f"a serialized selection of version {version}, {enc}-byte numbers")
+    if regular:  # per axis start, stride, count, block; the largest number is unlimited
+        top = (1 << (8 * enc)) - 1
+        v = np.frombuffer(b, f"<u{enc}", count=4 * rank, offset=p).reshape(rank, 4).tolist()
+        dims = tuple(tuple(None if x == top else x for x in row) for row in v)
+        return _Selection("regular", dims=dims), p + 4 * rank * enc
+    per = rank if kind == 1 else 2 * rank
+    v = np.frombuffer(b, f"<u{enc}", count=n * per, offset=p).astype(np.int64)
+    if kind == 1:
+        return _Selection("points", v.reshape(n, rank)), p + n * per * enc
+    return _Selection("blocks", v.reshape(n, 2, rank)), p + n * per * enc
+
+
+def _region_shape(sel: _Selection, coords: np.ndarray, shape) -> Tuple[int, ...]:
+    """The shape h5py gives `ds[regref]` (h5py's selections.guess_shape):
+    a point selection flat; a hyperslab in the shape of its extent along
+    each axis where those multiply to its count, else flat."""
+    n, rank = len(coords), len(shape)
+    if sel.kind == "all":
+        return tuple(shape)
+    if sel.kind == "points":
+        return (n,)
+    if sel.kind == "none" or n == 0:
+        return (0,) * rank
+    low, high = coords.min(0), coords.max(0)
+    out = tuple(1 if high[d] == low[d] else n // int((coords[:, d] == low[d]).sum())
+                for d in range(rank))
+    return out if int(np.prod(out)) == n else (n,)
+
+
+def _reference_type(region: bool, size: int) -> _Type:
+    """h5py's object or region reference dtype. An object reference is
+    stored as an object header's address; a region reference as a global
+    heap ID whose object is the dataset's address and its serialized
+    selection."""
+    dtype = np.dtype("O", metadata={"ref": RegionReference if region else Reference})
+
+    def convert(arr, r, decode):
+        raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8).reshape(-1, size)
+        addrs = _uint(raw[:, : r.O]).tolist()
+        out = np.empty(len(addrs), dtype)
+        if not region:
+            for i, a in enumerate(addrs):
+                out[i] = Reference(a)
+            return out.reshape(arr.shape)
+        for i, (coll, index) in enumerate(zip(addrs, _uint(raw[:, r.O : r.O + 4]).tolist())):
+            if not coll:
+                out[i] = RegionReference()
+                continue
+            blob = r.gheap_object(coll, index)
+            out[i] = RegionReference(_le(blob, 0, r.O), _selection(blob, r.O)[0])
+        return out.reshape(arr.shape)
+
+    return _Type(dtype, np.dtype((np.void, size)), convert)
 
 
 # -- reading ---------------------------------------------------------------------
@@ -572,6 +793,7 @@ class _Reader:
         self.mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
         self._gheaps: Dict[int, Dict[int, bytes]] = {}
         self._heaps: Dict[int, _FractalHeap] = {}
+        self.closers: List[Callable[[], None]] = []  # external raw data files' maps
         at = 0  # the superblock sits at 0 or past a user block of 512 * 2^n bytes
         while self.mm[at : at + 8] != SIGNATURE:
             at = 512 if at == 0 else at * 2
@@ -585,6 +807,9 @@ class _Reader:
             raise
 
     def close(self):
+        for close in self.closers:
+            close()
+        self.closers.clear()
         if self.mm is not None:
             self.mm.close()
             self.mm = None
@@ -765,9 +990,12 @@ class _Reader:
                 offsets.append(offset)
                 types.append(_array_type(t, dims) if dims else t)
             return _compound_type(names, offsets, types, size), p - at
-        if cls == 7:
-            what = _REFERENCE_NAMES.get(bits & 0x0F, f"reference of type {bits & 0x0F}")
-            raise NotImplementedError(f"{self.path}: HDF5 datatype {what}")
+        if cls == 7:  # reference
+            kind = bits & 0x0F
+            if version >= 4 or kind > 1:  # HDF5 1.12's H5R_ref_t
+                what = _REFERENCE_NAMES.get(kind, f"reference of type {kind}")
+                raise NotImplementedError(f"{self.path}: HDF5 datatype revised reference ({what})")
+            return _reference_type(kind == 1, size), 8
         if cls == 8:  # enumerated: h5py's dtype of the base, with the members
             base, used = self.datatype(b, p)
             names, p = _names(b, p + used, bits & 0xFFFF, version)
@@ -950,12 +1178,20 @@ class _Reader:
             if i < nrec:
                 yield bytes(self.mm[pos + 6 + i * rec_size : pos + 6 + (i + 1) * rec_size])
 
-    def links(self, btree: int, heap: int) -> Dict[str, int]:
-        """{name: object header address} of a symbol-table group."""
+    def local_heap(self, heap: int) -> int:
+        """The map position of the data segment of the local heap at `heap`."""
         pos = self.addr(heap)
         if self.mm[pos : pos + 4] != b"HEAP":
             raise OSError(f"{self.path}: no local heap at {heap}")
-        names = self.addr(self.u(pos + 8 + 2 * self.L, self.O))
+        return self.addr(self.u(pos + 8 + 2 * self.L, self.O))
+
+    def string(self, pos: int) -> str:
+        """The null-terminated UTF-8 string at map position `pos`."""
+        return bytes(self.mm[pos : self.mm.find(b"\0", pos)]).decode("utf-8")
+
+    def links(self, btree: int, heap: int) -> Dict[str, int]:
+        """{name: object header address} of a symbol-table group."""
+        names = self.local_heap(heap)
         out = {}
         entry = 2 * self.O + 24
         for _, snod in self.btree(btree, 0, self.L):
@@ -964,9 +1200,7 @@ class _Reader:
                 raise OSError(f"{self.path}: no symbol-table node at {snod}")
             for i in range(self.u(p + 6, 2)):
                 e = p + 8 + i * entry
-                start = names + self.u(e, self.O)
-                name = bytes(self.mm[start : self.mm.find(b"\0", start)]).decode("utf-8")
-                out[name] = self.u(e + self.O, self.O)
+                out[self.string(names + self.u(e, self.O))] = self.u(e + self.O, self.O)
         return out
 
     def link(self, b: bytes):
@@ -996,11 +1230,14 @@ class _Reader:
             return name, _ExternalLink(filename.decode("utf-8"), path.decode("utf-8")), order
         raise NotImplementedError(f"{self.path}: user-defined link {name!r} of type {kind}")
 
-    def members(self, links) -> Dict[str, object]:
+    def members(self, links, native: bool = False) -> Dict[str, object]:
         """{name: target} of a group's links, in h5py's order: by name, or by
-        creation order where the group tracks it."""
+        creation order where the group tracks it; or, `native`, in the
+        order HDF5 visits them (symbol tables and the dense name index in
+        their B-tree's order, compact links in their header's)."""
         if not isinstance(links, _LinkTable):
-            return dict(sorted(self.links(*links).items(), key=lambda kv: kv[0].encode("utf-8")))
+            found = self.links(*links)
+            return found if native else dict(sorted(found.items(), key=lambda kv: kv[0].encode("utf-8")))
         found = [self.link(m) for m in links.messages]
         tracked = False
         if links.info is not None:
@@ -1011,27 +1248,39 @@ class _Reader:
             if not self.undefined(heap):  # dense storage: the name index's records
                 h = self.heap(heap)
                 found += [self.link(h.get(rec[4:])) for rec in self.btree2(btree)]
-        found.sort(key=(lambda x: x[2]) if tracked else (lambda x: x[0].encode("utf-8")))
+        if not native:
+            found.sort(key=(lambda x: x[2]) if tracked else (lambda x: x[0].encode("utf-8")))
         return {name: target for name, target, _ in found}
 
-    def open(self, addr: int, name: str):
+    def group_links(self, msgs):
+        """A group's links from its header's messages: a symbol table's
+        (B-tree, heap) or a _LinkTable; None for an object not a group."""
+        types = {t for t, _, _ in msgs}
+        if _SYMBOL_TABLE in types:
+            data = next(d for t, d, _ in msgs if t == _SYMBOL_TABLE)
+            return _le(data, 0, self.O), _le(data, self.O, self.O)
+        if types & {_LINK, _LINK_INFO, _GROUP_INFO}:
+            return _LinkTable([d for t, d, _ in msgs if t == _LINK],
+                              next((d for t, d, _ in msgs if t == _LINK_INFO), None))
+        return None
+
+    def open(self, addr: int, name: Optional[str]):
         """The Group, Dataset or Datatype whose object header is at `addr`."""
         flags, msgs = self.header(addr)
         types = {t for t, _, _ in msgs}
         attrs = self.attributes(msgs, tracked=bool(flags & 0x04))
-        if _SYMBOL_TABLE in types:
-            data = next(d for t, d, _ in msgs if t == _SYMBOL_TABLE)
-            return Group(name, attrs, reader=self, links=(_le(data, 0, self.O), _le(data, self.O, self.O)))
-        if types & {_LINK, _LINK_INFO, _GROUP_INFO}:
-            table = _LinkTable([d for t, d, _ in msgs if t == _LINK],
-                               next((d for t, d, _ in msgs if t == _LINK_INFO), None))
-            return Group(name, attrs, reader=self, links=table)
-        if _LAYOUT in types:
-            return Dataset(name, attrs, layout=_StoredLayout(self, msgs, name))
-        if _DATATYPE in types:
+        links = self.group_links(msgs)
+        if links is not None:
+            obj = Group(name, attrs, reader=self, links=links)
+        elif _LAYOUT in types:
+            obj = Dataset(name, attrs, layout=_StoredLayout(self, msgs, name))
+        elif _DATATYPE in types:
             t, _ = self.datatype(next(d for mt, d, _ in msgs if mt == _DATATYPE))
-            return Datatype(name, attrs, t.dtype)
-        raise NotImplementedError(f"{self.path}: {name!r} is neither a group, a dataset nor a datatype")
+            obj = Datatype(name, attrs, t.dtype)
+        else:
+            raise NotImplementedError(f"{self.path}: {name!r} is neither a group, a dataset nor a datatype")
+        obj._addr = addr
+        return obj
 
 
 class _StoredLayout:
@@ -1042,7 +1291,9 @@ class _StoredLayout:
         self.where = f"{r.path}: {name!r}"
         self.filters: List[Tuple[int, Tuple[int, ...]]] = []
         self.fill = None
-        shape = maxshape = t = layout = None
+        self.external: Optional[_External] = None
+        self.virtual: Optional[_Virtual] = None
+        shape = maxshape = t = layout = external = None
         for mt, b, _ in msgs:
             if mt == _DATASPACE:
                 shape, maxshape = r.dataspace(b)
@@ -1055,17 +1306,27 @@ class _StoredLayout:
             elif mt in (_FILL, _FILL_OLD):
                 self.fill = self._fill(mt, b)
             elif mt == _EXTERNAL_FILES:
-                raise NotImplementedError(f"{self.where}: raw data in external files")
+                external = b
         self.type = t
         self.stored = t.stored
         self._sub = self.stored.shape  # an array type's own axes, after the dataset's
         self.shape = shape if shape is not None else (0,)
         self.maxshape = maxshape if maxshape is not None else self.shape
-        self.decode_seconds = 0.0  # time spent in the filters of the chunks read
+        self._decode_s = 0.0  # time spent in the filters of the chunks read
         self.skip_edge_filters = False
         self._layout(layout)
         if self.filters and self.kind != 2:
             raise NotImplementedError(f"{self.where}: filters on an unchunked dataset")
+        if external is not None:
+            self.external = _External(self, external)
+        if self.kind == 3:
+            self.virtual = _Virtual(self, r.gheap_object(*self.address))
+
+    @property
+    def decode_seconds(self) -> float:
+        """Time spent in the filters of the chunks read (a virtual
+        dataset's: in its sources')."""
+        return self._decode_s + (self.virtual.decode_seconds() if self.virtual else 0.0)
 
     def _layout(self, b: bytes):
         O, version = self.r.O, b[0]
@@ -1086,6 +1347,8 @@ class _StoredLayout:
                 self.compact = bytes(b[4 : 4 + _le(b, 2, 2)])
             elif self.kind == 1:
                 self.address = _le(b, 2, O)
+            elif self.kind == 3:  # virtual: a global heap ID of the mappings
+                self.address = (_le(b, 2, O), _le(b, 2 + O, 4))
             elif self.kind == 2 and version == 3:
                 rank = b[2]
                 self.address = _le(b, 3, O)
@@ -1094,8 +1357,6 @@ class _StoredLayout:
                 self._chunk_layout(b)
         else:
             raise NotImplementedError(f"{self.where}: data layout message version {version}")
-        if self.kind == 3:
-            raise NotImplementedError(f"{self.where}: a virtual dataset (layout class 3)")
         if self.kind > 3:
             raise NotImplementedError(f"{self.where}: layout class {self.kind}")
         if self.kind == 2:
@@ -1182,23 +1443,49 @@ class _StoredLayout:
     def read(self, rows: np.ndarray) -> np.ndarray:
         """The elements at the first-axis indices `rows`, an integer array
         of any shape and order, repeats allowed."""
+        if self.virtual is not None:
+            return self.virtual.read(rows)
         shape = rows.shape + tuple(self.shape[1:])
         if self.kind == 2:
             out = self._chunked(rows.reshape(-1)).reshape(shape + self._sub)
-        elif (self.kind == 1 and self.r.undefined(self.address)) or 0 in self.shape:
+        elif 0 in self.shape or (self.external is None and self.kind == 1
+                                 and self.r.undefined(self.address)):
             out = self.filled(shape)
+        elif self.external is not None:
+            out = self._external_rows(rows.reshape(-1), self.shape[1:]).reshape(shape + self._sub)
         else:
             out = self._stored(self.shape)[rows]
         return self.type.to_h5py(out, self.r, False)
 
     def read_all(self) -> np.ndarray:
         if self.shape == ():
-            if self.kind == 1 and self.r.undefined(self.address):
+            if self.external is not None:
+                out = self._external_rows(np.zeros(1, np.int64), ())[0]
+            elif self.kind == 1 and self.r.undefined(self.address):
                 out = self.filled(())
             else:
                 out = np.array(self._stored(()))
             return self.type.to_h5py(out, self.r, False)
         return self.read(np.arange(self.shape[0]))
+
+    def _external_rows(self, rows: np.ndarray, row_shape) -> np.ndarray:
+        """Stored elements of the rows at the 1-D `rows` of raw data in
+        external files."""
+        count = int(np.prod(row_shape, dtype=np.int64))
+        raw = self.external.read(rows, count * self.stored.itemsize)
+        return raw.view(self.stored.base).reshape((len(rows),) + tuple(row_shape) + self._sub)
+
+    def region(self, sel: "_Selection") -> np.ndarray:
+        """The elements a region reference selects, as h5py's ds[regref]
+        gives them: in HDF5's order, in h5py's shape (_region_shape)."""
+        if sel.kind == "all":
+            return self.read_all()
+        coords = sel.coords(self.shape)
+        shape = _region_shape(sel, coords, self.shape)
+        if not len(coords):
+            return np.zeros(shape, self.type.dtype)
+        rows, inverse = np.unique(coords[:, 0], return_inverse=True)
+        return self.read(rows)[(inverse,) + tuple(coords[:, 1:].T)].reshape(shape)
 
     # -- chunked: the chunk indexes
 
@@ -1396,6 +1683,8 @@ class _StoredLayout:
                     raw = _unshuffle(raw, width)
             elif fid == 3:
                 raw = _unfletcher32(raw, self.where)
+            elif fid == 4:
+                raw = _unszip(raw, vals, self.where)
             elif fid == 5:
                 raw = _nbit(raw, vals)
             elif fid == 6:
@@ -1429,7 +1718,7 @@ class _StoredLayout:
         raw = self._decode(bytes(self.r.mm[pos : pos + size]), active)
         count = int(np.prod(self.chunk, dtype=np.int64))
         arr = np.frombuffer(raw, dt, count=count).reshape(self.chunk + self._sub)
-        self.decode_seconds += time.perf_counter() - t0
+        self._decode_s += time.perf_counter() - t0
         self._last = (offset, arr)
         return arr
 
@@ -1460,6 +1749,272 @@ class _StoredLayout:
         return out
 
 
+def _extfile_prefix(path: str) -> Optional[str]:
+    """The directory that external raw data files' relative names are read
+    against (H5D__build_file_prefix): HDF5_EXTFILE_PREFIX, "${ORIGIN}" at
+    its start standing for the directory of the file at `path`; None (the
+    working directory) where it is unset, "" or ".". HDF5 reads the
+    variable when the library starts; this reader, when a dataset opens."""
+    prefix = os.environ.get("HDF5_EXTFILE_PREFIX", "")
+    if prefix in ("", "."):
+        return None
+    if prefix.startswith("${ORIGIN}"):
+        prefix = os.path.dirname(os.path.abspath(path)) + "/" + prefix[len("${ORIGIN}") :]
+    return prefix
+
+
+class _External:
+    """Raw data in external files: the dataset's bytes are its slots'
+    bytes concatenated, each slot a range of a file that is read through
+    a memory map. A file that cannot be opened raises OSError when it is
+    first read, as in HDF5; bytes past a file's end read as zeros."""
+
+    def __init__(self, layout: "_StoredLayout", b: bytes):
+        r = layout.r
+        self.where = layout.where
+        if b[0] != 1:
+            raise NotImplementedError(f"{layout.where}: external file list message version {b[0]}")
+        used, names = _le(b, 6, 2), r.local_heap(_le(b, 8, r.O))
+        prefix = _extfile_prefix(r.path)
+        top = (1 << (8 * r.L)) - 1  # H5F_UNLIMITED: the rest of the file
+        # (first dataset byte, past its last, file, offset in the file) per slot
+        self.slots: List[Tuple[int, int, str, int]] = []
+        start, at = 0, 8 + r.O
+        for _ in range(used):
+            name_at, offset, size = (_le(b, at + i * r.L, r.L) for i in range(3))
+            at += 3 * r.L
+            name = r.string(names + name_at)
+            path = name if prefix is None or os.path.isabs(name) else os.path.join(prefix, name)
+            end = 1 << 62 if size == top else start + size
+            self.slots.append((start, end, path, offset))
+            start = end
+        self._maps: Dict[str, Tuple[Optional[mmap.mmap], int]] = {}
+        r.closers.append(self.close)
+
+    def _map(self, path: str) -> Tuple[Optional[mmap.mmap], int]:
+        if path not in self._maps:
+            try:
+                fh = open(path, "rb")
+            except OSError as e:
+                raise OSError(f"{self.where}: unable to open external raw data file {path!r}") from e
+            with fh:
+                size = os.fstat(fh.fileno()).st_size
+                self._maps[path] = (mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) if size else None,
+                                    size)
+        return self._maps[path]
+
+    def read(self, rows: np.ndarray, row_bytes: int) -> np.ndarray:
+        """The bytes of the rows at the 1-D `rows`, (len(rows), row_bytes)
+        uint8: the rows that lie whole in a slot through one view of its
+        file's map, those across a slot's or its file's end byte by byte."""
+        out = np.zeros((len(rows), row_bytes), np.uint8)
+        low, high = rows * row_bytes, (rows + 1) * row_bytes
+        for start, end, path, offset in self.slots:
+            hit = (low < end) & (high > start)
+            if not row_bytes or not hit.any():
+                continue
+            mm, size = self._map(path)
+            held = min(end, start + max(0, size - offset))  # past the bytes the file holds
+            whole = hit & (low >= start) & (high <= held)
+            if whole.any():
+                first = -(-start // row_bytes)  # the first row wholly in the slot
+                view = np.ndarray((held // row_bytes - first, row_bytes), np.uint8, buffer=mm,
+                                  offset=offset + first * row_bytes - start)
+                out[whole] = view[rows[whole] - first]
+            for i in np.flatnonzero(hit & ~whole & (low < held)).tolist():
+                a, z = max(int(low[i]), start), min(int(high[i]), held)
+                out[i, a - low[i] : z - low[i]] = np.frombuffer(mm, np.uint8, count=z - a,
+                                                                offset=offset + a - start)
+        return out
+
+    def close(self):
+        for mm, _ in self._maps.values():
+            if mm is not None:
+                mm.close()
+        self._maps.clear()
+
+
+def _has_printf(name: str) -> bool:
+    return "%b" in name.replace("%%", "")
+
+
+def _printf(name: str, block: int) -> str:
+    """A printf-named source's name for `block`: "%b" its number, "%%" a %."""
+    return re.sub("%([%b])", lambda m: "%" if m.group(1) == "%" else str(block), name)
+
+
+def _clip_extent(dim, slices: int) -> int:
+    """The extent along an unlimited axis at which a regular hyperslab's
+    (start, stride, count, block) there takes `slices` coordinates
+    (H5S__hyper_get_clip_extent_real, the last available source's view)."""
+    start, stride, _, block = dim
+    if not slices:
+        return 0
+    if block is None or block == stride:
+        return start + slices
+    full, rest = divmod(slices, block)
+    return start + full * stride + rest if rest else start + (full - 1) * stride + block
+
+
+class _Part(NamedTuple):
+    """A mapping of a virtual dataset with its source opened: rows onto
+    rows (`vrows`, `srows`) where both selections take whole rows of the
+    same size, else flat element indices (`vflat`, `sflat`)."""
+
+    source: "_StoredLayout"
+    vrows: Optional[np.ndarray]
+    srows: Optional[np.ndarray]
+    vflat: Optional[np.ndarray]
+    sflat: Optional[np.ndarray]
+
+
+class _Virtual:
+    """A virtual dataset (layout class 3): its mappings, each a source
+    dataset's selection mapped element for element, in HDF5's order, onto
+    a selection of this dataset, from the global heap object that the
+    layout names (version 0: the count, then per mapping the source file
+    and dataset names and the source and virtual selections, then a
+    lookup3 checksum). Each source is read through its own layout. An
+    unlimited mapping is clipped to its source's extent and a printf one
+    takes blocks 0, 1, ... while their sources exist; the dataset's
+    extent along that axis is then the largest the mappings reach (HDF5's
+    view of the last available source)."""
+
+    def __init__(self, layout: "_StoredLayout", blob: bytes):
+        self.layout = layout
+        r, where = layout.r, layout.where
+        if blob[0] != 0:
+            raise NotImplementedError(f"{where}: virtual dataset mappings of encoding version {blob[0]}")
+        if len(blob) < 5 or lookup3(blob[:-4]) != _le(blob, len(blob) - 4, 4):
+            raise OSError(f"{where}: virtual dataset mappings: checksum mismatch")
+        count, at = _le(blob, 1, r.L), 1 + r.L
+        self.mappings: List[Tuple[str, str, _Selection, _Selection]] = []
+        for _ in range(count):
+            names = []
+            for _ in range(2):
+                end = blob.index(b"\0", at)
+                names.append(blob[at:end].decode("utf-8"))
+                at = end + 1
+            source, at = _selection(blob, at)
+            virtual, at = _selection(blob, at)
+            self.mappings.append((names[0], names[1], source, virtual))
+        self._sources: Dict[Tuple[str, str], Optional[_StoredLayout]] = {}
+        self._plan: Optional[List[tuple]] = None
+        self._parts: Optional[List[_Part]] = None
+        if any(v.unlimited_axis() is not None for *_, v in self.mappings):
+            self._plan_mappings()  # the extent depends on the sources'
+
+    def _source(self, filename: str, name: str) -> Optional["_StoredLayout"]:
+        """A source dataset's layout; None where its file or dataset is
+        missing."""
+        key = (filename, name)
+        if key not in self._sources:
+            f = self.layout.r.file._vds_source(filename)
+            ds = f.get(name) if f is not None else None
+            self._sources[key] = ds._layout if isinstance(ds, Dataset) else None
+        return self._sources[key]
+
+    def _plan_mappings(self):
+        """Each mapping's (virtual selection, the limits of its coordinates,
+        source layout, source selection, its limits), printf mappings a
+        block each, and the extent they give the dataset."""
+        layout = self.layout
+        shape = list(layout.shape)
+        plan, clips = [], {}
+        for filename, name, ssel, vsel in self.mappings:
+            d = vsel.unlimited_axis()
+            if d is None:
+                plan.append((vsel, None, self._source(filename, name), ssel, None))
+                continue
+            start, stride, _, block = vsel.dims[d]
+            if _has_printf(filename) or _has_printf(name):
+                j = 0
+                while (src := self._source(_printf(filename, j), _printf(name, j))) is not None:
+                    dims = list(vsel.dims)
+                    dims[d] = (start + j * stride, 1, 1, block)
+                    plan.append((vsel._replace(dims=tuple(dims)), None, src, ssel, None))
+                    j += 1
+                clip = start + (j - 1) * stride + block if j else 0
+            else:
+                sd = ssel.unlimited_axis()
+                if sd is None:
+                    raise NotImplementedError(
+                        f"{layout.where}: an unlimited virtual selection over a limited source selection")
+                src = self._source(filename, name)
+                n = len(ssel.axis(sd, src.shape[sd])) if src is not None else 0
+                clip = _clip_extent(vsel.dims[d], n)
+                plan.append((vsel, (d, n), src, ssel, (sd, n)))
+            clips[d] = max(clips.get(d, 0), clip)
+        for d, clip in clips.items():  # the fixed mappings' reach is the least extent
+            shape[d] = max([clip] + [v.bounds(shape)[d] for v, lim, *_ in plan if lim is None
+                                     and v.unlimited_axis() is None])
+        self._plan = []
+        for vsel, vlim, src, ssel, slim in plan:
+            if src is None:
+                continue
+            vlimits, slimits = list(shape), list(src.shape)
+            if vlim is not None:  # the first n slices of each, n those the source holds
+                (d, n), (sd, _) = vlim, slim
+                vlimits[d] = int(vsel.axis(d, shape[d])[n - 1]) + 1 if n else 0
+                slimits[sd] = int(ssel.axis(sd, src.shape[sd])[n - 1]) + 1 if n else 0
+            self._plan.append((vsel, tuple(vlimits), src, ssel, tuple(slimits)))
+        layout.shape = tuple(shape)
+
+    def parts(self) -> List[_Part]:
+        if self._parts is None:
+            if self._plan is None:
+                self._plan_mappings()
+            shape = tuple(self.layout.shape)
+            self._parts = []
+            for vsel, vlimits, src, ssel, slimits in self._plan:
+                vrows, srows = vsel.rows(vlimits), ssel.rows(slimits)
+                if (vrows is not None and srows is not None
+                        and np.prod(shape[1:], dtype=np.int64) == np.prod(src.shape[1:], dtype=np.int64)):
+                    got, want = len(srows), len(vrows)
+                    part = _Part(src, vrows, srows, None, None)
+                else:
+                    v = np.ravel_multi_index(tuple(vsel.coords(vlimits).T), shape)
+                    s = np.ravel_multi_index(tuple(ssel.coords(slimits).T), src.shape)
+                    got, want = len(s), len(v)
+                    part = _Part(src, None, None, v, s)
+                if got != want:
+                    raise OSError(f"{self.layout.where}: a mapping's source selection holds {got} "
+                                  f"{'rows' if part.vrows is not None else 'elements'}, its virtual "
+                                  f"selection {want}")
+                self._parts.append(part)
+        return self._parts
+
+    def decode_seconds(self) -> float:
+        return sum(src.decode_seconds for src in {id(p.source): p.source for p in self.parts()}.values())
+
+    def read(self, rows: np.ndarray) -> np.ndarray:
+        """The rows at `rows`: each distinct row once, filled, then each
+        mapping's elements over it in the mappings' order."""
+        layout = self.layout
+        shape = tuple(layout.shape)
+        uniq, inverse = np.unique(rows.reshape(-1), return_inverse=True)
+        out = layout.type.to_h5py(layout.filled((len(uniq),) + shape[1:]), layout.r, False)
+        flat = out.reshape(len(uniq), int(np.prod(out.shape[1:], dtype=np.int64)))
+        for p in self.parts() if len(uniq) else []:
+            if p.vrows is not None:
+                if not len(p.vrows):
+                    continue
+                i = np.minimum(np.searchsorted(p.vrows, uniq), len(p.vrows) - 1)
+                hit = p.vrows[i] == uniq
+                if hit.any():
+                    flat[hit] = p.source.read(p.srows[i[hit]]).reshape(int(hit.sum()), -1)
+                continue
+            vr, vc = np.divmod(p.vflat, flat.shape[1])
+            i = np.minimum(np.searchsorted(uniq, vr), len(uniq) - 1)
+            hit = uniq[i] == vr
+            if not hit.any():
+                continue
+            sr, sc = np.divmod(p.sflat[hit], np.prod(p.source.shape[1:], dtype=np.int64))
+            su, sinv = np.unique(sr, return_inverse=True)
+            flat[i[hit], vc[hit]] = p.source.read(su).reshape(len(su), -1)[sinv, sc]
+        return out[inverse].reshape(rows.shape + out.shape[1:])
+
+
 # -- the h5py-like objects ----------------------------------------------------------
 
 
@@ -1479,6 +2034,8 @@ class AttributeManager(dict):
 
 class Group:
     """A group of named members, each a Group, a Dataset or a Datatype."""
+
+    _addr: Optional[int] = None  # the object header's address, in a file read
 
     def __init__(self, name: str, attrs: Dict, reader: Optional[_Reader] = None,
                  links=None, writer: Optional["_Writer"] = None):
@@ -1513,7 +2070,10 @@ class Group:
             node = node._child(part, hops)
         return node
 
-    def __getitem__(self, path: str):
+    def __getitem__(self, path):
+        """The member at a path, or the object a Reference points to."""
+        if isinstance(path, Reference):
+            return self._reader.file._deref(path)
         return self._lookup(path)
 
     def __contains__(self, path: str) -> bool:
@@ -1586,7 +2146,10 @@ class Group:
 
 class Dataset:
     """A dataset: `shape`, `dtype`, and its elements through `[...]`,
-    `[()]`, or a slice, an integer or an integer array on the first axis."""
+    `[()]`, a slice, an integer or an integer array on the first axis, or
+    a RegionReference to it."""
+
+    _addr: Optional[int] = None
 
     def __init__(self, name: str, attrs: Dict, layout: Optional[_StoredLayout] = None,
                  writer=None, array=None, appendable=None):
@@ -1615,6 +2178,10 @@ class Dataset:
             return out[()] if not self.shape else out
         if key is Ellipsis:
             return layout.read_all()
+        if isinstance(key, RegionReference):
+            if not key or key.address != self._addr:
+                raise ValueError("Region reference must point to this dataset")
+            return layout.region(key.selection)
         if isinstance(key, tuple):
             raise TypeError(f"{self.name!r}: index the first axis only (..., a slice, an int "
                             "or an integer array), then index the rows read")
@@ -1662,6 +2229,8 @@ class Datatype:
     """A committed (named) datatype: its `dtype` as h5py gives it, and its
     attributes."""
 
+    _addr: Optional[int] = None
+
     def __init__(self, name: str, attrs: Dict, dtype: np.dtype):
         self.name, self.dtype = name, dtype
         self.attrs = AttributeManager(attrs, writable=False)
@@ -1685,6 +2254,8 @@ class File(Group):
         path = os.fspath(path)
         self.filename, self.mode = path, mode
         self._externals: Dict[str, "File"] = {}  # the files external links opened
+        self._sources: Dict[str, Optional["File"]] = {}  # virtual datasets' source files
+        self._paths: Optional[Dict[int, str]] = None  # object address: the path references name
         if mode == "r":
             r = _Reader(path)
             try:
@@ -1710,10 +2281,50 @@ class File(Group):
             self._externals[filename] = File(found)
         return self._externals[filename]
 
+    def _vds_source(self, filename: str) -> Optional["File"]:
+        """A virtual dataset's source file: "." this one; else found where
+        HDF5 looks for it, as for an external link's file; None where
+        there is none."""
+        if filename == ".":
+            return self
+        if filename not in self._sources:
+            found = next((p for p in _external_paths(filename, self.filename) if os.path.isfile(p)),
+                         None)
+            self._sources[filename] = File(found) if found else None
+        return self._sources[filename]
+
+    def _path_of(self, addr: int) -> Optional[str]:
+        """The path HDF5 names an object reached through a reference by
+        (H5G_get_name_by_addr): its first hard link in a depth-first visit
+        of the groups from the root, each group's links in native order."""
+        if self._paths is None:
+            r = self._reader
+            self._paths = {r.root: "/"}
+
+            def visit(links, prefix):
+                for name, target in r.members(links, native=True).items():
+                    if isinstance(target, int) and target not in self._paths:
+                        self._paths[target] = f"{prefix}/{name}"
+                        sub = r.group_links(r.messages(target))
+                        if sub is not None:
+                            visit(sub, f"{prefix}/{name}")
+
+            visit(self._links, "")
+        return self._paths.get(addr)
+
+    def _deref(self, ref: Reference):
+        if not ref:
+            raise ValueError("Invalid HDF5 object reference")
+        path = self._path_of(ref.address)
+        if path is not None:
+            return self[path]
+        return self._reader.open(ref.address, None)  # linked from nowhere: no name, as in h5py
+
     def close(self):
-        for f in self._externals.values():
+        for f in list(self._externals.values()) + [f for f in self._sources.values() if f is not None]:
             f.close()
         self._externals.clear()
+        self._sources.clear()
         if self._reader is not None:
             self._reader.close()
         elif self._writer is not None and not self._writer.closed:

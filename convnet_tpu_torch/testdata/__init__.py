@@ -2,14 +2,34 @@
 
 `hdf5/` holds small HDF5 files that h5py wrote in the formats the JAX
 package reads through h5py and the port reads through its own
-`convnet_tpu_torch/hdf5.py` (libver "latest" files, dense links and
-attributes, every chunk index, the lzf, fletcher32, scaleoffset and nbit
-filters, enum, compound and variable-length types), among them a CIFAR-10
-shard and its mean file for the CIFAR-10 data template. `hdf5/digests.json`
-holds, for each dataset of each file, the sha256 of its elements, its dtype
-and its shape as h5py read them. `tests/torch_port_hdf5_fixtures.py` writes
-both (it needs h5py); `check_hdf5_fixtures` reads every file with the port's
-reader (no h5py) and holds each dataset to its digest.
+`convnet_tpu_torch/hdf5.py`:
+- `formats_latest.h5`: libver "latest" files, dense links and attributes,
+  every chunk index, the lzf, fletcher32, scaleoffset and nbit filters,
+  enum, compound and variable-length types;
+- `cifar10_train_latest.h5` and `cifar10_mean_latest.h5`: a CIFAR-10
+  shard and its mean file for the CIFAR-10 data template;
+  `checkpoint_latest.h5`: a checkpoint with dense links;
+- `references_latest.h5` and `references_earliest.h5`: a dataset with a
+  dimension scale attached and its axes labelled, object and region
+  references (hyperslabs regular and not, points, all, none, null) in
+  attributes and datasets;
+- `vds.h5` over the uint8 shards `vds_shard{0,1,2}.h5` beside it: an
+  unmapped band, a strided mapping, a source file that is missing,
+  blocks of part rows, and a source in its own file ("."); `vds_printf.h5`:
+  an unlimited printf mapping over `vds_shard%b.h5` and an unlimited
+  strided one; `cifar10_vds.h5`: "data" and "labels" over
+  `cifar10_half{0,1}.h5`, which are not here (they read as fill values;
+  chip_smoke.py and the tests write them from the CIFAR-10 shard);
+- `external.h5` over `external_0.bin` and `external_1.bin` (raw data in
+  external files, named relative to it);
+- `szip.h5`: szip chunks, NN and EC, int8 to int32 and float32 in both
+  byte orders, 24- and 12-bit integers, edge chunks; `cifar10_szip.h5`:
+  a CIFAR-10 shard through szip.
+`hdf5/digests.json` holds, for each dataset of each file, the sha256 of
+its elements, its dtype and its shape as h5py read them (a reference by
+its object's name: `dereferencer`). `tests/torch_port_hdf5_fixtures.py`
+writes both (it needs h5py); `check_hdf5_fixtures` reads every file with
+the port's reader (no h5py) and holds each dataset to its digest.
 
 `jpeg/` holds small JPEGs of every kind the JPEG loader's decoder
 (`convnet_tpu_torch/native/jpeg_decode.h`) covers: 4:4:4, 4:2:2 and 4:2:0,
@@ -30,9 +50,10 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import struct
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -47,32 +68,55 @@ JPEG_DIR = Path(__file__).resolve().parent / "jpeg"
 JPEG_DIGESTS = JPEG_DIR / "digests.json"
 
 
-def _update(h, arr: np.ndarray):
+def _update(h, arr: np.ndarray, deref: Optional[Callable] = None):
     if arr.dtype.names:  # field by field, so that padding bytes do not count
         for name in arr.dtype.names:
-            _update(h, arr[name])
+            _update(h, arr[name], deref)
     elif arr.dtype.hasobject:
         for x in arr.reshape(-1):
-            b = x if isinstance(x, bytes) else np.ascontiguousarray(x).tobytes()
+            b = None if deref is None else deref(x)
+            if b is None and isinstance(x, np.ndarray) and x.dtype.hasobject:
+                b = bytes.fromhex(digest(x, deref))  # a sequence of references
+            elif b is None:
+                b = x if isinstance(x, bytes) else np.ascontiguousarray(x).tobytes()
             h.update(struct.pack("<Q", len(b)))
             h.update(b)
     else:
         h.update(np.ascontiguousarray(arr).tobytes())
 
 
-def digest(arr) -> str:
+def digest(arr, deref: Optional[Callable] = None) -> str:
     """The sha256 of an array's elements: their bytes in C order, a
     structured array's field by field; an object array's elements each as
-    its bytes (a bytes object, or an array's C-order bytes) after its
-    length as 8 little-endian bytes."""
+    its bytes (a bytes object, an array's C-order bytes, a reference's
+    `deref` bytes, an object array's digest) after its length as 8
+    little-endian bytes."""
     h = hashlib.sha256()
-    _update(h, np.asarray(arr))
+    _update(h, np.asarray(arr), deref)
     return h.hexdigest()
 
 
-def describe(arr) -> Dict:
+def describe(arr, deref: Optional[Callable] = None) -> Dict:
     arr = np.asarray(arr)
-    return {"sha256": digest(arr), "dtype": str(arr.dtype), "shape": list(arr.shape)}
+    return {"sha256": digest(arr, deref), "dtype": str(arr.dtype), "shape": list(arr.shape)}
+
+
+def dereferencer(f, reference: type, region: type) -> Callable:
+    """`deref` for a file `f` whose references are of class `reference`
+    (region references `region`), h5py's or the port's alike: a
+    reference's bytes are its object's name, a region reference's that
+    and the digest of what it selects, a null one's none; None for a
+    value that is not a reference."""
+
+    def deref(x) -> Optional[bytes]:
+        if not isinstance(x, reference):
+            return None
+        if not x:
+            return b""
+        obj = f[x]
+        return (obj.name or "").encode() + (digest(obj[x]).encode() if isinstance(x, region) else b"")
+
+    return deref
 
 
 def datasets(group, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -90,25 +134,42 @@ def datasets(group, prefix: str = "") -> Iterator[Tuple[str, object]]:
 
 def check_hdf5_fixtures() -> Tuple[int, int, List[str]]:
     """Every committed fixture read with the port's reader: (datasets
-    checked, bytes of their elements, what differs from the digests)."""
+    checked, bytes of their elements, what differs from the digests).
+    External raw data files are named relative to the file that names
+    them, so they are read with HDF5_EXTFILE_PREFIX="${ORIGIN}" (the
+    variable is restored after)."""
     from convnet_tpu_torch import hdf5
 
     want = json.loads(HDF5_DIGESTS.read_text())
     count, nbytes, problems = 0, 0, []
-    for name, entries in want.items():
-        with hdf5.File(HDF5_DIR / name) as f:
-            got = {}
-            for path, ds in datasets(f):
-                arr = np.asarray(ds[()])
-                got[path] = describe(arr)
-                nbytes += arr.nbytes
-            if list(got) != list(entries):
-                problems.append(f"{name}: datasets {list(got)}, digests of {list(entries)}")
-            for path, entry in entries.items():
-                count += 1
-                if got.get(path) != entry:
-                    problems.append(f"{name}{path}: read {got.get(path)}, digest {entry}")
+    before = os.environ.get("HDF5_EXTFILE_PREFIX")
+    os.environ["HDF5_EXTFILE_PREFIX"] = "${ORIGIN}"
+    try:
+        for name, entries in want.items():
+            count, nbytes = _check_hdf5_file(hdf5, name, entries, count, nbytes, problems)
+    finally:
+        if before is None:
+            del os.environ["HDF5_EXTFILE_PREFIX"]
+        else:
+            os.environ["HDF5_EXTFILE_PREFIX"] = before
     return count, nbytes, problems
+
+
+def _check_hdf5_file(hdf5, name: str, entries: Dict, count: int, nbytes: int, problems: List[str]):
+    with hdf5.File(HDF5_DIR / name) as f:
+        deref = dereferencer(f, hdf5.Reference, hdf5.RegionReference)
+        got = {}
+        for path, ds in datasets(f):
+            arr = np.asarray(ds[()])
+            got[path] = describe(arr, deref)
+            nbytes += arr.nbytes
+        if list(got) != list(entries):
+            problems.append(f"{name}: datasets {list(got)}, digests of {list(entries)}")
+        for path, entry in entries.items():
+            count += 1
+            if got.get(path) != entry:
+                problems.append(f"{name}{path}: read {got.get(path)}, digest {entry}")
+    return count, nbytes
 
 
 def check_jpeg_fixtures() -> Tuple[int, int, List[str]]:

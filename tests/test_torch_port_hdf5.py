@@ -425,34 +425,20 @@ def test_extract_cli_matches_jax_over_hdf5(tmp_path, chunked):
 
 # -- what the port refuses -------------------------------------------------------
 # (libver "latest" files, version 2 object headers, lzf, fletcher32 and
-# compound types read since: tests/test_torch_port_hdf5_formats.py holds them
-# to h5py)
+# compound types read since, and szip, references, virtual datasets and
+# external raw data since: tests/test_torch_port_hdf5_formats.py holds them
+# to h5py; tests/test_torch_port_hdf5_references.py holds the other
+# refusals, the formats file the shared-message table's)
 
 
 def _unsupported(kind, f):
-    if kind == "szip":
-        f.create_dataset("x", data=np.arange(64.0), compression="szip")
-    elif kind == "object_reference":
-        f.create_dataset("t", data=np.arange(3))
-        f.create_dataset("x", data=[f["t"].ref], dtype=h5py.ref_dtype)
-    elif kind == "region_reference":
-        t = f.create_dataset("t", data=np.arange(3))
-        f.create_dataset("x", data=[t.regionref[0:2]], dtype=h5py.regionref_dtype)
-    elif kind == "virtual_dataset":
-        f.create_dataset("t", data=np.arange(6.0))
-        layout = h5py.VirtualLayout(shape=(6,), dtype="f8")
-        layout[:] = h5py.VirtualSource(f["t"])
-        f.create_virtual_dataset("x", layout)
-    elif kind == "plugin_filter":  # a chunk that says lz4 (id 32004) made it
+    if kind == "plugin_filter":  # a chunk that says lz4 (id 32004) made it
         ds = f.create_dataset("x", shape=(8,), chunks=(8,), dtype="u1", compression=32004,
                               allow_unknown_filter=True)
         ds.id.write_direct_chunk((0,), bytes(range(8)), filter_mask=0)
 
 
-@pytest.mark.parametrize("kind,named", [
-    ("szip", "szip filter"), ("object_reference", "object reference"),
-    ("region_reference", "region reference"), ("virtual_dataset", "virtual dataset"),
-    ("plugin_filter", "plugin filter id 32004")])
+@pytest.mark.parametrize("kind,named", [("plugin_filter", "plugin filter id 32004")])
 def test_unsupported_features_raise_naming_them(tmp_path, kind, named):
     path = tmp_path / f"{kind}.h5"
     with h5py.File(path, "w") as f:

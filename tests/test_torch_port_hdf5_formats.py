@@ -3,17 +3,22 @@ format that h5py writes, and so that the JAX package reads: libver
 "latest" files (superblock 2 and 3, version 2 object headers, checksums),
 groups of link messages (compact and dense; hard, soft and external links;
 creation order), dense attributes, data layout messages 1 to 4 with every
-chunk index, the lzf, fletcher32, scaleoffset and nbit filters, and the
-enum, compound, array, opaque, bitfield, variable-length and committed
+chunk index, virtual datasets, raw data in external files, the lzf,
+szip, fletcher32, scaleoffset and nbit filters, and the enum, compound,
+array, opaque, bitfield, variable-length, reference and committed
 datatypes.
 
-Each case has h5py write a file, then holds the port's read to h5py's:
-keys and their order, attributes, shapes, dtypes (their h5py metadata
-too) and values array-equal, whole and by rows (sorted, unsorted and
-repeated indices, also through np.unique as the JAX HDF5Stream takes
-them). Then the JAX package's checkpoint.load and HDF5Stream against the
-port's on the same libver "latest" files, corrupted checksums, and the
-committed fixtures read with h5py blocked.
+Each case has h5py write a file, then holds the port's read to h5py's,
+from the file's directory and from another working directory: keys and
+their order, attributes, shapes, dtypes (their h5py metadata too) and
+values array-equal, whole and by rows (sorted, unsorted and repeated
+indices, also through np.unique as the JAX HDF5Stream takes them); a
+reference by the name of the object it opens (and a region reference by
+what it selects); a read that h5py fails with OSError (external raw data
+named relative to a directory that is not the working one) fails so in
+the port too. Then the JAX package's checkpoint.load and HDF5Stream
+against the port's on the same libver "latest" files, corrupted
+checksums, and the committed fixtures read with h5py blocked.
 """
 
 import json
@@ -50,6 +55,35 @@ def _x(dtype="u1", shape=(37, 6, 10), seed=0):
 
 # -- the comparison ----------------------------------------------------------------
 
+# the files being compared (the port's, h5py's): references open in them
+_OPEN = []
+# (path, error type) of each dataset read that failed alike in both
+_FAILED_READS = []
+_REFERENCE_TYPES = {hdf5.Reference: h5py.Reference, hdf5.RegionReference: h5py.RegionReference}
+
+
+def _metadata(dtype):
+    """A dtype's metadata with the port's reference classes as h5py's."""
+    meta = dtype.metadata
+    if meta and "ref" in meta:
+        return dict(meta, ref=_REFERENCE_TYPES.get(meta["ref"], meta["ref"]))
+    return meta
+
+
+def _same_reference(got, want, what):
+    """A reference of the same kind, null where h5py's is, opening an
+    object of the same name; a region reference selecting the same."""
+    region = isinstance(want, h5py.RegionReference)
+    assert isinstance(got, hdf5.RegionReference if region else hdf5.Reference), (what, type(got))
+    assert isinstance(got, hdf5.RegionReference) == region, what
+    assert bool(got) == bool(want), what
+    if want:
+        mine, theirs = _OPEN[-1]
+        a, b = mine[got], theirs[want]
+        assert a.name == b.name, (what, a.name, b.name)
+        if region:
+            _same(a[got], b[want], f"{what} region")
+
 
 def _same(got, want, what):
     """Values as h5py gives them: the same type, and for arrays the same
@@ -57,11 +91,17 @@ def _same(got, want, what):
     if isinstance(want, h5py.Empty):
         assert got is None, what
         return
+    if isinstance(want, h5py.Reference):
+        _same_reference(got, want, what)
+        return
     assert type(got) is type(want), (what, type(got), type(want))
     if isinstance(want, (np.ndarray, np.generic)):
         assert got.shape == want.shape and got.dtype == want.dtype, (what, got.dtype, want.dtype)
-        assert got.dtype.metadata == want.dtype.metadata, (what, got.dtype.metadata)
-    if isinstance(want, np.ndarray) and want.dtype.hasobject:
+        assert _metadata(got.dtype) == want.dtype.metadata, (what, got.dtype.metadata)
+    if isinstance(want, np.ndarray) and want.dtype.names and want.dtype.hasobject:
+        for name in want.dtype.names:  # a compound holding references
+            _same(got[name], want[name], f"{what}.{name}")
+    elif isinstance(want, np.ndarray) and want.dtype.hasobject:
         for g, w in zip(got.reshape(-1), want.reshape(-1)):
             _same(g, w, what)
     elif isinstance(want, (np.ndarray, np.generic)):
@@ -107,16 +147,34 @@ def _same_tree(mine, theirs, what=""):
         else:
             assert isinstance(got, hdf5.Dataset), path
             assert got.shape == want.shape and got.dtype == want.dtype, (path, got.dtype, want.dtype)
-            assert got.dtype.metadata == want.dtype.metadata, path
+            assert _metadata(got.dtype) == want.dtype.metadata, path
             _same_attrs(got, want, path)
-            _same(got[()], want[()], path)
+            values, error = _read(got), _read(want)
+            assert values[1] is error[1], (path, values[1], error[1])
+            if error[1] is not None:
+                _FAILED_READS.append((path, error[1]))
+                continue
+            _same(values[0], error[0], path)
             if want.ndim and want.shape[0]:
                 _same_rows(got, want, path)
 
 
+def _read(ds):
+    """(the dataset's elements, None), or (None, OSError) where reading
+    fails so, as h5py's does for external raw data it cannot open."""
+    try:
+        return ds[()], None
+    except OSError:
+        return None, OSError
+
+
 def _same_file(path):
     with hdf5.File(path) as mine, h5py.File(path, "r") as theirs:
-        _same_tree(mine, theirs)
+        _OPEN.append((mine, theirs))
+        try:
+            _same_tree(mine, theirs)
+        finally:
+            _OPEN.pop()
         return mine._reader.mm[mine._reader.addr(0) + 8]  # the superblock's version
 
 
@@ -513,24 +571,70 @@ def case_fixed_strings(d):
         f.attrs["fixed"] = np.bytes_(b"abc")
 
 
+def case_references(d):
+    """Dimension scales and labels; object and region references in
+    attributes, datasets (chunked too) and a compound."""
+    fx.write_references(d / "latest.h5")
+    fx.write_references(d / "earliest.h5", libver="earliest")  # version 1 selections
+
+
+def case_virtual_datasets(d):
+    fx.write_vds(d)
+
+
+def case_virtual_datasets_earliest(d):
+    """Version 1 and 2 selections in the mappings."""
+    fx.write_vds(d, libver="earliest")
+
+
+def case_virtual_dataset_sources_missing(d):
+    """The CIFAR-10 virtual shard without its halves, then with one."""
+    fx.write_cifar_vds(d / "vds.h5", rows=16)
+    images, labels = fx.cifar_images(8)
+    with h5py.File(d / "cifar10_half1.h5", "w") as f:
+        f.create_dataset("data", data=images)
+        f.create_dataset("labels", data=labels)
+
+
+def case_external_raw_data(d):
+    fx.write_external(d)
+
+
+def case_szip(d):
+    fx.write_szip(d / "f.h5")
+    fx.write_cifar_szip(d / "cifar.h5", rows=8)
+
+
 def case_committed_fixtures(d):
     """The committed fixtures themselves, beside their external link's
-    target."""
-    for name in ("formats_latest.h5", "cifar10_mean_latest.h5", "cifar10_train_latest.h5",
-                 "checkpoint_latest.h5"):
-        shutil.copy(testdata.HDF5_DIR / name, d / name)
+    target, their virtual datasets' sources and their external raw data."""
+    for p in testdata.HDF5_DIR.iterdir():
+        if p.suffix in (".h5", ".bin"):
+            shutil.copy(p, d / p.name)
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_reads_as_h5py_reads(tmp_path, case):
+def test_reads_as_h5py_reads(tmp_path, monkeypatch, case):
+    """Each file read from its own directory and from another: where
+    external raw data is named relative to the working directory, h5py's
+    reads fail from the other, and the port's must fail alike."""
     CASES[case](tmp_path)
-    versions = {p.name: _same_file(p) for p in sorted(tmp_path.glob("*.h5"))}
+    elsewhere = tmp_path / "elsewhere"
+    elsewhere.mkdir()
+    failed = {}
+    for cwd in (tmp_path, elsewhere):
+        monkeypatch.chdir(cwd)
+        _FAILED_READS.clear()
+        versions = {p.name: _same_file(p) for p in sorted(tmp_path.glob("*.h5"))}
+        failed[cwd.name] = sorted({path for path, _ in _FAILED_READS})
     assert versions
     if case in ("superblock_3", "superblock_2"):
         assert set(versions.values()) == {int(case[-1])}
+    external = ["/rows", "/two_slots"] if case in ("external_raw_data", "committed_fixtures") else []
+    assert failed == {tmp_path.name: [], "elsewhere": external}
 
 
 def test_dense_storage_and_indexes_are_the_ones_meant(tmp_path):
@@ -708,12 +812,13 @@ def test_jax_hdf5_stream_reads_the_fixture_formats_alike(tmp_path):
 
 
 def test_fixture_digests_are_h5pys():
-    """digests.json says what h5py reads from each committed fixture, which
-    stays under 1 MB in all."""
+    """digests.json says what h5py reads from each committed fixture (from
+    the fixtures' directory, against which the external raw data's names
+    resolve), which stays under 1 MB in all."""
     want = json.loads(testdata.HDF5_DIGESTS.read_text())
+    assert list(want) == list(fx.FIXTURES)
     for name, entries in want.items():
-        with h5py.File(testdata.HDF5_DIR / name, "r") as f:
-            assert {p: testdata.describe(ds[()]) for p, ds in testdata.datasets(f)} == entries
+        assert fx.h5py_digests(testdata.HDF5_DIR / name) == entries, name
     assert sum(p.stat().st_size for p in testdata.HDF5_DIR.iterdir()) < 1 << 20
 
 

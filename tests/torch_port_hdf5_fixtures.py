@@ -3,16 +3,18 @@ as h5py reads them:
 
     python tests/torch_port_hdf5_fixtures.py
 
-writes convnet_tpu_torch/testdata/hdf5/*.h5 and digests.json (see
-convnet_tpu_torch/testdata/__init__.py). It imports h5py, which no module
-of the port may, so it lives beside the tests; the tests
-(tests/test_torch_port_hdf5_formats.py) write the same formats with its
+writes convnet_tpu_torch/testdata/hdf5/*.h5 (and the external raw data
+files *.bin) and digests.json (see convnet_tpu_torch/testdata/__init__.py).
+It imports h5py, which no module of the port may, so it lives beside the
+tests; the tests (tests/test_torch_port_hdf5_formats.py,
+tests/test_torch_port_hdf5_references.py) write the same formats with its
 functions. Every array comes from numpy with a fixed seed.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -25,15 +27,16 @@ CIFAR_ROWS, CIFAR_SIZE, CIFAR_CLASSES = 256, 32, 10
 CHECKPOINT_EDGES = 10  # past 8 links: the root group's links are dense
 
 
-def cifar_images(n: int, seed: int = 0):
+def cifar_images(n: int, seed: int = 0, noise: int = 8):
     """n uint8 32x32x3 images and int32 labels: each image an 8x8 grid of
     4x4-pixel blocks, each block a colour of its class's palette of four
-    plus a little noise, so that LZF finds repeats in every row."""
+    plus a little noise (up to `noise` either way), so that LZF finds
+    repeats in every row."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, CIFAR_CLASSES, n).astype(np.int32)
     palettes = rng.integers(0, 256, (CIFAR_CLASSES, 4, 3))
     blocks = palettes[labels[:, None, None], rng.integers(0, 4, (n, 8, 8))]
-    blocks = np.clip(blocks + rng.integers(-8, 9, blocks.shape), 0, 255).astype(np.uint8)
+    blocks = np.clip(blocks + rng.integers(-noise, noise + 1, blocks.shape), 0, 255).astype(np.uint8)
     return blocks.repeat(4, axis=1).repeat(4, axis=2), labels
 
 
@@ -195,21 +198,228 @@ def write_formats(path, external: str):
             many.create_dataset(f"m{(i * 7) % 20:02d}", data=np.array([i], "i2"))
 
 
+# -- references, virtual datasets, external raw data, szip ---------------------------
+
+
+def write_references(path, libver="latest"):
+    """A dataset with a dimension scale attached and its axes labelled
+    (DIMENSION_LIST, a vlen of object references, on the dataset;
+    REFERENCE_LIST, a compound holding one, on the scale), and object and
+    region references in attributes and in datasets: regular and
+    irregular hyperslabs, points, all and none, a null reference of each
+    kind, a chunked reference dataset, and a compound with a reference."""
+    with h5py.File(path, "w", libver=libver) as f:
+        data = f.create_dataset("data", data=np.arange(24, dtype=np.float32).reshape(6, 4) / 3)
+        x = f.create_dataset("x", data=np.arange(6) * 1.5)
+        x.make_scale("x")
+        data.dims[0].attach_scale(x)
+        data.dims[0].label = "row"
+        data.dims[1].label = "column"
+        t = f.create_dataset("t", data=np.arange(30, dtype=">i2").reshape(5, 6))
+        g = f.create_group("g")
+        g.attrs["target"] = t.ref
+        f.attrs["group"] = g.ref
+        f.attrs["region"] = t.regionref[1:4, ::2]
+        f.attrs["refs"] = np.array([t.ref, g.ref, f.ref], dtype=h5py.ref_dtype)
+        f.create_dataset("objects", data=[t.ref, g.ref, x.ref, h5py.Reference()], dtype=h5py.ref_dtype)
+        f.create_dataset("objects_chunked", data=[data.ref, t.ref] * 5, dtype=h5py.ref_dtype,
+                         chunks=(3,), compression="gzip")
+        space = t.id.get_space()
+        space.select_hyperslab((0, 0), (2, 2))
+        space.select_hyperslab((1, 1), (3, 3), op=h5py.h5s.SELECT_OR)  # an L of blocks: flat
+        points = t.id.get_space()
+        points.select_elements(np.array([[4, 5], [0, 0], [2, 3], [0, 0]]))
+        nothing = t.id.get_space()
+        nothing.select_none()
+        regions = [t.regionref[1:3, ::2], t.regionref[[0, 2], 1:3], t.regionref[...],
+                   t.regionref[np.arange(30).reshape(5, 6) % 4 == 1], t.regionref[2],
+                   h5py.h5r.create(f.id, b"t", h5py.h5r.DATASET_REGION, space),
+                   h5py.h5r.create(f.id, b"t", h5py.h5r.DATASET_REGION, points),
+                   h5py.h5r.create(f.id, b"t", h5py.h5r.DATASET_REGION, nothing),
+                   h5py.RegionReference()]
+        f.create_dataset("regions", data=regions, dtype=h5py.regionref_dtype)
+        pair = np.dtype([("obj", h5py.ref_dtype), ("n", "<i4")])
+        f.create_dataset("pairs", data=np.array([(t.ref, 1), (g.ref, 2)], pair))
+
+
+VDS_SHARD_ROWS, VDS_COLUMNS = 12, 8
+
+
+def vds_shard(i: int) -> np.ndarray:
+    return (np.arange(VDS_SHARD_ROWS * VDS_COLUMNS).reshape(VDS_SHARD_ROWS, VDS_COLUMNS) * 3
+            + 50 * i).astype(np.uint8)
+
+
+def write_vds(directory: Path, libver="latest"):
+    """vds_shard{0,1,2}.h5 (uint8 shards of 12 x 8: the first chunked with
+    an unlimited first axis, the others contiguous) and vds.h5, whose
+    virtual datasets map them from their sibling files: "rows" stacks
+    shard 0, an unmapped band, shard 1 at every other row, and a source
+    in a file that does not exist (fill value 7); "blocks" maps part rows
+    and columns; "same_file" a dataset of its own file ("."). vds_printf.h5
+    maps vds_shard%b.h5 through an unlimited printf mapping and shard 0
+    through an unlimited strided one (h5py's low-level set_virtual)."""
+    for i in range(3):
+        with h5py.File(directory / f"vds_shard{i}.h5", "w", libver=libver) as f:
+            kw = dict(chunks=(4, VDS_COLUMNS), maxshape=(None, VDS_COLUMNS)) if i == 0 else {}
+            f.create_dataset("data", data=vds_shard(i), **kw)
+    n, c = VDS_SHARD_ROWS, VDS_COLUMNS
+    rows = h5py.VirtualLayout(shape=(4 * n + 6, c), dtype="u1")
+    rows[0:n] = h5py.VirtualSource("vds_shard0.h5", "data", shape=(n, c))
+    rows[n + 3 : 3 * n + 3 : 2] = h5py.VirtualSource("vds_shard1.h5", "data", shape=(n, c))
+    rows[3 * n + 6 :] = h5py.VirtualSource("vds_missing.h5", "data", shape=(n, c))
+    blocks = h5py.VirtualLayout(shape=(n, 2 * c), dtype="u1")
+    blocks[2:8, 3:9] = h5py.VirtualSource("vds_shard2.h5", "data", shape=(n, c))[4:10, 1:7]
+    blocks[0, :] = h5py.VirtualSource("vds_shard1.h5", "data", shape=(n, c))[0:2, :]
+    with h5py.File(directory / "vds.h5", "w", libver=libver) as f:
+        f.create_virtual_dataset("rows", rows, fillvalue=7)
+        f.create_virtual_dataset("blocks", blocks, fillvalue=255)
+        own = f.create_dataset("own", data=np.arange(40, dtype="<i4").reshape(10, 4))
+        same = h5py.VirtualLayout(shape=(5, 8), dtype="<i4")
+        same[:, 0:4] = h5py.VirtualSource(own)[0:10:2]
+        same[:, 4:8] = h5py.VirtualSource(own)[1:10:2]
+        f.create_virtual_dataset("same_file", same, fillvalue=-1)
+    with h5py.File(directory / "vds_printf.h5", "w", libver=libver) as f:
+        top = h5py.h5s.UNLIMITED
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        vspace = h5py.h5s.create_simple((n, c), (top, c))
+        vspace.select_hyperslab((1, 0), (top, 1), (n + 2, 1), (n, c))
+        dcpl.set_virtual(vspace, b"vds_shard%b.h5", b"data", h5py.h5s.create_simple((n, c)))
+        dcpl.set_fill_value(np.array(9, "u1"))
+        h5py.h5d.create(f.id, b"printf", h5py.h5t.STD_U8LE, vspace, dcpl=dcpl)
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        vspace = h5py.h5s.create_simple((n, c), (top, c))
+        vspace.select_hyperslab((2, 0), (top, 1), (3, 1), (2, c))
+        sspace = h5py.h5s.create_simple((n, c), (top, c))
+        sspace.select_hyperslab((0, 0), (1, 1), (1, 1), (top, c))
+        dcpl.set_virtual(vspace, b"vds_shard0.h5", b"data", sspace)
+        h5py.h5d.create(f.id, b"unlimited", h5py.h5t.STD_U8LE, vspace, dcpl=dcpl)
+
+
+def write_cifar_vds(path, rows: int = CIFAR_ROWS):
+    """A virtual CIFAR-10 shard: "data" and "labels" stacked from the
+    halves in cifar10_half0.h5 and cifar10_half1.h5 beside it (which the
+    fixtures do not hold: chip_smoke.py and the tests write them from the
+    CIFAR-10 fixture shard with the port's writer)."""
+    half = rows // 2
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, shape, dtype in (("data", (CIFAR_SIZE, CIFAR_SIZE, 3), "u1"), ("labels", (), "<i4")):
+            layout = h5py.VirtualLayout(shape=(rows,) + shape, dtype=dtype)
+            for i in range(2):
+                layout[i * half : (i + 1) * half] = h5py.VirtualSource(
+                    f"cifar10_half{i}.h5", name, shape=(half,) + shape)
+            f.create_virtual_dataset(name, layout)
+
+
+def write_external(directory: Path):
+    """external.h5, whose datasets' raw data lie in external_0.bin and
+    external_1.bin beside it under relative names: "two_slots" over a
+    slot of each file (the second of unlimited size, running past its
+    file's end), "rows" over three slots whose ends fall inside rows."""
+    rng = np.random.default_rng(7)
+    (directory / "external_0.bin").write_bytes(rng.integers(0, 256, 100, np.uint8).tobytes())
+    (directory / "external_1.bin").write_bytes(rng.integers(0, 256, 90, np.uint8).tobytes())
+    with h5py.File(directory / "external.h5", "w") as f:
+        f.create_dataset("two_slots", shape=(30,), dtype="<i4",
+                         external=[("external_0.bin", 8, 40), ("external_1.bin", 10, h5py.h5f.UNLIMITED)])
+        f.create_dataset("rows", shape=(6, 5), dtype=">u2",
+                         external=[("external_1.bin", 0, 14), ("external_0.bin", 3, 33),
+                                   ("external_1.bin", 40, 13)])
+
+
+def szip_dcpl(chunks, coding: int, pixels_per_block: int):
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk(chunks)
+    dcpl.set_szip(coding, pixels_per_block)
+    return dcpl
+
+
+def szip_data(dtype, shape=(23, 27), seed=11):
+    """Rows that reach every szip option: smooth ramps (split samples),
+    flat rows (zero blocks), rows of small steps (the second extension)
+    and rows of noise (blocks stored as they are)."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.integers(-40, 41, shape), 1)
+    x[4:9] = 3
+    x[10:14] = np.cumsum(rng.integers(-1, 2, (4, shape[1])), 1)
+    info = np.iinfo(dtype) if np.dtype(dtype).kind in "iu" else None
+    x[17:19] = rng.integers(info.min if info else -1000, info.max if info else 1000, (2, shape[1]))
+    if info is None:
+        return (x / 7).astype(dtype)
+    return np.clip(x + (0 if info.min < 0 else 128), info.min, info.max).astype(dtype)
+
+
+def write_szip(path):
+    """szip chunks (8 x 10 of 23 x 27: edge chunks on both axes) in NN and
+    EC modes at int8, int16, int32 and float32, little- and big-endian
+    (LSB and MSB), 8 and 16 pixels a block; a 24-bit integer (5-bit block
+    IDs) and a 12-bit one; and CIFAR-10 images at a row a chunk."""
+    nn, ec = h5py.h5z.SZIP_NN_OPTION_MASK, h5py.h5z.SZIP_EC_OPTION_MASK
+    with h5py.File(path, "w", libver="latest") as f:
+        for dtype in ("i1", "<i2", ">i2", "<i4", ">i4", "<f4", ">f4"):
+            for coding, ppb in (("nn", 8), ("ec", 16)):
+                f.create_dataset(f"{coding}_{dtype.replace('<', 'le_').replace('>', 'be_')}",
+                                 data=szip_data(dtype), chunks=(8, 10), compression="szip",
+                                 compression_opts=(coding, ppb))
+        for precision, base in ((24, h5py.h5t.STD_I32LE), (12, h5py.h5t.STD_I16BE)):
+            data = np.clip(szip_data("<i4"), -(2 ** (precision - 1)), 2 ** (precision - 1) - 1)
+            for coding, mask in (("nn", nn), ("ec", ec)):
+                low_level(f, f"{coding}_int{precision}", reduced_int(precision, 0, base), data,
+                          dcpl=szip_dcpl((8, 10), mask, 8))
+
+
+CIFAR_SZIP_ROWS = 128
+
+
+def write_cifar_szip(path, rows: int = CIFAR_SZIP_ROWS):
+    """A CIFAR-10 shard through szip (NN, 8 pixels a block): grey images
+    of four flat 16x16 quadrants, a row a chunk, and labels."""
+    images, labels = cifar_images(rows, seed=4, noise=0)
+    images = np.repeat(images[:, ::16, ::16, :1], 16, 1).repeat(16, 2).repeat(3, 3)
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("data", data=images, chunks=(1,) + images.shape[1:], compression="szip",
+                         compression_opts=("nn", 8))
+        f.create_dataset("labels", data=labels, chunks=(min(64, rows),), compression="szip")
+
+
+def h5py_digests(path) -> dict:
+    """Each dataset's digest as h5py reads it, references by their
+    objects' names (testdata.dereferencer), read from the file's
+    directory, against which external raw data names resolve."""
+    from convnet_tpu_torch.testdata import datasets, dereferencer, describe
+
+    here = os.getcwd()
+    os.chdir(Path(path).parent)
+    try:
+        with h5py.File(Path(path).name, "r") as f:
+            deref = dereferencer(f, h5py.Reference, h5py.RegionReference)
+            return {p: describe(ds[()], deref) for p, ds in datasets(f)}
+    finally:
+        os.chdir(here)
+
+
+FIXTURES = ("cifar10_train_latest.h5", "cifar10_mean_latest.h5", "checkpoint_latest.h5",
+            "formats_latest.h5", "references_latest.h5", "references_earliest.h5",
+            "vds_shard0.h5", "vds_shard1.h5", "vds_shard2.h5", "vds.h5", "vds_printf.h5",
+            "cifar10_vds.h5", "external.h5", "szip.h5", "cifar10_szip.h5")
+
+
 def write_all(directory: Path):
     """Every fixture and digests.json, in `directory`."""
-    from convnet_tpu_torch.testdata import datasets, describe
-
     directory.mkdir(parents=True, exist_ok=True)
     images, labels = cifar_images(CIFAR_ROWS)
     write_cifar_shard(directory / "cifar10_train_latest.h5", images, labels)
     write_mean(directory / "cifar10_mean_latest.h5", images)
     write_checkpoint(directory / "checkpoint_latest.h5", *checkpoint_params())
     write_formats(directory / "formats_latest.h5", "cifar10_mean_latest.h5")
-    digests = {}
-    for name in ("cifar10_train_latest.h5", "cifar10_mean_latest.h5", "checkpoint_latest.h5",
-                 "formats_latest.h5"):
-        with h5py.File(directory / name) as f:
-            digests[name] = {p: describe(ds[()]) for p, ds in datasets(f)}
+    write_references(directory / "references_latest.h5")
+    write_references(directory / "references_earliest.h5", libver="earliest")
+    write_vds(directory)
+    write_cifar_vds(directory / "cifar10_vds.h5")
+    write_external(directory)
+    write_szip(directory / "szip.h5")
+    write_cifar_szip(directory / "cifar10_szip.h5")
+    digests = {name: h5py_digests(directory / name) for name in FIXTURES}
     (directory / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     return digests
 
