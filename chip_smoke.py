@@ -183,7 +183,11 @@ any failure raises and the script exits non-zero:
    array-equal to those over the shard, and cifar10_conv trained 10 steps
    over it alike; the get_batch host ms of a 128-row batch over the
    virtual shard and over the szip fixture shard (128 rows, a row a
-   chunk) and the ms of them spent in the filters. A JSON line holds
+   chunk) and the ms of them spent in the filters. Then the SOHM shard
+   (cifar10_sohm.h5: its first 128 rows with every message type shared,
+   as h5repack --ssize leaves a file): cifar10_conv trained 10 steps over
+   it alike, its get_batch host ms, and the seconds hdf5.File takes to
+   open it and its datasets beside the lzf shard's. A JSON line holds
    phase 8g's numbers and the card's name and power limit.
 9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
    examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
@@ -3118,6 +3122,21 @@ def batch_times(data_path: Path, mean_path: Path):
     return statistics.median(times), sum(times) / len(times), decode_ms
 
 
+def open_seconds(path: Path, calls: int = FORMAT_BATCHES) -> float:
+    """Median seconds hdf5.File takes to open `path` and its "data" and
+    "labels" datasets (their object headers read, shared messages
+    resolved), over `calls` opens, page cache warm."""
+    from convnet_tpu_torch import hdf5
+
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        with hdf5.File(path) as f:
+            f["data"], f["labels"]
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
 def check_hdf5_formats(dev, directory: Path, card):
     """Phase 8g. (a) Every committed HDF5 fixture read with hdf5.py and each
     dataset held to its digest (sha256, dtype and shape of h5py's read);
@@ -3137,8 +3156,12 @@ def check_hdf5_formats(dev, directory: Path, card):
     cifar10_vds.h5, a virtual shard over them: FORMAT_BATCHES batches of
     the template over it array-equal to those over the shard, the same
     training over it, and get_batch's host ms over it and over the szip
-    fixture shard. Returns (facts, the shard's steps' launches, the
-    virtual shard's)."""
+    fixture shard. (e) The SOHM shard (cifar10_sohm.h5: the fixture
+    shard's first 128 rows with every message type shared, filters kept):
+    the same training over it, get_batch's host ms over it, and the
+    seconds hdf5.File takes to open it and its datasets beside the lzf
+    shard's. Returns (facts, the shard's steps' launches, the virtual
+    shard's, the SOHM shard's)."""
     import shutil
 
     import numpy as np
@@ -3166,7 +3189,8 @@ def check_hdf5_formats(dev, directory: Path, card):
     read_s = time.perf_counter() - t0
     print(f"[{card}] phase 8g (a): lzf.cc and szip.cc built by g++ in {build_s:.3f} and "
           f"{szip_build_s:.3f} s; {count} datasets of the committed fixtures ({nbytes} bytes of "
-          f"elements; references, virtual datasets, external raw data and szip among them) read "
+          f"elements; references, virtual datasets, external raw data, szip, shared object header "
+          f"messages, filtered fractal heaps and non-IEEE floats among them) read "
           f"with hdf5.py, each equal to its digest of h5py's read, and the checkpoint fixture's "
           f"{len(params)} edges (dense links) through checkpoint.load, in {read_s:.3f} s")
 
@@ -3251,6 +3275,21 @@ def check_hdf5_formats(dev, directory: Path, card):
           f"{decode_ms['virtual']:.4f}), the szip shard ({szip_rows} rows, a row a chunk) "
           f"{batch_ms['szip']:.4f} (mean {mean_ms['szip']:.4f}, of which szip "
           f"{decode_ms['szip']:.4f}), the lzf shard {batch_ms['latest']:.4f}")
+    sohm = testdata.HDF5_DIR / "cifar10_sohm.h5"
+    sohm_losses, sohm_train_s, sohm_launches = train_cifar10(
+        dev, cifar_template_text(sohm, testdata.CIFAR_MEAN), "the SOHM shard")
+    batch_ms["sohm"], mean_ms["sohm"], decode_ms["sohm"] = batch_times(sohm, testdata.CIFAR_MEAN)
+    open_s = {"sohm": open_seconds(sohm), "latest": open_seconds(testdata.CIFAR_SHARD)}
+    with hdf5.File(sohm) as f:
+        sohm_rows, indexes = f["labels"].shape[0], len(f._reader._sohm)
+    print(f"[{card}] phase 8g (e): cifar10_conv trained {FORMAT_STEPS} steps over the SOHM shard "
+          f"({sohm_rows} rows, {indexes} shared-message index) in {sohm_train_s:.3f} s: losses "
+          f"{sohm_losses}, every parameter moved; launches {sohm_launches}; DataHandler.get_batch "
+          f"host ms per {BATCH}-row batch without prefetch (median of {FORMAT_BATCHES}, page cache "
+          f"warm): the SOHM shard {batch_ms['sohm']:.4f} (mean {mean_ms['sohm']:.4f}, of which the "
+          f"filters {decode_ms['sohm']:.4f}), the lzf shard {batch_ms['latest']:.4f}; hdf5.File "
+          f"open with both datasets (median of {FORMAT_BATCHES}): the SOHM shard "
+          f"{open_s['sohm']:.6f} s, the lzf shard {open_s['latest']:.6f} s")
     facts = {"fixture_datasets": count, "fixture_bytes": nbytes, "lzf_build_s": build_s,
              "szip_build_s": szip_build_s,
              "fixtures_read_s": read_s, "get_batch_ms": batch_ms, "get_batch_mean_ms": mean_ms,
@@ -3258,8 +3297,10 @@ def check_hdf5_formats(dev, directory: Path, card):
              "filters_share_latest": share, "cifar10_conv_losses": losses,
              "cifar10_conv_train_s": train_s, "launches": launches,
              "cifar10_conv_losses_virtual": vds_losses, "cifar10_conv_train_s_virtual": vds_train_s,
-             "launches_virtual": vds_launches}
-    return facts, launches, vds_launches
+             "launches_virtual": vds_launches, "open_s": open_s,
+             "cifar10_conv_losses_sohm": sohm_losses, "cifar10_conv_train_s_sohm": sohm_train_s,
+             "launches_sohm": sohm_launches}
+    return facts, launches, vds_launches, sohm_launches
 
 
 def check_remat(dev, state, jitter, batch, card):
@@ -4769,7 +4810,8 @@ def main(argv=None) -> int:
                                                                card)
         hdf5_facts, hdf5_launches = check_hdf5_path(dev, tmp8, card)
         normalize, normalize_launches = check_normalize(dev, tmp8, card)
-        formats, formats_launches, vds_launches = check_hdf5_formats(dev, tmp8, card)
+        formats, formats_launches, vds_launches, sohm_launches = check_hdf5_formats(dev, tmp8,
+                                                                                   card)
     remat = check_remat(dev, state0, train_jitter, batches8[0], card)
     print(json.dumps({"phase8": {"read_ms": cache_ms, "learning": learned,
                                  "steps_per_launch": launch, "remat": remat,
@@ -4815,9 +4857,10 @@ def main(argv=None) -> int:
              # its extract; phase 8f's eager steps over the per-channel mean
              # and std at eps x NORM_LEARN
              **rate_launches, **hdf5_launches, "hdf5_normalize_eager": normalize_launches,
-             # phase 8g: cifar10_conv's Trainer over the libver "latest" shard
-             # and over the virtual shard of its halves
+             # phase 8g: cifar10_conv's Trainer over the libver "latest" shard,
+             # over the virtual shard of its halves and over the SOHM shard
              "hdf5_latest_cifar10": formats_launches, "hdf5_vds_cifar10": vds_launches,
+             "hdf5_sohm_cifar10": sohm_launches,
              # phase 10: the pipeline bench's paths and the bench's step
              **measure_paths,
              # phase 11: the copy probe's tilings (counted in its process)

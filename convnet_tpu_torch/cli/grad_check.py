@@ -62,15 +62,22 @@ def check_graph(
     log=print,
     use_x64=False,
     tol_edges=None,
-    device="cpu",
+    device="cuda",
 ):
     """Returns (num_failures, max_rel_err). The relative error is
     cuda-convnet's: |analytic - numeric| / max(1, |analytic| + |numeric|).
+
+    device: where to check, the card unless the caller asks for the CPU;
+    a CUDA device that is not there raises RuntimeError, as the CLI's
+    --device does (never a quiet fall back to the CPU).
 
     use_x64: check in float64 on the CPU. f32 central differences carry
     cancellation noise of about loss * 1e-7 / eps, which drowns the signal
     for large-loss models (e.g. squared-error reconstruction)."""
     device = torch.device("cpu") if use_x64 else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"check_graph: no CUDA device is available for device={str(device)!r}; "
+                           "pass device='cpu' to check on the CPU")
     dtype = torch.float64 if use_x64 else torch.float32
     tol_edges = tol_edges or {}
     rng = np.random.RandomState(seed)

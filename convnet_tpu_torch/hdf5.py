@@ -16,13 +16,20 @@ Read:
   and version 2 object headers with their continuation blocks; every
   metadata checksum (Jenkins' lookup3, as HDF5 computes it) is verified,
   and a mismatch raises OSError;
+- shared object header messages (a superblock extension's shared-message
+  table, as `h5repack --ssize` sets one): each index's fractal heap holds
+  the dataspaces, datatypes, fill values, filter pipelines and attributes
+  of its types, read where a header (or dense attribute storage) names
+  them by heap ID; each ID must be in its index's records (a list or a
+  v2 B-tree), else OSError;
 - groups: symbol tables (a v1 B-tree over SNOD nodes and a local heap),
   and link messages, held in the group's header or, past 8 links, in a
-  fractal heap indexed by a version 2 B-tree; hard, soft and external
-  links (an external file is looked for at its own path, then in the
-  directory of the file that links to it, then in the working
-  directory). Keys come in h5py's order: by name, or by creation order in
-  a group made with track_order;
+  fractal heap (its blocks and huge objects through the heap's I/O
+  filters where it has them) indexed by a version 2 B-tree; hard, soft
+  and external links (an external file is looked for at its own path,
+  then in the directory of the file that links to it, then in the
+  working directory). Keys come in h5py's order: by name, or by creation
+  order in a group made with track_order;
 - attributes in the object header or in dense storage (a fractal heap
   and a v2 B-tree), by name or, where the object tracks it, by creation
   order;
@@ -51,7 +58,10 @@ Read:
   `native/szip.cc`, built the same way), scaleoffset (integer, and float
   D-scale, to the bit as HDF5 decodes it) and nbit;
 - datatypes: integers (with h5py's mapping of a reduced precision or a
-  bit offset), IEEE floats, fixed and variable-length strings, bitfields,
+  bit offset), floats of any layout (bfloat16, a 7-bit exponent, another
+  bias, a stored leading bit, x87 long double) in the numpy float h5py
+  picks, converted to the bit as HDF5 converts them for h5py (vectorised:
+  `_convert_float`), fixed and variable-length strings, bitfields,
   opaque, enums (a FALSE/TRUE enum is np.bool_), compounds (nested, with
   h5py's names, offsets and itemsize), arrays, variable-length sequences
   (an object array of arrays), committed datatypes shared by a dataset or
@@ -59,11 +69,15 @@ Read:
   `RegionReference`; `group[ref]` opens the object under the name HDF5
   gives it, `dataset[regref]` reads the selection in h5py's shape), so
   that datasets with dimension scales open.
-Still refused with NotImplementedError naming them: shared object header
-messages (a superblock extension's shared-message table), plugin filters
-(ids from 256, lzf's 32000 apart: h5py's stock build reads none either),
-fractal heaps with I/O filters, non-IEEE floats, and HDF5 1.12's revised
-references, which h5py does not write.
+Still refused with NotImplementedError naming them, each a kind of file
+that h5py does not read or that HDF5 does not implement: plugin filters
+(ids from 256, lzf's 32000 apart: h5py's stock build reads none), HDF5
+1.12's revised references (h5py neither writes nor reads them), the
+scaleoffset filter's float E-scale (HDF5 does not implement it), VAX-order
+floats (h5py gives them no dtype), floats whose mantissa's leading bit is
+always set (HDF5 does not convert them) and floats no numpy float holds,
+integers of a size numpy has not, and structures of versions HDF5 never
+wrote.
 
 Write: superblock version 0 with 8-byte offsets and lengths, version 1
 object headers, symbol-table groups (as many SNOD leaves and B-tree levels
@@ -95,6 +109,10 @@ UNDEF = 0xFFFFFFFFFFFFFFFF  # the undefined address
 _NIL, _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_OLD, _FILL = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5
 _LINK, _EXTERNAL_FILES, _LAYOUT, _GROUP_INFO, _FILTERS, _ATTRIBUTE = 0x6, 0x7, 0x8, 0xA, 0xB, 0xC
 _SHARED_TABLE, _CONTINUATION, _SYMBOL_TABLE, _ATTRIBUTE_INFO = 0xF, 0x10, 0x11, 0x15
+# a shared-message index's bit for each message type it can hold (the old
+# fill value message's is the new one's)
+_SHAREABLE = {t: 1 << t for t in (_DATASPACE, _DATATYPE, _FILL, _FILTERS, _ATTRIBUTE)}
+_SHAREABLE[_FILL_OLD] = _SHAREABLE[_FILL]
 
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit",
                  6: "scaleoffset", 32000: "lzf", 32001: "blosc", 32004: "lz4", 32015: "zstd"}
@@ -103,8 +121,6 @@ _CLASS_NAMES = {0: "fixed-point", 1: "floating-point", 2: "time", 3: "string", 4
                 9: "variable-length", 10: "array"}
 _REFERENCE_NAMES = {0: "object reference", 1: "region reference", 2: "object reference",
                     3: "region reference", 4: "attribute reference"}
-# IEEE layouts by size: (exponent location, exponent size, mantissa size, bias)
-_IEEE = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127), 8: (52, 11, 52, 1023)}
 # HDF5's default limit on the soft and external links one lookup follows
 _MAX_LINK_HOPS = 16
 
@@ -360,6 +376,64 @@ def _nbit(raw: bytes, cd) -> bytes:
     return out.tobytes()
 
 
+def _pipeline(b: bytes) -> List[Tuple[int, Tuple[int, ...]]]:
+    """(filter id, parameters) of each filter of a filter pipeline message,
+    in the order they were applied."""
+    version, n = b[0], b[1]
+    at = 8 if version == 1 else 2
+    out = []
+    for _ in range(n):
+        fid = struct.unpack_from("<H", b, at)[0]
+        if version == 1 or fid >= 256:
+            name_len = struct.unpack_from("<H", b, at + 2)[0]
+            at += 4
+        else:
+            name_len = 0
+            at += 2
+        flags, nvals = struct.unpack_from("<HH", b, at)
+        at += 4 + (_pad8(name_len) if version == 1 else name_len)
+        vals = struct.unpack_from(f"<{nvals}I", b, at)
+        at += 4 * nvals + (4 if version == 1 and nvals % 2 else 0)
+        out.append((fid, vals))
+    return out
+
+
+def _active(filters, mask: int):
+    """The filters of a pipeline that a block went through: those whose bit
+    in its filter mask is clear."""
+    return [(fid, vals) for i, (fid, vals) in enumerate(filters) if not mask >> i & 1]
+
+
+def _defilter(raw: bytes, active, itemsize: int, size: int, where: str) -> bytes:
+    """A chunk's or a heap block's bytes through the filters it went
+    through, last first: `itemsize` the element size shuffle undoes where
+    its parameters do not say, `size` the bytes lzf gives where its
+    parameters do not say."""
+    for fid, vals in reversed(active):
+        if fid == 1:
+            raw = zlib.decompress(raw)
+        elif fid == 2:
+            width = vals[0] if vals else itemsize
+            if width > 1:  # one-byte elements shuffle to themselves
+                raw = _unshuffle(raw, width)
+        elif fid == 3:
+            raw = _unfletcher32(raw, where)
+        elif fid == 4:
+            raw = _unszip(raw, vals, where)
+        elif fid == 5:
+            raw = _nbit(raw, vals)
+        elif fid == 6:
+            raw = _scaleoffset(raw, vals, where)
+        elif fid == 32000:
+            raw = _unlzf(raw, vals[2] if len(vals) > 2 and vals[2] else size)
+        elif fid >= 256:
+            raise NotImplementedError(
+                f"{where}: plugin filter id {fid} ({_FILTER_NAMES.get(fid, 'unregistered')})")
+        else:
+            raise NotImplementedError(f"{where}: the {_FILTER_NAMES.get(fid, f'id {fid}')} filter")
+    return raw
+
+
 # -- datatypes -------------------------------------------------------------------
 
 
@@ -392,6 +466,217 @@ def _fixed_point(signed: bool, offset: int, precision: int, dtype: np.dtype) -> 
         return v.astype(dtype)
 
     return convert
+
+
+class _FloatLayout(NamedTuple):
+    """Where a float's fields lie: the sign's bit, the exponent's first bit
+    and size, the mantissa's first bit and size (all from the element's
+    least significant bit), the exponent bias, and whether the mantissa's
+    leading 1 is implied (else stored: HDF5's normalization "none")."""
+
+    sign: int
+    epos: int
+    esize: int
+    mpos: int
+    msize: int
+    bias: int
+    implied: bool
+
+
+# h5py's float dtypes, smallest first: (itemsize, precision, numpy type,
+# HDF5's layout of it, mantissa bits, numpy's maxexp and minexp); long
+# double where it is the x87 80-bit float, whose mantissa's leading 1 is
+# stored (h5py counting it among the mantissa's bits)
+_FLOAT_TARGETS = [(2, 16, np.float16, _FloatLayout(15, 10, 5, 0, 10, 15, True), 10, 16, -14),
+                  (4, 32, np.float32, _FloatLayout(31, 23, 8, 0, 23, 127, True), 23, 128, -126),
+                  (8, 64, np.float64, _FloatLayout(63, 52, 11, 0, 52, 1023, True), 52, 1024, -1022)]
+if np.finfo(np.longdouble).nmant == 63 and np.finfo(np.longdouble).nexp == 15:
+    _FLOAT_TARGETS.append((np.dtype(np.longdouble).itemsize, 80, np.longdouble,
+                           _FloatLayout(79, 64, 15, 0, 64, 16383, False), 64, 16384, -16382))
+
+_U64 = np.uint64
+_ONES = _U64(0xFFFFFFFFFFFFFFFF)
+
+
+def _mask(n) -> np.ndarray:
+    """(1 << n) - 1 for each n in 0..64, as uint64."""
+    n = np.asarray(n, np.int64)
+    return np.where(n >= 64, _ONES, (_U64(1) << np.minimum(n, 63).astype(_U64)) - _U64(1))
+
+
+def _shift(x: np.ndarray, n) -> np.ndarray:
+    """x << n for n >= 0, x >> -n for n < 0, per element; bits shifted past
+    64 are gone."""
+    n = np.asarray(n, np.int64)
+    left = np.where(n >= 64, _U64(0), x << np.clip(n, 0, 63).astype(_U64))
+    right = np.where(n <= -64, _U64(0), x >> np.clip(-n, 0, 63).astype(_U64))
+    return np.where(n >= 0, left, right)
+
+
+def _bit_length(x: np.ndarray) -> np.ndarray:
+    n = np.zeros(x.shape, np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (x >> _U64(s)) != 0
+        x = np.where(big, x >> _U64(s), x)
+        n += big * s
+    return n + (x != 0)
+
+
+def _get_bits(words: np.ndarray, pos: int, n: int) -> np.ndarray:
+    """Bits pos .. pos + n - 1 (n <= 64) of elements held as (count, 2)
+    little-endian uint64 words."""
+    lo, hi = words[:, 0], words[:, 1]
+    if pos >= 64:
+        v = hi >> _U64(pos - 64)
+    elif pos == 0:
+        v = lo
+    else:
+        v = (lo >> _U64(pos)) | (hi << _U64(64 - pos))
+    return v & _mask(n)
+
+
+def _put_bits(words: np.ndarray, value: np.ndarray, pos: int, n: int):
+    value = value & _mask(n)
+    if pos < 64:
+        words[:, 0] |= value << _U64(pos)
+        if pos + n > 64:
+            words[:, 1] |= value >> _U64(64 - pos)
+    else:
+        words[:, 1] |= value << _U64(pos - 64)
+
+
+def _convert_float(raw: np.ndarray, src: _FloatLayout, dst: _FloatLayout, dst_size: int) -> np.ndarray:
+    """Elements of layout `src` ((count, size) uint8, least significant
+    byte first) in layout `dst`, as HDF5's soft float conversion
+    (H5T__conv_f_f) gives them in one call, to the bit: zeros and
+    infinities keep their sign, a NaN becomes the NaN of all mantissa
+    bits set, a denormal source is normalized, a value below the target's
+    least denormal is zero and one above its largest is infinity; a
+    mantissa cut short rounds half up, except where that would carry the
+    largest finite exponent to infinity. HDF5's flag that a value is
+    denormal (in the source or in the target) is never cleared within a
+    call: from the first such value on, in the order the call takes them
+    (the last first where the target is wider), a rounding that carries
+    out of the mantissa loses the carry. h5py's pick of the target
+    (_float_type) cuts no mantissa short but the 64-bit one of a wide
+    float with its leading 1 implied. Returns (count, dst_size) uint8,
+    least significant byte first."""
+    count = len(raw)
+    padded = np.zeros((count, 16), np.uint8)
+    padded[:, : raw.shape[1]] = raw
+    words = padded.view("<u8")
+    sign = _get_bits(words, src.sign, 1)
+    e = _get_bits(words, src.epos, src.esize).astype(np.int64)
+    m = _get_bits(words, src.mpos, src.msize)
+    e_top = (1 << src.esize) - 1
+    zero = (m == 0) & (e == 0)
+    inf = (m == 0) & (e == e_top)
+    if not src.implied:  # only the leading bit set, the exponent all ones
+        inf |= ((m & _mask(src.msize - 1)) == 0) & (e == e_top)
+    nan = ~zero & ~inf & (e == e_top)
+
+    # the leading 1 found in the mantissa (a denormal, or a stored leading
+    # bit) or implied; `frac` the `ms` mantissa bits below it
+    explicit = (e == 0) | (not src.implied)
+    lead = _bit_length(m) - 1
+    ms = np.where(explicit, np.maximum(lead, 1), src.msize)
+    frac = np.where(explicit, m & _mask(np.maximum(lead, 0)), m)
+    expo = np.where(explicit, e - (src.bias - 1) - (src.msize - lead), e - src.bias) + dst.bias
+    d, e_max = dst.msize, (1 << dst.esize) - 1
+    mrsh = np.full(count, 0 if dst.implied else 1, np.int64)  # a stored leading bit takes a place
+    tiny = expo < -d
+    den = ~tiny & (expo <= 0)
+    over = ~tiny & ~den & (expo >= e_max)
+    mrsh = np.where(den, mrsh + 1 - expo, mrsh)
+    expo = np.where(tiny | den, 0, np.where(over, e_max, expo))
+    ms = np.where(tiny | over, 0, ms)
+    frac = np.where(tiny | over, _U64(0), frac)
+    denormal = ~zero & ~inf & ~nan & ((e == 0) | den)
+    if dst_size > raw.shape[1]:  # HDF5 widens in place from the last element back
+        denormal = np.logical_or.accumulate(denormal[::-1])[::-1]
+    else:
+        denormal = np.logical_or.accumulate(denormal)
+
+    # rounding: `cut` low bits go; the first of them set rounds up
+    cut_short = (ms > 0) & (mrsh <= d) & (mrsh + ms > d)
+    cut = np.where(cut_short, mrsh + ms - d, 1)
+    kept_bits = np.where(cut_short, ms - cut, 0)
+    field = _shift(frac, -(cut - 1))  # the first bit cut, then the bits kept
+    kept = field >> _U64(1)
+    up = cut_short & ((field & _U64(1)) == 1) & (
+        denormal | (kept != _mask(kept_bits)) | (expo < e_max - 1))
+    wraps = up & (field == _mask(kept_bits + 1))
+    carry = wraps & ~denormal
+    kept = np.where(wraps, _U64(0), np.where(up, (field + _U64(1)) >> _U64(1), kept)) & _mask(kept_bits)
+    frac = np.where(cut_short, kept, frac)
+    ms = np.where(cut_short, kept_bits, ms)
+    implied = np.where(carry, _U64(2), _U64(1))
+
+    # the mantissa: the leading 1 (or, after a carry, 10) shifted in where
+    # the value is denormal in the target, then the fraction's bits
+    top = np.where(mrsh > 0, _shift(implied, d - mrsh), _U64(0))
+    low = _shift(frac, np.where(mrsh + ms >= d, -(mrsh + ms - d), d - mrsh - ms))
+    mant = (top | low) & _mask(d)
+    mant = np.where(mrsh == d, implied & _mask(min(2, d)), mant)
+    mant = np.where(mrsh == d + 1, _U64(1), mant)
+    mant = np.where(mrsh > d + 1, _U64(0), mant)
+    expo = np.where(carry, expo + 1, expo)
+    over = carry & (expo >= e_max)
+    expo = np.where(over, e_max, expo)
+    mant = np.where(over, _U64(0), mant)
+
+    mant = np.where(zero, _U64(0), mant)
+    expo = np.where(zero, 0, expo)
+    mant = np.where(inf, _U64(0 if dst.implied else 1 << (d - 1)), mant)
+    mant = np.where(nan, _mask(d), mant)
+    expo = np.where(inf | nan, e_max, expo)
+    out = np.zeros((count, 2), "<u8")
+    _put_bits(out, mant, dst.mpos, d)
+    _put_bits(out, expo.astype(_U64), dst.epos, dst.esize)
+    _put_bits(out, sign, dst.sign, 1)
+    return out.view(np.uint8)[:, :dst_size]
+
+
+def _float_type(where: str, version: int, size: int, bits: int, offset: int, precision: int,
+                epos: int, esize: int, mpos: int, msize: int, bias: int) -> _Type:
+    """A floating-point datatype, in the numpy float h5py picks for it (the
+    smallest no smaller than the element that holds its mantissa and its
+    exponent's range): as it is where the layouts are the same, else
+    converted as HDF5 converts it for h5py (_convert_float). The VAX
+    order bit counts from datatype message version 3, as HDF5 reads it:
+    before, the order is the first bit's alone."""
+    order = ">" if bits & 0x01 else "<"
+    norm, sign, pads = (bits >> 4) & 0x03, (bits >> 8) & 0xFF, (bits >> 1) & 0x07
+    if version >= 3 and bits & 0x40:
+        if not bits & 0x01:
+            raise OSError(f"{where}: a float datatype of a bad byte order")
+        raise NotImplementedError(f"{where}: VAX-order float (h5py gives VAX order no dtype, so it "
+                                  "reads none)")
+    if norm == 3:
+        raise OSError(f"{where}: a float datatype of the reserved normalization 3")
+    if norm == 1:
+        raise NotImplementedError(f"{where}: a float whose mantissa's leading bit is always set "
+                                  "(HDF5 converts no such float)")
+    for tsize, tprec, ftype, layout, nmant, maxexp, minexp in _FLOAT_TARGETS:  # h5py's pick
+        if (tsize >= size and msize <= nmant and 2**esize - bias - 1 <= maxexp
+                and 1 - bias >= minexp):
+            break
+    else:
+        raise NotImplementedError(f"{where}: a {size}-byte float of a {esize}-bit exponent and a "
+                                  f"{msize}-bit mantissa, which no numpy float holds (h5py reads "
+                                  "none)")
+    src = _FloatLayout(sign, epos, esize, mpos, msize, bias, norm == 2)
+    dtype = np.dtype(ftype).newbyteorder(order)
+    if (src, size, precision, offset, pads) == (layout, tsize, tprec, 0, 0):
+        return _Type(dtype)  # HDF5 converts nothing: the bytes as stored
+
+    def convert(arr, r, decode):
+        raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8).reshape(-1, size)
+        out = _convert_float(raw[:, ::-1] if order == ">" else raw, src, layout, tsize)
+        out = np.ascontiguousarray(out[:, ::-1] if order == ">" else out)
+        return out.view(dtype).reshape(arr.shape)
+
+    return _Type(dtype, np.dtype(f"V{size}"), convert)
 
 
 def _array_type(base: _Type, dims) -> _Type:
@@ -666,6 +951,19 @@ class _ExternalLink(NamedTuple):
     path: str
 
 
+class _SharedIndex(NamedTuple):
+    """An index of the shared-message table: `kind` 0 a list, 1 a v2
+    B-tree; `mask` the message types it holds (_SHAREABLE's bits); the
+    addresses of the index and of its messages' fractal heap; the number
+    of messages it holds."""
+
+    kind: int
+    mask: int
+    index: int
+    heap: int
+    count: int
+
+
 class _LinkTable(NamedTuple):
     """A group stored with link messages: the messages in its header, and
     its link info message (None in a group without one)."""
@@ -677,12 +975,17 @@ class _LinkTable(NamedTuple):
 class _FractalHeap:
     """A fractal heap (FRHP): its objects by heap ID. Managed objects lie in
     direct blocks (FHDB) under a tree of indirect blocks (FHIB), tiny ones
-    inside their ID, huge ones in blocks of their own."""
+    inside their ID, huge ones in blocks of their own. A heap with I/O
+    filters keeps each direct block and each huge object filtered: the
+    header holds the root direct block's filtered size and filter mask,
+    an indirect block each direct block's, and a huge object's ID (or its
+    B-tree record) its own."""
 
     def __init__(self, r: "_Reader", addr: int):
         self.r = r
         O, L, mm = r.O, r.L, r.mm
         pos = r.block(addr, b"FRHP", "fractal heap header")
+        self.where = f"{r.path}: the fractal heap at {addr}"
         self.id_len, filter_len = struct.unpack_from("<HH", mm, pos + 5)
         flags = mm[pos + 9]
         max_managed = r.u(pos + 10, 4)
@@ -694,8 +997,12 @@ class _FractalHeap:
         self.root = r.u(p + 6 + 2 * L, O)
         self.root_rows = r.u(p + 6 + 2 * L + O, 2)
         end = p + 8 + 2 * L + O
+        self.filters: List[Tuple[int, Tuple[int, ...]]] = []
+        self.root_filtered = (0, 0)  # a filtered root direct block's size and filter mask
         if filter_len:
-            raise NotImplementedError(f"{r.path}: a fractal heap with I/O filters at {addr}")
+            self.root_filtered = (r.u(end, L), r.u(end + L, 4))
+            self.filters = _pipeline(bytes(mm[end + L + 4 : end + L + 4 + filter_len]))
+            end += L + 4 + filter_len
         r.verify(pos, end, "fractal heap header")
         self.checksummed = bool(flags & 0x02)
         self.off_size = (self.max_bits + 7) // 8
@@ -703,7 +1010,9 @@ class _FractalHeap:
         # block, or within the largest managed object, whichever is shorter
         self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, _enc_size(max_managed))
         self.direct_rows = (self.max_direct.bit_length() - self.start.bit_length()) + 2
-        self._blocks: Optional[List[Tuple[int, int, int]]] = None  # (heap offset, address, size)
+        # (heap offset, address, size, filtered size, filter mask) of each direct block
+        self._blocks: Optional[List[Tuple[int, int, int, int, int]]] = None
+        self._images: Dict[int, bytes] = {}  # filtered direct blocks, decoded and verified
         self._verified: set = set()
 
     def _row_size(self, row: int) -> int:
@@ -718,25 +1027,84 @@ class _FractalHeap:
             for _ in range(self.width):
                 child = r.u(p, r.O)
                 p += r.O
+                direct = row < self.direct_rows
+                filtered = (0, 0)
+                if direct and self.filters:
+                    filtered = (r.u(p, r.L), r.u(p + r.L, 4))
+                    p += r.L + 4
                 if not r.undefined(child):
-                    if row < self.direct_rows:
-                        out.append((offset, child, size))
+                    if direct:
+                        out.append((offset, child, size) + filtered)
                     else:  # an indirect block as wide as this row's block
                         child_rows = size.bit_length() - (self.start * self.width).bit_length() + 1
                         self._walk(child, child_rows, offset, out)
                 offset += size
         r.verify(pos, p, "fractal heap indirect block")
 
-    def _direct_blocks(self) -> List[Tuple[int, int, int]]:
+    def _direct_blocks(self) -> List[Tuple[int, int, int, int, int]]:
         if self._blocks is None:
             blocks: list = []
             if not self.r.undefined(self.root):
                 if self.root_rows == 0:
-                    blocks.append((0, self.root, self.start))
+                    blocks.append((0, self.root, self.start) + self.root_filtered)
                 else:
                     self._walk(self.root, self.root_rows, 0, blocks)
             self._blocks = sorted(blocks)
         return self._blocks
+
+    def _unfilter(self, addr: int, stored: int, mask: int, size: int) -> bytes:
+        """The `stored` bytes at `addr` through the heap's filters that the
+        mask leaves on: `size` bytes."""
+        pos = self.r.addr(addr)
+        raw = _defilter(bytes(self.r.mm[pos : pos + stored]), _active(self.filters, mask), 1, size,
+                        self.where)
+        if len(raw) != size:
+            raise OSError(f"{self.where}: a filtered block of {len(raw)} bytes where {size} were due")
+        return raw
+
+    def _image(self, addr: int, size: int, stored: int, mask: int) -> Tuple[object, int]:
+        """A direct block's bytes and where they start in them: the file's
+        map where the block is stored as it is, its decoded bytes where it
+        went through the heap's filters; its checksum verified once."""
+        r = self.r
+        if self.filters:
+            if addr not in self._images:
+                self._images[addr] = self._unfilter(addr, stored, mask, size)
+            buf, pos = self._images[addr], 0
+        else:
+            buf, pos = r.mm, r.addr(addr)
+        if buf[pos : pos + 4] != b"FHDB":
+            raise OSError(f"{r.path}: no fractal heap direct block at {addr}")
+        if self.checksummed and addr not in self._verified:
+            at = pos + 5 + r.O + self.off_size  # the checksum, zeroed for its own sum
+            image = bytes(buf[pos:at]) + b"\0\0\0\0" + bytes(buf[at + 4 : pos + size])
+            if lookup3(image) != _le(buf, at, 4):
+                raise OSError(f"{r.path}: fractal heap direct block at {addr}: checksum mismatch")
+            self._verified.add(addr)
+        return buf, pos
+
+    def _huge(self, hid: bytes) -> bytes:
+        """A huge object: its address and stored length (for a filtered
+        heap also its filter mask and its size unfiltered) in its ID where
+        the ID is long enough, else in the v2 B-tree record under the ID's
+        key."""
+        r, O, L = self.r, self.r.O, self.r.L
+        fields = O + L + (4 + L if self.filters else 0)
+        if fields <= self.id_len - 1:
+            rec, at = hid, 1
+        else:
+            key = _le(hid, 1, min(self.id_len - 1, 8))
+            for rec in r.btree2(self.huge_btree):
+                if _le(rec, fields, L) == key:
+                    at = 0
+                    break
+            else:
+                raise OSError(f"{r.path}: huge heap object {key} not found")
+        addr, length = _le(rec, at, O), _le(rec, at + O, L)
+        if self.filters:
+            return self._unfilter(addr, length, _le(rec, at + O + L, 4), _le(rec, at + O + L + 4, L))
+        pos = r.addr(addr)
+        return bytes(r.mm[pos : pos + length])
 
     def get(self, hid: bytes) -> bytes:
         r = self.r
@@ -746,36 +1114,19 @@ class _FractalHeap:
                 return bytes(hid[1 : 2 + (hid[0] & 0x0F)])
             return bytes(hid[2 : 3 + (((hid[0] & 0x0F) << 8) | hid[1])])
         if kind == 1:  # huge: a block of its own
-            if r.O + r.L <= self.id_len - 1:
-                addr, length = _le(hid, 1, r.O), _le(hid, 1 + r.O, r.L)
-            else:
-                key = _le(hid, 1, min(self.id_len - 1, 8))
-                for rec in r.btree2(self.huge_btree):
-                    if _le(rec, r.O + r.L, r.L) == key:
-                        addr, length = _le(rec, 0, r.O), _le(rec, r.O, r.L)
-                        break
-                else:
-                    raise OSError(f"{r.path}: huge heap object {key} not found")
-            pos = r.addr(addr)
-            return bytes(r.mm[pos : pos + length])
+            return self._huge(hid)
         if kind != 0:
             raise OSError(f"{r.path}: heap ID of type {kind}")
         offset = _le(hid, 1, self.off_size)
         length = _le(hid, 1 + self.off_size, self.len_size)
         blocks = self._direct_blocks()
-        i = bisect.bisect_right(blocks, (offset, UNDEF, UNDEF)) - 1
+        i = bisect.bisect_right(blocks, (offset, UNDEF, UNDEF, UNDEF, UNDEF)) - 1
         if i < 0 or offset + length > blocks[i][0] + blocks[i][2]:
             raise OSError(f"{r.path}: heap offset {offset} is in no direct block")
-        start, addr, size = blocks[i]
-        pos = r.block(addr, b"FHDB", "fractal heap direct block")
-        if self.checksummed and addr not in self._verified:
-            at = pos + 5 + r.O + self.off_size  # the checksum, zeroed for its own sum
-            image = bytes(r.mm[pos:at]) + b"\0\0\0\0" + bytes(r.mm[at + 4 : pos + size])
-            if lookup3(image) != r.u(at, 4):
-                raise OSError(f"{r.path}: fractal heap direct block at {addr}: checksum mismatch")
-            self._verified.add(addr)
+        start, addr, size, stored, mask = blocks[i]
+        buf, pos = self._image(addr, size, stored, mask)
         at = pos + offset - start
-        return bytes(r.mm[at : at + length])
+        return bytes(buf[at : at + length])
 
 
 class _Reader:
@@ -793,6 +1144,8 @@ class _Reader:
         self.mm = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
         self._gheaps: Dict[int, Dict[int, bytes]] = {}
         self._heaps: Dict[int, _FractalHeap] = {}
+        self._sohm: List[_SharedIndex] = []  # the shared-message table's indexes
+        self._sohm_ids: Dict[int, set] = {}
         self.closers: List[Callable[[], None]] = []  # external raw data files' maps
         at = 0  # the superblock sits at 0 or past a user block of 512 * 2^n bytes
         while self.mm[at : at + 8] != SIGNATURE:
@@ -832,16 +1185,65 @@ class _Reader:
             self.root = self.u(at + 12 + 3 * self.O, self.O)
             self.verify(at, at + 12 + 4 * self.O, "superblock")
             if not self.undefined(extension):
-                _, msgs = self.header(extension)
-                if any(t == _SHARED_TABLE for t, _, _ in msgs):
-                    raise NotImplementedError(
-                        f"{self.path}: shared object header messages (the superblock extension "
-                        "holds a shared-message table)")
+                for t, data, _ in self.messages(extension):
+                    if t == _SHARED_TABLE:
+                        self._shared_table(data)
             return
         pos = at + (28 if version == 1 else 24)
         self.base = self.u(pos, self.O)
         root = pos + 4 * self.O  # past the base address and the three that follow it
         self.root = self.u(root + self.O, self.O)
+
+    def _shared_table(self, b: bytes):
+        """The shared-message table (SMTB) that the superblock extension's
+        message names: each index's kind (a list, SMLI, or a v2 B-tree), the
+        message types it holds, where it lies, the fractal heap of its
+        messages, and its message count."""
+        if b[0] != 0:
+            raise NotImplementedError(f"{self.path}: shared object header messages (a shared-message "
+                                      f"table message of version {b[0]})")
+        O, addr = self.O, _le(b, 1, self.O)
+        pos = self.block(addr, b"SMTB", "shared-message table")
+        p = pos + 4
+        for _ in range(b[1 + O]):
+            version, kind, mask = self.mm[p], self.mm[p + 1], self.u(p + 2, 2)
+            if version != 0 or kind > 1:
+                raise NotImplementedError(f"{self.path}: shared object header messages (an index "
+                                          f"of version {version}, type {kind})")
+            self._sohm.append(_SharedIndex(kind, mask, self.u(p + 14, O), self.u(p + 14 + O, O),
+                                           self.u(p + 12, 2)))
+            p += 14 + 2 * O
+        self.verify(pos, p, "shared-message table")
+
+    def _shared_ids(self, i: int) -> set:
+        """The heap IDs of the messages that shared-message index i holds in
+        its heap: its list's records (checksummed) or its B-tree's; each
+        record a location (0: the heap), a hash, a reference count and the
+        heap ID, or, for a message kept in an object header, where."""
+        if i not in self._sohm_ids:
+            ix = self._sohm[i]
+            size = 5 + max(12, 4 + self.O)
+            if ix.kind == 0:
+                pos = self.block(ix.index, b"SMLI", "shared-message list")
+                end = pos + 4 + ix.count * size
+                self.verify(pos, end, "shared-message list")
+                records = [self.mm[p : p + size] for p in range(pos + 4, end, size)]
+            else:
+                records = list(self.btree2(ix.index))
+            self._sohm_ids[i] = {bytes(rec[9:17]) for rec in records if rec[0] == 0}
+        return self._sohm_ids[i]
+
+    def shared_heap_message(self, mtype: int, hid: bytes) -> bytes:
+        """The message of type `mtype` stored under heap ID `hid` in the
+        heap of the shared-message index that holds that type."""
+        for i, ix in enumerate(self._sohm):
+            if ix.mask & _SHAREABLE.get(mtype, 0):
+                if bytes(hid) not in self._shared_ids(i):
+                    raise OSError(f"{self.path}: a shared message of type {mtype:#x} under a heap "
+                                  f"ID ({bytes(hid).hex()}) that its index does not hold")
+                return self.heap(ix.heap).get(hid)
+        raise OSError(f"{self.path}: a message of type {mtype:#x} in the shared-message heap, "
+                      "which no shared-message index holds")
 
     # -- primitives
 
@@ -922,16 +1324,16 @@ class _Reader:
 
     def shared(self, mtype: int, b: bytes) -> bytes:
         """The message of type `mtype` that a shared message points to: the
-        one in a committed object's header."""
+        one in a committed object's header, or in the shared-message heap
+        (a dataspace, datatype, fill value, filter pipeline or attribute
+        that the file's shared-message table shares)."""
         version, kind = b[0], b[1]
         if version == 1:  # a symbol-table entry: the name's offset, then the address
             at = 8 + self.L
         elif version == 2 or (version == 3 and kind == 2):
             at = 2
-        elif version == 3 and kind == 1:
-            raise NotImplementedError(
-                f"{self.path}: shared object header messages (a message of type {mtype:#x} in the "
-                "shared-message heap)")
+        elif version == 3 and kind == 1:  # in the shared-message heap
+            return self.shared_heap_message(mtype, b[2:10])
         else:
             raise NotImplementedError(f"{self.path}: shared message version {version}, type {kind}")
         target = _le(b, at, self.O)
@@ -960,13 +1362,7 @@ class _Reader:
             return _Type(dtype, f"{order}u{size}",
                          _fixed_point(kind == "i", offset, precision, dtype)), 12
         if cls == 1:  # floating-point
-            if bits & 0x40:
-                raise NotImplementedError(f"{self.path}: VAX-order float")
-            offset, precision, eloc, esize, mloc, msize, bias = struct.unpack_from("<HHBBBBI", b, p)
-            if _IEEE.get(size) != (eloc, esize, msize, bias) or offset or mloc or precision != 8 * size:
-                raise NotImplementedError(
-                    f"{self.path}: {size}-byte non-IEEE float ({precision} bits at offset {offset})")
-            return _Type(np.dtype(f"{order}f{size}")), 20
+            return _float_type(self.path, version, size, bits, *struct.unpack_from("<HHBBBBI", b, p)), 20
         if cls == 3:  # fixed-length string
             utf8 = (bits >> 4) & 0x0F == 1
             return _Type(np.dtype(f"S{size}", metadata={"h5py_encoding": "utf-8" if utf8 else "ascii"})), 8
@@ -1050,9 +1446,6 @@ class _Reader:
         if version not in (1, 2, 3):
             raise NotImplementedError(f"{self.path}: attribute message version {version}")
         flags = b[1] if version > 1 else 0
-        if flags & 0x02:
-            raise NotImplementedError(
-                f"{self.path}: shared object header messages (an attribute's shared dataspace)")
         nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
         pad = _pad8 if version == 1 else (lambda n: n)
         at = 9 if version == 3 else 8
@@ -1061,7 +1454,8 @@ class _Reader:
         tb = self.shared(_DATATYPE, b[at : at + tsize]) if flags & 0x01 else b[at : at + tsize]
         dtype, _ = self.datatype(tb)
         at += pad(tsize)
-        shape, _ = self.dataspace(b[at : at + ssize])
+        sb = self.shared(_DATASPACE, b[at : at + ssize]) if flags & 0x02 else b[at : at + ssize]
+        shape, _ = self.dataspace(sb)
         at += pad(ssize)
         if shape is None:
             return name, None
@@ -1082,10 +1476,9 @@ class _Reader:
                     continue
                 h = self.heap(heap)
                 for rec in self.btree2(btree):  # heap ID, flags, creation order, name hash
-                    if rec[8] & 0x02:
-                        raise NotImplementedError(
-                            f"{self.path}: shared object header messages (a shared attribute)")
-                    found.append((_le(rec, 9, 4),) + self.attribute(h.get(rec[:8])))
+                    # a shared attribute's heap ID is in the shared-message heap
+                    msg = self.shared_heap_message(_ATTRIBUTE, rec[:8]) if rec[8] & 0x02 else h.get(rec[:8])
+                    found.append((_le(rec, 9, 4),) + self.attribute(msg))
         found.sort(key=(lambda x: x[0]) if tracked else (lambda x: x[1].encode("utf-8")))
         return {name: value for _, name, value in found}
 
@@ -1302,7 +1695,7 @@ class _StoredLayout:
             elif mt == _LAYOUT:
                 layout = b
             elif mt == _FILTERS:
-                self.filters = self._pipeline(b)
+                self.filters = _pipeline(b)
             elif mt in (_FILL, _FILL_OLD):
                 self.fill = self._fill(mt, b)
             elif mt == _EXTERNAL_FILES:
@@ -1386,25 +1779,6 @@ class _StoredLayout:
             raise NotImplementedError(f"{self.where}: chunk index type {kind}")
         self.index = {1: "single", 2: "implicit", 3: "farray", 4: "earray", 5: "btree2"}[kind]
         self.address = _le(b, at, r.O)
-
-    def _pipeline(self, b: bytes):
-        version, n = b[0], b[1]
-        at = 8 if version == 1 else 2
-        out = []
-        for _ in range(n):
-            fid = struct.unpack_from("<H", b, at)[0]
-            if version == 1 or fid >= 256:
-                name_len = struct.unpack_from("<H", b, at + 2)[0]
-                at += 4
-            else:
-                name_len = 0
-                at += 2
-            flags, nvals = struct.unpack_from("<HH", b, at)
-            at += 4 + (_pad8(name_len) if version == 1 else name_len)
-            vals = struct.unpack_from(f"<{nvals}I", b, at)
-            at += 4 * nvals + (4 if version == 1 and nvals % 2 else 0)
-            out.append((fid, vals))
-        return out
 
     def _fill(self, t: int, b: bytes):
         """The fill value's bytes, or None for zeros."""
@@ -1672,33 +2046,6 @@ class _StoredLayout:
 
     # -- chunked: the reads
 
-    def _decode(self, raw: bytes, active) -> bytes:
-        """A chunk's bytes through the filters it went through, last first."""
-        for fid, vals in reversed(active):
-            if fid == 1:
-                raw = zlib.decompress(raw)
-            elif fid == 2:
-                width = vals[0] if vals else self.stored.itemsize
-                if width > 1:  # one-byte elements shuffle to themselves
-                    raw = _unshuffle(raw, width)
-            elif fid == 3:
-                raw = _unfletcher32(raw, self.where)
-            elif fid == 4:
-                raw = _unszip(raw, vals, self.where)
-            elif fid == 5:
-                raw = _nbit(raw, vals)
-            elif fid == 6:
-                raw = _scaleoffset(raw, vals, self.where)
-            elif fid == 32000:
-                raw = _unlzf(raw, vals[2] if len(vals) > 2 and vals[2] else self.chunk_bytes)
-            elif fid >= 256:
-                raise NotImplementedError(
-                    f"{self.where}: plugin filter id {fid} ({_FILTER_NAMES.get(fid, 'unregistered')})")
-            else:
-                raise NotImplementedError(
-                    f"{self.where}: the {_FILTER_NAMES.get(fid, f'id {fid}')} filter")
-        return raw
-
     def _chunk(self, offset: Tuple[int, ...]) -> Optional[np.ndarray]:
         """One chunk's elements, or None where none was written."""
         if self._last[0] == offset:
@@ -1708,14 +2055,15 @@ class _StoredLayout:
             return None
         addr, size, mask = entry
         dt = self.stored
-        active = [(fid, vals) for i, (fid, vals) in enumerate(self.filters) if not mask >> i & 1]
+        active = _active(self.filters, mask)
         if self.skip_edge_filters and any(o + c > n for o, c, n in zip(offset, self.chunk, self.shape)):
             active = []
         pos = self.r.addr(addr)
         if not active:
             return np.ndarray(self.chunk, dt, buffer=self.r.mm, offset=pos)
         t0 = time.perf_counter()
-        raw = self._decode(bytes(self.r.mm[pos : pos + size]), active)
+        raw = _defilter(bytes(self.r.mm[pos : pos + size]), active, dt.itemsize, self.chunk_bytes,
+                        self.where)
         count = int(np.prod(self.chunk, dtype=np.int64))
         arr = np.frombuffer(raw, dt, count=count).reshape(self.chunk + self._sub)
         self._decode_s += time.perf_counter() - t0
@@ -2365,10 +2713,11 @@ def _type_message(dtype: np.dtype) -> bytes:
     if dtype.kind in "iu" and size in (1, 2, 4, 8):
         bits = order | (0x08 if dtype.kind == "i" else 0)
         return struct.pack("<B3BIHH", 0x10, bits, 0, 0, size, 0, 8 * size)
-    if dtype.kind == "f" and size in _IEEE:
-        eloc, esize, msize, bias = _IEEE[size]
-        return struct.pack("<B3BIHHBBBBI", 0x11, 0x20 | order, 8 * size - 1, 0, size,
-                           0, 8 * size, eloc, esize, 0, msize, bias)
+    ieee = {t[0]: t[3] for t in _FLOAT_TARGETS if t[3].implied}  # half, single, double
+    if dtype.kind == "f" and size in ieee:
+        f = ieee[size]
+        return struct.pack("<B3BIHHBBBBI", 0x11, 0x20 | order, f.sign, 0, size,
+                           0, 8 * size, f.epos, f.esize, f.mpos, f.msize, f.bias)
     if dtype.kind == "S" and size:
         return struct.pack("<B3BI", 0x13, 0x00, 0, 0, size)  # null-terminated ASCII
     raise TypeError(f"dtype {dtype} is not stored: integers, IEEE floats and bytes only")

@@ -24,7 +24,25 @@ package reads through h5py and the port reads through its own
   external files, named relative to it);
 - `szip.h5`: szip chunks, NN and EC, int8 to int32 and float32 in both
   byte orders, 24- and 12-bit integers, edge chunks; `cifar10_szip.h5`:
-  a CIFAR-10 shard through szip.
+  a CIFAR-10 shard through szip;
+- shared object header messages: `sohm_list.h5` (superblock 2, two list
+  indexes: dataspaces and datatypes, then fill values, pipelines and
+  attributes), `sohm_btree.h5` (superblock 3, one index of every type
+  past its phase change to a v2 B-tree, dense attributes shared), both
+  with chunked datasets of one dataspace, datatype, fill value and
+  pipeline, a committed datatype and the same attributes on every
+  object; `cifar10_sohm.h5`: the CIFAR-10 shard's first 128 rows with
+  every message type shared, filters kept, as `h5repack --ssize` leaves
+  a file;
+- `filtered_heap.h5`: groups whose dense links lie in a fractal heap
+  through deflate (and fletcher32), under indirect blocks, with a
+  60,000-character soft link (a filtered huge object);
+- `floats.h5`: non-IEEE floats in both byte orders: every bfloat16 and
+  fp8 (e4m3) pattern, a 4-byte float of a 7-bit exponent and a 24-bit
+  mantissa, an 8-byte one of bias 1000 (long double in h5py), a stored
+  leading bit, a precision from bit 2, a float marked VAX-order in a
+  version 1 message (read big-endian), bfloat16 in a compound and an
+  attribute, and long double as numpy holds it.
 `hdf5/digests.json` holds, for each dataset of each file, the sha256 of
 its elements, its dtype and its shape as h5py read them (a reference by
 its object's name: `dereferencer`). `tests/torch_port_hdf5_fixtures.py`

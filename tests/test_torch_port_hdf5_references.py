@@ -358,17 +358,20 @@ def test_szip_chunk_that_ends_early_raises(tmp_path):
 
 
 # -- what stays refused ---------------------------------------------------------------
-# (plugin filters: tests/test_torch_port_hdf5.py; a shared-message table:
-# tests/test_torch_port_hdf5_formats.py)
+# (plugin filters: tests/test_torch_port_hdf5.py and
+# tests/test_torch_port_hdf5_shared.py, which holds the floats h5py cannot
+# read; shared-message tables, filtered fractal heaps and non-IEEE floats
+# read since: tests/test_torch_port_hdf5_shared.py)
 
 
-def _non_ieee_float(path):
-    """A 4-byte float of a 7-bit exponent (HDF5 converts on write)."""
-    t = h5py.h5t.IEEE_F32LE.copy()
-    t.set_fields(31, 24, 7, 0, 24)
-    t.set_ebias(63)
+def _three_byte_integer(path):
+    """A 3-byte integer, which h5py gives numpy's "<i3", which numpy has
+    not (HDF5 converts on write)."""
+    t = h5py.h5t.STD_I32LE.copy()
+    t.set_precision(24)
+    t.set_size(3)
     with h5py.File(path, "w") as f:
-        fx.low_level(f, "x", t, np.arange(6, dtype="<f4") / 4, mtype=h5py.h5t.NATIVE_FLOAT)
+        fx.low_level(f, "x", t, np.arange(6, dtype="<i4") - 3, mtype=h5py.h5t.NATIVE_INT32)
 
 
 def _revised_reference(path):
@@ -385,33 +388,29 @@ def _revised_reference(path):
     path.write_bytes(bytes(raw))
 
 
-def _filtered_heap(path):
-    """A group whose dense links' fractal heap goes through deflate
-    (H5Pset_deflate on its creation properties, through h5py's own
-    libhdf5, which h5py's high level does not offer)."""
-    import ctypes
-    import glob
-
-    libs = os.path.join(os.path.dirname(h5py.__file__), "..", "h5py.libs", "libhdf5-*.so*")
-    lib = ctypes.CDLL(glob.glob(libs)[0])
-    gcpl = h5py.h5p.create(h5py.h5p.GROUP_CREATE)
-    assert lib.H5Pset_deflate(ctypes.c_int64(gcpl.id), ctypes.c_uint(6)) == 0
-    with h5py.File(path, "w", libver="latest") as f:
-        g = h5py.Group(h5py.h5g.create(f.id, b"g", gcpl=gcpl))
-        for i in range(20):
-            g.create_dataset(f"d{i:02d}", data=[i])
+def _msb_set_float(path):
+    """A float whose mantissa's leading bit is always set, which HDF5 does
+    not convert for h5py ("normalization method not implemented yet")."""
+    t = fx.float_type(4, 31, 23, 8, 0, 23, 127, norm=h5py.h5t.NORM_MSBSET)
+    with h5py.File(path, "w") as f:
+        fx.low_level(f, "x", t, np.array([0x3F800000, 0x40490FDB], "<u4").view("V4"), mtype=t)
 
 
 @pytest.mark.parametrize("kind,named", [
-    ("non_ieee_float", "non-IEEE float"), ("revised_reference", "revised reference"),
-    ("filtered_heap", "fractal heap with I/O filters")])
+    ("three_byte_integer", "3-byte integer"), ("revised_reference", "revised reference"),
+    ("msb_set_float", "leading bit is always set")])
 def test_still_refused_formats_raise_naming_them(tmp_path, kind, named):
+    """Kinds of file h5py does not read either: NotImplementedError naming
+    what the file holds, where h5py's read fails too."""
     path = tmp_path / f"{kind}.h5"
-    {"non_ieee_float": _non_ieee_float, "revised_reference": _revised_reference,
-     "filtered_heap": _filtered_heap}[kind](path)
+    {"three_byte_integer": _three_byte_integer, "revised_reference": _revised_reference,
+     "msb_set_float": _msb_set_float}[kind](path)
     with pytest.raises(NotImplementedError, match=named):
         with hdf5.File(path) as f:
             for name in f:
                 item = f[name]
                 for member in (item.keys() if hasattr(item, "keys") else [None]):
                     (item[member] if member else item)[...]
+    with h5py.File(path, "r") as f, pytest.raises(Exception):
+        for name in f:
+            f[name][...]

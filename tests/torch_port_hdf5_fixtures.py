@@ -382,6 +382,250 @@ def write_cifar_szip(path, rows: int = CIFAR_SZIP_ROWS):
         f.create_dataset("labels", data=labels, chunks=(min(64, rows),), compression="szip")
 
 
+# -- shared object header messages, filtered fractal heaps, non-IEEE floats ------------
+
+
+def libhdf5():
+    """h5py's own bundled libhdf5, through ctypes, for the properties that
+    h5py does not offer (the library is the one h5py's modules loaded, so
+    property lists pass between the two by their ids)."""
+    import ctypes
+    import glob
+
+    libs = os.path.join(os.path.dirname(h5py.__file__), "..", "h5py.libs", "libhdf5-*.so*")
+    return ctypes.CDLL(glob.glob(libs)[0])
+
+
+def _set(plist, *calls):
+    """Each (function, unsigned arguments...) of libhdf5 on the property list."""
+    import ctypes
+
+    lib = libhdf5()
+    for name, *args in calls:
+        if getattr(lib, name)(ctypes.c_int64(plist.id), *(ctypes.c_uint(a) for a in args)) < 0:
+            raise RuntimeError(f"{name}{tuple(args)} failed")
+    return plist
+
+
+# a shared-message index's message types (H5O_SHMESG_*_FLAG: 1 << the type)
+SHARE_DATASPACE, SHARE_DATATYPE, SHARE_FILL, SHARE_PIPELINE, SHARE_ATTRIBUTE = (
+    1 << 0x1, 1 << 0x3, 1 << 0x5, 1 << 0xB, 1 << 0xC)
+SHARE_ALL = SHARE_DATASPACE | SHARE_DATATYPE | SHARE_FILL | SHARE_PIPELINE | SHARE_ATTRIBUTE
+
+
+def sohm_file(path, indexes=((SHARE_ALL, 8),), phase=None, libver="earliest"):
+    """An h5py File whose file creation properties hold a shared-message
+    table: (message types, minimum message size) an index, and the list's
+    phase change (the most messages a list holds, the fewest a B-tree
+    does), as `h5repack --ssize` sets them. The superblock is version 2
+    (libver "earliest": SOHM needs a superblock extension) or 3."""
+    fcpl = _set(h5py.h5p.create(h5py.h5p.FILE_CREATE), ("H5Pset_shared_mesg_nindexes", len(indexes)),
+                *(("H5Pset_shared_mesg_index", i, mask, size) for i, (mask, size) in enumerate(indexes)),
+                *([("H5Pset_shared_mesg_phase_change", *phase)] if phase else []))
+    fapl = h5py.h5p.create(h5py.h5p.FILE_ACCESS)
+    if libver == "latest":
+        fapl.set_libver_bounds(h5py.h5f.LIBVER_LATEST, h5py.h5f.LIBVER_LATEST)
+    return h5py.File(h5py.h5f.create(str(path).encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl, fapl=fapl))
+
+
+def _sohm_contents(f, rng, attrs_each: int):
+    """Datasets and groups whose messages repeat, so that the table shares
+    them: two groups of chunked datasets with one dataspace, datatype,
+    fill value and pipeline, a contiguous one, a dataset of a committed
+    datatype, and `attrs_each` attributes on each object, most of them
+    the same on every object (a shared attribute with a shared dataspace
+    and datatype), one a variable-length string."""
+    f["point"] = np.dtype([("x", "<f4"), ("n", "<i2")])
+    for gname in ("a", "b"):
+        g = f.create_group(gname)
+        for dname, comp in (("x", "gzip"), ("y", "lzf")):
+            ds = g.create_dataset(dname, data=rng.standard_normal((13, 6)).astype("<f4"), chunks=(4, 3),
+                                  compression=comp, shuffle=True, fillvalue=-1.5)
+            ds.attrs["note"] = f"{gname}/{dname}"
+        g.create_dataset("flat", data=np.arange(24, dtype=">i2").reshape(4, 6))
+        pts = np.zeros(5, f["point"].dtype)
+        pts["x"], pts["n"] = rng.standard_normal(5), np.arange(5)
+        g.create_dataset("points", data=pts, dtype=f["point"])
+    for obj in (f, f["a"], f["b"], f["a/x"], f["b/x"], f["a/points"]):
+        for i in range(attrs_each):
+            obj.attrs[f"shared{i:02d}"] = np.arange(6, dtype="<f8") * i
+        obj.attrs["scale"] = np.array([0.5, 2.0], "<f4")
+
+
+def write_sohm(directory: Path):
+    """sohm_list.h5 (superblock 2: two list indexes, dataspaces and
+    datatypes in one, fill values, pipelines and attributes in the other)
+    and sohm_btree.h5 (superblock 3: one index of every type, past its
+    phase change to a v2 B-tree, dense attributes shared)."""
+    rng = np.random.default_rng(20)
+    with sohm_file(directory / "sohm_list.h5", indexes=(
+            (SHARE_DATASPACE | SHARE_DATATYPE, 8),
+            (SHARE_FILL | SHARE_PIPELINE | SHARE_ATTRIBUTE, 8))) as f:
+        _sohm_contents(f, rng, 3)
+    with sohm_file(directory / "sohm_btree.h5", phase=(4, 2), libver="latest") as f:
+        _sohm_contents(f, rng, 10)  # past 8 attributes: dense storage
+
+
+CIFAR_SOHM_ROWS = 128
+
+
+def write_cifar_sohm(path, rows: int = CIFAR_SOHM_ROWS):
+    """The CIFAR-10 fixture shard's first `rows` rows as `h5repack --ssize`
+    leaves a file: every message type shared (one index), the layouts and
+    filters kept (a row a chunk through lzf, shuffle and fletcher32;
+    unfiltered, 128 rows would be 393 KB), and attributes on both
+    datasets and on the root."""
+    images, labels = cifar_images(CIFAR_ROWS)
+    with sohm_file(path) as f:
+        f.attrs["source"] = "cifar10_train_latest.h5"
+        for name, arr, chunk in (("data", images[:rows], 1), ("labels", labels[:rows], 64)):
+            ds = f.create_dataset(name, data=arr, maxshape=(None,) + arr.shape[1:],
+                                  chunks=(chunk,) + arr.shape[1:], compression="lzf", shuffle=True,
+                                  fletcher32=True)
+            ds.attrs["rows"] = np.int64(rows)
+            ds.attrs["source"] = "cifar10_train_latest.h5"
+
+
+def write_sohm_checkpoint(src, dst):
+    """A copy of the checkpoint `src`, every group, dataset and attribute
+    made anew in a file that shares every message type."""
+    with h5py.File(src, "r") as f, sohm_file(dst) as g:
+        def copy(a, b):
+            b.attrs.update(a.attrs)
+            for name, item in a.items():
+                if isinstance(item, h5py.Group):
+                    copy(item, b.create_group(name))
+                else:
+                    b.create_dataset(name, data=item[()]).attrs.update(item.attrs)
+        copy(f, g)
+
+
+HUGE_ATTRIBUTE = 1100  # int32 elements: past the attribute heap's 4096-byte managed objects
+
+
+def write_filtered_heap(path):
+    """Groups whose dense links lie in a fractal heap with I/O filters
+    (H5Pset_deflate, and H5Pset_fletcher32 before it, on the group's
+    creation properties; links dense from the first): "deflate" holds 150
+    links (direct blocks under indirect ones) and a soft link of 100,000
+    characters (a huge object, in the heap's B-tree, filtered);
+    "fletcher32" holds 30. Both hold 12 attributes and one of
+    HUGE_ATTRIBUTE elements (HDF5 keeps a group's attributes in a heap of
+    its own, unfiltered)."""
+    with h5py.File(path, "w", libver="latest") as f:
+        target = f.create_dataset("target", data=np.arange(5, dtype="<i4"))
+        for name, calls, links in (
+                ("deflate", [("H5Pset_deflate", 6)], 150),
+                ("fletcher32", [("H5Pset_fletcher32",), ("H5Pset_deflate", 1)], 30)):
+            gcpl = _set(h5py.h5p.create(h5py.h5p.GROUP_CREATE), *calls,
+                        ("H5Pset_link_phase_change", 0, 0))
+            g = h5py.Group(h5py.h5g.create(f.id, name.encode(), gcpl=gcpl))
+            for i in range(links):
+                g[f"link{i:03d}"] = target
+            g.create_dataset("own", data=np.arange(links, dtype="<u2"))
+            if name == "deflate":
+                g["long"] = h5py.SoftLink("/" + "x" * 60_000)
+            for i in range(12):
+                g.attrs[f"a{i:02d}"] = np.arange(i + 1, dtype="<f8")
+            g.attrs["huge"] = np.arange(HUGE_ATTRIBUTE, dtype="<i4")
+
+
+def float_type(size, sign, epos, esize, mpos, msize, bias, order="<", norm=h5py.h5t.NORM_IMPLIED,
+               offset=0, precision=None):
+    """An HDF5 float type of any layout (TypeFloatID's set_fields and
+    set_ebias): field positions from the element's least significant bit,
+    the precision bits from `offset`."""
+    t = (h5py.h5t.IEEE_F32LE if size <= 4 else h5py.h5t.IEEE_F64LE).copy()
+    if size > t.get_size():
+        t.set_size(size)
+        t.set_precision(8 * size)
+    t.set_fields(sign, epos, esize, mpos, msize)
+    t.set_precision(precision or 8 * size - offset)
+    t.set_offset(offset)
+    t.set_size(size)
+    t.set_ebias(bias)
+    t.set_norm(norm)
+    t.set_order(h5py.h5t.ORDER_BE if order == ">" else h5py.h5t.ORDER_LE)
+    return t
+
+
+# name: (size, sign, exponent position and size, mantissa position and size,
+# bias[, normalization, offset, precision])
+FLOAT_LAYOUTS = {
+    "bf16": (2, 15, 7, 8, 0, 7, 127),  # read as float32
+    "e7m24": (4, 31, 24, 7, 0, 24, 63),  # read as float64
+    "f8_bias1000": (8, 63, 52, 11, 0, 52, 1000),  # read as long double
+    "fp8_e4m3": (1, 7, 3, 4, 0, 3, 7),  # read as float16
+    "stored_lead": (4, 31, 23, 8, 0, 23, 127, h5py.h5t.NORM_NONE),  # float32, leading 1 stored
+    "offset": (4, 27, 20, 7, 0, 20, 63, h5py.h5t.NORM_IMPLIED, 2, 28),  # precision from bit 2
+}
+
+
+def float_patterns(layout, count: int, rng) -> np.ndarray:
+    """Bit patterns of a float layout, (n, size) uint8 least significant
+    byte first: every pattern of a layout of 16 bits or fewer, else ±0,
+    ±inf, NaNs, the least and largest denormals, the least normals, the
+    largest finite values, and `count` random patterns."""
+    size, sign, epos, esize, mpos, msize = layout[:6]
+    if size <= 2:
+        return np.arange(1 << (8 * size), dtype=f"<u{size}").view(np.uint8).reshape(-1, size)
+    top, mtop = (1 << esize) - 1, (1 << msize) - 1
+    special = [(e, m) for e in (0, 1, top - 1, top) for m in (0, 1, mtop >> 1, mtop)]
+    values = [(s << sign) | (e << epos) | (m << mpos) for s in (0, 1) for e, m in special]
+    raw = np.array([v.to_bytes(size, "little") for v in values], dtype=f"V{size}").view(np.uint8)
+    return np.concatenate([raw.reshape(-1, size), rng.integers(0, 256, (count, size), np.uint8)])
+
+
+def write_floats(path):
+    """Non-IEEE floats (h5py reads each in the smallest numpy float that
+    holds it, HDF5 converting): each layout of FLOAT_LAYOUTS in both byte
+    orders over float_patterns (every bf16 and fp8 pattern), chunked
+    through shuffle and deflate; a float marked VAX-order in a version 1
+    datatype message (HDF5 and h5py read it big-endian); bf16 from float32
+    values (HDF5 rounding
+    them on the way in) and as an attribute; a compound with a bf16
+    member; and long double as numpy holds it (written as it is); libver
+    "latest"."""
+    rng = np.random.default_rng(21)
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, layout in FLOAT_LAYOUTS.items():
+            raw = float_patterns(layout, 500, rng)
+            for order in "<>":
+                t = float_type(*layout[:7], order, *layout[7:])
+                data = np.ascontiguousarray(raw[:, ::-1] if order == ">" else raw)
+                data = data.view(f"V{layout[0]}").reshape(-1)
+                chunk = min(len(data), 4096)
+                dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+                dcpl.set_chunk((chunk,))
+                dcpl.set_shuffle()
+                dcpl.set_deflate(6)
+                low_level(f, f"{name}_{'le' if order == '<' else 'be'}", t, data, dcpl=dcpl, mtype=t)
+        vax = float_type(*FLOAT_LAYOUTS["e7m24"])
+        vax.set_order(h5py.h5t.ORDER_VAX)  # in a version 1 datatype message: read as big-endian
+        low_level(f, "e7m24_vax_flag", vax, float_patterns(FLOAT_LAYOUTS["e7m24"], 100, rng)
+                  .view("V4").reshape(-1), mtype=vax)
+        bf16 = float_type(*FLOAT_LAYOUTS["bf16"])
+        values = np.concatenate([rng.standard_normal(64) * 10.0 ** rng.integers(-40, 39, 64),
+                                 [np.inf, -np.inf, np.nan, 0.0, -0.0, 3.0e38, 1e-45]]).astype("<f4")
+        low_level(f, "bf16_from_float32", bf16, values, mtype=h5py.h5t.IEEE_F32LE)
+        pair = h5py.h5t.create(h5py.h5t.COMPOUND, 8)
+        pair.insert(b"x", 0, bf16)
+        pair.insert(b"n", 4, h5py.h5t.STD_I32LE)
+        rec = np.zeros(6, [("x", "<u2"), ("pad", "<u2"), ("n", "<i4")])
+        rec["x"] = [0x3F80, 0xC000, 0x7F80, 0x0081, 0x0001, 0x8000]  # no NaN: numpy compares no NaN in a record
+        rec["n"] = np.arange(6)
+        mem = h5py.h5t.create(h5py.h5t.COMPOUND, 8)
+        mem.insert(b"x", 0, bf16)
+        mem.insert(b"n", 4, h5py.h5t.STD_I32LE)
+        low_level(f, "compound_bf16", pair, rec.view("V8").reshape(-1), mtype=mem)
+        space = h5py.h5s.create_simple((4,))
+        attr = h5py.h5a.create(f.id, b"bf16", bf16, space)
+        attr.write(np.array([0x3F80, 0x4049, 0xFF80, 0x0080], "<u2").view("V2"), mtype=bf16)
+        ld = (rng.standard_normal(40) * 10.0 ** rng.integers(-300, 300, 40)).astype(np.longdouble)
+        f.create_dataset("long_double_le", data=ld)
+        f.create_dataset("long_double_be", data=ld.astype(ld.dtype.newbyteorder(">")))
+
+
 def h5py_digests(path) -> dict:
     """Each dataset's digest as h5py reads it, references by their
     objects' names (testdata.dereferencer), read from the file's
@@ -401,7 +645,8 @@ def h5py_digests(path) -> dict:
 FIXTURES = ("cifar10_train_latest.h5", "cifar10_mean_latest.h5", "checkpoint_latest.h5",
             "formats_latest.h5", "references_latest.h5", "references_earliest.h5",
             "vds_shard0.h5", "vds_shard1.h5", "vds_shard2.h5", "vds.h5", "vds_printf.h5",
-            "cifar10_vds.h5", "external.h5", "szip.h5", "cifar10_szip.h5")
+            "cifar10_vds.h5", "external.h5", "szip.h5", "cifar10_szip.h5", "sohm_list.h5",
+            "sohm_btree.h5", "cifar10_sohm.h5", "filtered_heap.h5", "floats.h5")
 
 
 def write_all(directory: Path):
@@ -419,6 +664,10 @@ def write_all(directory: Path):
     write_external(directory)
     write_szip(directory / "szip.h5")
     write_cifar_szip(directory / "cifar10_szip.h5")
+    write_sohm(directory)
+    write_cifar_sohm(directory / "cifar10_sohm.h5")
+    write_filtered_heap(directory / "filtered_heap.h5")
+    write_floats(directory / "floats.h5")
     digests = {name: h5py_digests(directory / name) for name in FIXTURES}
     (directory / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
     return digests
