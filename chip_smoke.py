@@ -34,8 +34,8 @@ any failure raises and the script exits non-zero:
    same y by the same bar (f32: rtol 1e-4, atol 3e-5 of the largest |dz|),
    db within rtol 1e-4 of a float64 sum and the same in two runs; inputs
    on a grid of halves, so window maxima tie (the count is printed). An
-   f32 conv's gradients at conv2's shape must match float64 within rtol
-   1e-5 (no TF32 in dgrad or wgrad).
+   f32 conv's output and gradients at conv2's shape must match float64
+   within rtol 1e-5 (no TF32 in dgrad or wgrad).
 3. Serving: a Predictor on full-width AlexNet (examples/imagenet/
    alexnet.pbtxt, bf16, crop 224 from 256, uint8 wire, batch 128, random
    weights from the port's seeded init, mean 0.45, scale 1/255) answers
@@ -188,7 +188,41 @@ any failure raises and the script exits non-zero:
    as h5repack --ssize leaves a file): cifar10_conv trained 10 steps over
    it alike, its get_batch host ms, and the seconds hdf5.File takes to
    open it and its datasets beside the lzf shard's. A JSON line holds
-   phase 8g's numbers and the card's name and power limit.
+   phase 8g's numbers and the card's name and power limit. (h) The example
+   models and the ImageNet data templates (about 15 s, after 8b, since it
+   needs PIL). mnist_lenet (examples/mnist/mnist_lenet.pbtxt, full width,
+   f32, batch 128): the max pool kernel at its pools (28x28x16 and
+   14x14x32, k2 s2) and at cifar10_local's ceil-mode 3x3/2 pools on 32 and
+   16 (64 channels), bit for bit as in phase 2; dropout at fc1's (128, 1,
+   1, 128) as in phase 2; conv1's one-channel f32 output and gradients
+   ((128, 28, 28, 1) -> 16, k5 p2) against float64 by phase 2's bar; 20
+   steps through the train CLI over examples/mnist/mnist_dummy_train.pbtxt
+   as it stands (a copy of the model logging every 5 steps): finite
+   losses, every parameter moved and finite, dropout 2 and step_draws 1
+   launches a step (no prologue kernel: its input is f32 at 28, one
+   channel, no crop); three steps against the plain-composed step
+   (dropout on, the same keys) with ATen's pool and again with
+   CONVNET_POOL_BACKEND=pallas (maxpool_fwd 2 a step more); its step's
+   times at 1 and 4 a launch; a Predictor at batch 1 and 64 within phase
+   3's bar of the plain forward. cifar10_local (full width, f32, batch
+   128): LOCAL at local3 and local4 (64 sites of 576 x 64 and x 32) in f32
+   against float64; 10 steps through Trainer over the CIFAR-10 template on
+   the lzf fixture shard (finite losses, every parameter moved, step_draws
+   1 a step); 4 steps as one launch of 4 replays against 4 eager steps, as
+   in 8c but under torch.use_deterministic_algorithms, where the eager
+   steps are reproducible and the replays must be array-equal to them;
+   its step's times. AlexNet (bf16, batch 128) through the train
+   CLI over examples/imagenet/imagenet_train_data.pbtxt with its three
+   paths pointed at 256 JPEGs of 500x375 (PIL), labels and compute_mean's
+   full-pixel mean of the rows the native loader decodes at raw 256
+   (hdf5.py): the reader must be "native"; 20 steps with lrn_fwd 2,
+   lrn_bwd 2, dropout 4 and step_draws 1 launches a step (a full-pixel
+   mean keeps the crop in plain PyTorch in both packages, so no
+   s2d_prologue), every parameter moved and finite, finite losses, img/s
+   over the last 10 steps and the host's stages; then fc7 through the
+   extract CLI from its checkpoint over imagenet_val_data.pbtxt, repointed
+   alike: 256 finite rows within phase 8e's bar of a Predictor's fc7 of the
+   same decoded rows. A JSON line holds phase 8h's numbers.
 9. The mesh path (convnet_tpu_torch/parallel). (a) Full-width
    examples/imagenet/alexnet_2tower.pbtxt (bf16, and again in f32, batch
    128, uint8 256x256 images with random 224 crops and flips, dropout 0.5)
@@ -452,28 +486,31 @@ def expect_bf16_close(tag, kernel, plain, ref64, kernel_to_plain) -> str:
     return msg
 
 
-def expect_served(what, graph, params, req, out, spec, mean_t, card) -> float:
-    """Phase 3's bars for one request of AlexNet's Predictor (uint8 req,
-    numpy outputs): outputs finite, of shape (n, 1000), softmax rows
-    summing to 1 within 1e-3, and the logits within 1e-2 of the largest
-    |logit| of the forward composed from the plain versions, top-1 agreeing
-    wherever the plain forward's top-2 margin is above twice that. Returns
-    the largest |logit - plain|."""
+def expect_served(what, graph, params, req, out, spec, mean_t, card, plain=None) -> float:
+    """Phase 3's bars for one request of a Predictor (uint8 req, numpy
+    outputs): outputs finite, of shape (n, classes), softmax rows summing
+    to 1 within 1e-3, and the logits within 1e-2 of the largest |logit| of
+    the forward composed from the plain versions (`plain(req on the card)`;
+    by default AlexNet's), top-1 agreeing wherever the plain forward's
+    top-2 margin is above twice that. Returns the largest |logit - plain|."""
     import numpy as np
     import torch
 
     n = len(req)
+    if plain is None:
+        def plain(x):
+            return plain_alexnet(graph, params, x, spec, mean_t)
+    with torch.inference_mode():
+        dev = next(iter(params.values()))["w"].device
+        ref = plain(torch.from_numpy(req).to(dev)).cpu().numpy()
     logits, probs = out["output:preact"], out["output"].reshape(n, -1)
-    if logits.shape != (n, 1000) or probs.shape != (n, 1000):
-        raise AssertionError(f"{what}: output shapes {logits.shape}, {probs.shape} != ({n}, 1000)")
+    if logits.shape != ref.shape or probs.shape != ref.shape:
+        raise AssertionError(f"{what}: output shapes {logits.shape}, {probs.shape} != {ref.shape}")
     if not (np.isfinite(logits).all() and np.isfinite(probs).all()):
         raise AssertionError(f"{what}: non-finite outputs")
     row_err = np.abs(probs.sum(-1) - 1.0).max()
     if row_err > 1e-3:
         raise AssertionError(f"{what}: softmax rows sum to 1 +- {row_err}")
-    with torch.inference_mode():
-        ref = plain_alexnet(graph, params, torch.from_numpy(req).to(mean_t.device), spec, mean_t)
-    ref = ref.cpu().numpy()
     # the kernel and its plain version may round a bf16 LRN output the
     # other way (1 ulp); through five bf16 layers that stays far below
     # 1e-2 of the largest logit
@@ -785,22 +822,27 @@ def check_lrn_bwd(dev, gen, card):
     return worst
 
 
-def check_dropout(dev, gen, card):
-    """The dropout kernel vs its plain version at fc6/fc7's shape: array-
-    equal; the backward's mask equals the forward's; the keep fraction
-    within 4 sigma of 0.5; another step or layer draws another mask.
-    Returns max |err| (0)."""
+def check_dropout(dev, gen, card, shape=(BATCH, 1, 1, 4096)):
+    """The dropout kernel vs its plain version at a dropout layer's output
+    (by default fc6/fc7's): array-equal; the backward's mask equals the
+    forward's; the keep fraction within 4 sigma of 0.5; another step or
+    layer draws another mask; each data rank's rows at their global element
+    offset equal the whole batch's rows. Returns max |err| (0)."""
+    import math
+
     import torch
 
     from convnet_tpu_torch.ops import dropout as drop
 
-    n = BATCH * 4096
+    n = math.prod(shape)
+    units = n // shape[0]
+    tag = ",".join(map(str, shape))
     sigma = 0.5 / n ** 0.5
     key = drop.dropout_key(0, 7, 10)
-    keep = drop.dropout_bits(n, key, device=dev).view(BATCH, 1, 1, 4096) >= drop.keep_threshold(0.5)
+    keep = drop.dropout_bits(n, key, device=dev).view(shape) >= drop.keep_threshold(0.5)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        x = (torch.rand((BATCH, 1, 1, 4096), generator=gen, device=dev) + 0.5).to(dtype)
+        x = (torch.rand(shape, generator=gen, device=dev) + 0.5).to(dtype)
         got = drop.dropout_apply(x, 0.5, key)
         want = drop.dropout_reference(x, 0.5, key)
         torch.cuda.synchronize()
@@ -814,7 +856,7 @@ def check_dropout(dev, gen, card):
             drop.dropout_apply(x, 0.5, drop.dropout_key(0, 8, 10)),
             drop.dropout_apply(x, 0.5, drop.dropout_key(0, 7, 11)),
         ]
-        print(f"[{card}] dropout ({BATCH},1,1,4096) {str(dtype)[6:]}: max_abs_err {err}, "
+        print(f"[{card}] dropout ({tag}) {str(dtype)[6:]}: max_abs_err {err}, "
               f"keep fraction {frac} (0.5 +- {4 * sigma})")
         if not torch.equal(got, want):
             raise AssertionError(f"dropout {dtype} is not array-equal to its plain version")
@@ -830,20 +872,20 @@ def check_dropout(dev, gen, card):
     # so the shared one's later draws stay as they were)
     own = torch.Generator(device=dev)
     own.manual_seed(10)
-    x = (torch.rand((BATCH, 1, 1, 4096), generator=own, device=dev) + 0.5).to(torch.bfloat16)
+    x = (torch.rand(shape, generator=own, device=dev) + 0.5).to(torch.bfloat16)
     xw = x.clone().requires_grad_()
     yw = drop.dropout(xw, 0.5, key)
     (gw,) = torch.autograd.grad(yw, xw, torch.ones_like(yw))
     for data in (2, 4):
-        b = BATCH // data
+        b = shape[0] // data
         for d in range(data):
             xr = x[d * b:(d + 1) * b].clone().requires_grad_()
-            yr = drop.dropout(xr, 0.5, key, d * b * 4096)
+            yr = drop.dropout(xr, 0.5, key, d * b * units)
             (gr,) = torch.autograd.grad(yr, xr, torch.ones_like(yr))
             if not (torch.equal(yr, yw[d * b:(d + 1) * b]) and torch.equal(gr, gw[d * b:(d + 1) * b])):
                 raise AssertionError(f"dropout of rows {d * b}.. at their offset differs from the "
                                      "whole batch's rows")
-    print(f"[{card}] dropout at an element offset: each data rank's rows of ({BATCH},1,1,4096) "
+    print(f"[{card}] dropout at an element offset: each data rank's rows of ({tag}) "
           "bf16, at data 2 and 4, forward and backward array-equal to the whole batch's rows")
     return worst
 
@@ -981,20 +1023,21 @@ def unaligned(x, elements=1):
     return view
 
 
-def check_maxpool(dev, gen, card):
+def check_maxpool(dev, gen, card, cases=None):
     """The max pool kernel vs its plain version, bit for bit (NaN payloads
-    and the sign of zero included): at pool1, pool2 and pool5 and at
-    POOL_RAGGED, on tie-heavy inputs (halves, with -0 and +0) with planted
-    NaNs, each also from a view 2 or 4 bytes past a 16-byte boundary (the
-    kernel's one-value form), bf16 and f32. Returns max |err| over the
-    non-NaN outputs (0)."""
+    and the sign of zero included): at `cases` ((name, shape, k, s, pad)
+    each; by default pool1, pool2 and pool5 and POOL_RAGGED), on tie-heavy
+    inputs (halves, with -0 and +0) with planted NaNs, each also from a
+    view 2 or 4 bytes past a 16-byte boundary (the kernel's one-value
+    form), bf16 and f32. Returns max |err| over the non-NaN outputs (0)."""
     import torch
 
     from convnet_tpu_torch.ops import pool
 
     worst = 0.0
-    cases = [(name, shape, 3, 2, 0) for name, shape in POOL_SHAPES.items()]
-    cases.append(("ragged", *POOL_RAGGED))
+    if cases is None:
+        cases = [(name, shape, 3, 2, 0) for name, shape in POOL_SHAPES.items()]
+        cases.append(("ragged", *POOL_RAGGED))
     for name, shape, k, s, p in cases:
         for dtype in (torch.bfloat16, torch.float32):
             x = plant_nans(gen, halves(gen, shape, dev, dtype))
@@ -1010,7 +1053,7 @@ def check_maxpool(dev, gen, card):
                       f"{int(want.isnan().sum().item())} NaN and "
                       f"{int(((want == 0) & want.signbit()).sum().item())} -0 outputs of "
                       f"{want.numel()}" + (f", {tied_windows(x, want, k, s)} window maxima tied"
-                                           if p == 0 else ""))
+                                           if p == 0 and (shape[1] - k) % s == 0 else ""))
                 if not same_bits(got, want):
                     raise AssertionError(f"{tag} is not bit for bit its plain version")
     return worst
@@ -1263,23 +1306,32 @@ def check_checkpoints(dev, graph, state, card) -> dict:
     return facts
 
 
-def check_conv_grad(dev, gen, card):
-    """An f32 conv's input and weight gradients at conv2's shape (B=16,
-    27x27x96 -> 256, k5 p2) against float64: rtol 1e-5, atol 1e-5 of the
-    largest gradient. Autograd through cuDNN's default (TF32 on) is shown
-    for contrast and not checked."""
+# an f32 conv's geometry for check_conv_grad: (input NHWC, Cout, kernel,
+# padding), stride 1; AlexNet's conv2 at batch 16, and mnist_lenet's conv1
+CONV2_GRAD = ((16, 27, 27, 96), 256, 5, 2)
+LENET_CONV1_GRAD = ((BATCH, 28, 28, 1), 16, 5, 2)
+
+
+def check_conv_grad(dev, gen, card, geometry=CONV2_GRAD):
+    """An f32 conv's output and its input and weight gradients at
+    `geometry` (default conv2's: B=16, 27x27x96 -> 256, k5 p2) against
+    float64: rtol 1e-5, atol 1e-5 of the largest element. Autograd through
+    cuDNN's default (TF32 on) is shown for contrast and not checked.
+    Returns the largest |error|."""
     import torch
     import torch.nn.functional as F
 
     from convnet_tpu_torch.ops.conv import conv2d
 
-    x = torch.randn((16, 27, 27, 96), generator=gen, device=dev)
-    w = 0.05 * torch.randn((5, 5, 96, 256), generator=gen, device=dev)
-    gy = torch.randn((16, 27, 27, 256), generator=gen, device=dev)
+    shape, cout, k, pad = geometry
+    x = torch.randn(shape, generator=gen, device=dev)
+    w = 0.05 * torch.randn((k, k, shape[3], cout), generator=gen, device=dev)
+    gy = torch.randn((*shape[:3], cout), generator=gen, device=dev)
 
     def grads(dt):
         xx, ww = x.to(dt).requires_grad_(), w.to(dt).requires_grad_()
-        return torch.autograd.grad(conv2d(xx, ww, 1, 2), (xx, ww), gy.to(dt))
+        y = conv2d(xx, ww, 1, pad)
+        return (y.detach(), *torch.autograd.grad(y, (xx, ww), gy.to(dt)))
 
     got, want = grads(torch.float32), grads(torch.float64)
     prev = torch.backends.cudnn.allow_tf32
@@ -1287,19 +1339,20 @@ def check_conv_grad(dev, gen, card):
     try:
         xt = x.permute(0, 3, 1, 2).requires_grad_()
         wt = w.permute(3, 2, 0, 1).contiguous().requires_grad_()
-        tf_dx, tf_dw = torch.autograd.grad(F.conv2d(xt, wt, padding=2), (xt, wt),
-                                           gy.permute(0, 3, 1, 2))
+        tf_y = F.conv2d(xt, wt, padding=pad)
+        tf_dx, tf_dw = torch.autograd.grad(tf_y, (xt, wt), gy.permute(0, 3, 1, 2))
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    tf32 = (tf_dx.permute(0, 2, 3, 1), tf_dw.permute(2, 3, 1, 0))
+    tf32 = (tf_y.detach().permute(0, 2, 3, 1), tf_dx.permute(0, 2, 3, 1),
+            tf_dw.permute(2, 3, 1, 0))
     worst = 0.0
-    for name, g, ref, t in zip(("input", "weight"), got, want, tf32):
+    for name, g, ref, t in zip(("output", "grad wrt input", "grad wrt weight"), got, want, tf32):
         scale = ref.abs().max().item()
         err = (g.double() - ref).abs().max().item()
         worst = max(worst, err)
-        print(f"[{card}] f32 conv grad wrt {name} {tuple(g.shape)}: max_abs_err {err} "
-              f"({err / scale} of the largest) vs float64; cuDNN TF32 default: "
-              f"{(t.double() - ref).abs().max().item() / scale} of the largest")
+        print(f"[{card}] f32 conv {shape} -> {cout}, k{k} p{pad}, {name} {tuple(g.shape)}: "
+              f"max_abs_err {err} ({err / scale} of the largest) vs float64; cuDNN TF32 "
+              f"default: {(t.double() - ref).abs().max().item() / scale} of the largest")
         torch.testing.assert_close(g.double(), ref, rtol=1e-5, atol=1e-5 * scale)
     return worst
 
@@ -1811,23 +1864,23 @@ edge { source: "mix3" dest: "output" edge_type: FC initialization: DENSE_GAUSSIA
 """
 
 
-def check_local(dev, gen, card, profile_dir=None):
-    """Phase 7a: LOCAL at alexnet_local's conv4 in f32 and bf16, forward,
-    dx and dw against float64 on the card (the bf16 case on the bf16-rounded
-    inputs), each within its share of the largest |element|; then the
-    bf16 forward's and backward's device times with the launches hidden
-    beside their bounds (and, with profile_dir, a torch.profiler table of
-    five of each)."""
+def local_against_f64(dev, gen, card, geometry, dtypes, what):
+    """LOCAL at `geometry` (as CONV4) in each of `dtypes`: forward, dx and
+    dw against float64 on the card (a bf16 case on the bf16-rounded
+    inputs), each within its share of the largest |element| (f32
+    LOCAL_F32_RTOL, bf16 LOCAL_BF16_RTOL). Returns the inputs drawn, (x, w,
+    gy), f32."""
     import torch
 
+    from convnet_tpu_torch.graph import conv_out_size
     from convnet_tpu_torch.ops.local import local_conv2d
 
-    b, h, w_, c = CONV4["x"]
-    k, s, p, cout = CONV4["kernel"], CONV4["stride"], CONV4["padding"], CONV4["cout"]
-    wshape = (h, w_, k * k * c, cout)  # stride 1, pad 1: 13x13 sites
-    x = torch.randn(CONV4["x"], generator=gen, device=dev)
-    w = 0.01 * torch.randn(wshape, generator=gen, device=dev)
-    gy = torch.randn((b, h, w_, cout), generator=gen, device=dev)
+    b, h, w_, c = geometry["x"]
+    k, s, p, cout = (geometry[n] for n in ("kernel", "stride", "padding", "cout"))
+    oh, ow = conv_out_size(h, k, s, p), conv_out_size(w_, k, s, p)
+    x = torch.randn(geometry["x"], generator=gen, device=dev)
+    w = 0.01 * torch.randn((oh, ow, k * k * c, cout), generator=gen, device=dev)
+    gy = torch.randn((b, oh, ow, cout), generator=gen, device=dev)
 
     def run(dt):
         # as the model calls it: bf16 through compute_dtype, f32 without one
@@ -1837,7 +1890,8 @@ def check_local(dev, gen, card, profile_dir=None):
         dx, dw = torch.autograd.grad(y, (xx, ww), gy.to(dt))
         return y.detach(), dx, dw
 
-    for dt, rtol in ((torch.float32, LOCAL_F32_RTOL), (torch.bfloat16, LOCAL_BF16_RTOL)):
+    for dt in dtypes:
+        rtol = LOCAL_F32_RTOL if dt == torch.float32 else LOCAL_BF16_RTOL
         got = run(dt)
         # float64 on the same inputs: the bf16 case rounds x, w and g first
         xd, wd = x.to(dt).double().requires_grad_(), w.to(dt).double().requires_grad_()
@@ -1847,13 +1901,29 @@ def check_local(dev, gen, card, profile_dir=None):
         for name, g_, ref in zip(("y", "dx", "dw"), got, want):
             scale = ref.abs().max().item()
             err = (g_.double() - ref).abs().max().item() / scale
-            print(f"[{card}] LOCAL conv4 {str(dt).removeprefix('torch.')} {name} "
+            print(f"[{card}] LOCAL {what} {str(dt).removeprefix('torch.')} {name} "
                   f"{tuple(g_.shape)}: max |err| {err:.3g} of the largest vs float64 "
                   f"(tolerance {rtol})")
             if err > rtol:
-                raise AssertionError(f"LOCAL {dt} {name} is {err} of the largest from float64")
+                raise AssertionError(f"LOCAL {what} {dt} {name} is {err} of the largest from "
+                                     "float64")
         del got, want
     torch.cuda.empty_cache()
+    return x, w, gy
+
+
+def check_local(dev, gen, card, profile_dir=None):
+    """Phase 7a: LOCAL at alexnet_local's conv4 in f32 and bf16 against
+    float64 (local_against_f64); then the bf16 forward's and backward's
+    device times with the launches hidden beside their bounds (and, with
+    profile_dir, a torch.profiler table of five of each)."""
+    import torch
+
+    from convnet_tpu_torch.ops.local import local_conv2d
+
+    b, h, w_, c = CONV4["x"]
+    k, s, p, cout = CONV4["kernel"], CONV4["stride"], CONV4["padding"], CONV4["cout"]
+    x, w, gy = local_against_f64(dev, gen, card, CONV4, (torch.float32, torch.bfloat16), "conv4")
 
     xb = x.to(torch.bfloat16).requires_grad_()
     wb = w.to(torch.bfloat16).requires_grad_()
@@ -2611,17 +2681,31 @@ def _same_or_close(what, a, b, card):
 
 
 def check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=None,
-                           phase="phase 8c"):
-    """Phase 8c's comparison: from one state and the same LAUNCH_STEPS staged
-    batches, two launches of LAUNCH_K (replays of the captured step) against
-    LAUNCH_STEPS eager steps. The crop origins, flips and dropout keys of
+                           phase="phase 8c", per_step=TRAIN_PER_STEP, exact=False):
+    """Phase 8c's comparison: from one state and the same staged batches
+    (LAUNCH_STEPS of them in phase 8c), launches of LAUNCH_K (replays of the
+    captured step) against as many eager steps. The crop origins, flips and dropout keys of
     every step must be array-equal (a mask is a function of its key: the
     masks of the two keys are compared too), the parameters and momenta
-    array-equal or within UPDATE_TOL of their largest update; the launches
+    array-equal or within UPDATE_TOL of their largest element; the launches
     a replayed step makes (counted from the capture) must be the eager
-    step's. mesh: the steps of that mesh's rank (phase 9b: a 1x1 mesh over
-    NCCL, whose collectives the capture holds). Returns the replayed path's
-    facts."""
+    step's (`per_step`). mesh: the steps of that mesh's rank (phase 9b: a
+    1x1 mesh over NCCL, whose collectives the capture holds). exact: all of
+    it under torch.use_deterministic_algorithms (eager steps are then
+    reproducible on the card, by default not: cuDNN may pick algorithms
+    that are not), and the parameters and momenta must be array-equal.
+    Returns the replayed path's facts."""
+    import torch
+
+    torch.use_deterministic_algorithms(exact, warn_only=True)
+    try:
+        return _steps_per_launch(dev, graph, state0, jitter, batches, card, mesh, phase,
+                                 per_step, exact)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _steps_per_launch(dev, graph, state0, jitter, batches, card, mesh, phase, per_step, exact):
     import torch
 
     from convnet_tpu_torch.ops import dropout as drop
@@ -2639,11 +2723,12 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=None,
     for x in batches:
         eager.step(a, x)
         draws_e.append(snap(eager.last_draws))
-    for lo in range(0, LAUNCH_STEPS, LAUNCH_K):
+    steps = len(batches)
+    for lo in range(0, steps, LAUNCH_K):
         stacked = _stacked(batches, lo, lo + LAUNCH_K)
         # one replay at a time, so that each step's draws can be read
         for i in range(LAUNCH_K):
-            replayed.launch(b, {k: v[i: i + 1] for k, v in stacked.items()}, 1)
+            replayed.launch(b, {f: v[i: i + 1] for f, v in stacked.items()}, 1)
             draws_r.append(snap(replayed.last_draws))
     torch.cuda.synchronize()
     for t, ((ke, ce), (kr, cr)) in enumerate(zip(draws_e, draws_r)):
@@ -2655,15 +2740,15 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=None,
                     for i in ke)
         if not (same_keys and same_crops and masks):
             raise AssertionError(f"step {t}: the replayed step drew other crops or masks")
-    print(f"[{card}] {phase}: {LAUNCH_STEPS} steps as {LAUNCH_STEPS} replays against "
-          f"{LAUNCH_STEPS} eager steps: crop origins, flips and dropout keys and masks "
+    print(f"[{card}] {phase}: {steps} steps as {steps} replays against "
+          f"{steps} eager steps: crop origins, flips and dropout keys and masks "
           "array-equal at every step")
     expect_launches("a replayed step (counted from its capture)", replayed.captured.launches,
-                    TRAIN_PER_STEP, 1)
-    # the launch path proper: two launches of LAUNCH_K from the same state
+                    per_step, 1)
+    # the launch path proper: launches of k from the same state
     c = clone_state(state0)
     staged = TrainSteps(graph, jitter, mesh)
-    for lo in range(0, LAUNCH_STEPS, LAUNCH_K):
+    for lo in range(0, steps, LAUNCH_K):
         metrics = staged.launch(c, _stacked(batches, lo, lo + LAUNCH_K), LAUNCH_K)
     torch.cuda.synchronize()
     if metrics["loss"].shape != (LAUNCH_K,) or c["step"] != a["step"]:
@@ -2674,15 +2759,16 @@ def check_steps_per_launch(dev, graph, state0, jitter, batches, card, mesh=None,
             results[(what, tree)] = _same_or_close(f"{what}, {tree} against the eager steps'",
                                                    other[tree], a[tree], card)
     for (what, tree), (equal, worst) in results.items():
-        if not equal and worst > UPDATE_TOL:
-            raise AssertionError(f"{what}: {tree} differ from the eager steps' by {worst}")
+        if not equal and (exact or not worst <= UPDATE_TOL):
+            raise AssertionError(f"{what}: {tree} differ from the eager steps' by {worst}"
+                                 + (" under deterministic algorithms" if exact else ""))
     return {"launches_per_capture": dict(replayed.captured.launches),
             "array_equal": {f"{w}, {t}": e for (w, t), (e, _) in results.items()},
             "largest_difference": {f"{w}, {t}": d for (w, t), (_, d) in results.items()}}
 
 
 def launch_times(graph, state, jitter, batches, card, mesh=None,
-                 paths=("train", "reference_gradient")):
+                 paths=("train", "reference_gradient"), what="AlexNet"):
     """The train step at k = 1 (eager) and k = LAUNCH_K (replays), on the
     train paths `paths` (under `mesh`, that mesh's rank's step): device
     time with the launches hidden (a launch a spin), host clock with a
@@ -2715,7 +2801,7 @@ def launch_times(graph, state, jitter, batches, card, mesh=None,
                         host.append((time.perf_counter() - t0) * 1e3 / k)
                 host_ms = statistics.median(host)
                 out[path][k] = (dev_ms, host_ms)
-                print(f"[{card}] AlexNet train step ({path}{where}), batch {BATCH}, {k} a launch"
+                print(f"[{card}] {what} train step ({path}{where}), batch {BATCH}, {k} a launch"
                       f"{' (CUDA-graph replays)' if k > 1 else ' (eager)'}: device time with the "
                       f"launches hidden {dev_ms:.4f} ms a step; host clock with synchronize "
                       f"{host_ms:.4f} ms a step, so the card idles {1 - dev_ms / host_ms:.3f} of it")
@@ -3048,25 +3134,37 @@ def check_hdf5_path(dev, directory: Path, card):
 CIFAR_MODEL = REPO / "examples" / "cifar10" / "cifar10_conv.pbtxt"
 CIFAR_DATA = REPO / "examples" / "cifar10" / "cifar10_train_data.pbtxt"
 FORMAT_BATCHES, FORMAT_STEPS = 20, 10
+# a CIFAR-10 f32 train step's launches: rnorm1 and rnorm2, fc1's dropout
+# forward and backward, one step_draws (its dropout key); an f32 model's
+# input takes no prologue kernel
+CIFAR_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 2, "step_draws": 1}
+
+
+def repointed(template: Path, paths: dict) -> str:
+    """A data template's text with each file path it names replaced
+    ({old: new}), as the templates' own comments ask ("swap file paths for
+    your local shards"); raises if the template no longer names one."""
+    text = template.read_text()
+    for old, new in paths.items():
+        if old not in text:
+            raise AssertionError(f"{template.name} no longer names {old}")
+        text = text.replace(old, str(new))
+    return text
 
 
 def cifar_template_text(data: Path, mean: Path, pipeline: bool = True) -> str:
     """The CIFAR-10 data template with its file paths pointed at `data` and
-    `mean` (as its own comment says: "swap file paths for your local
-    shards"), its prefetch thread on or off."""
-    text = CIFAR_DATA.read_text()
-    for old, new in (("/data/cifar10/train.h5", data), ("/data/cifar10/mean.h5", mean)):
-        if old not in text:
-            raise AssertionError(f"phase 8g: the CIFAR-10 template no longer names {old}")
-        text = text.replace(old, str(new))
+    `mean`, its prefetch thread on or off."""
+    text = repointed(CIFAR_DATA, {"/data/cifar10/train.h5": data, "/data/cifar10/mean.h5": mean})
     return text if pipeline else text.replace("pipeline_loads: true", "pipeline_loads: false")
 
 
-def train_cifar10(dev, data_text: str, what: str):
-    """cifar10_conv (full width, f32, batch 128) trained FORMAT_STEPS steps
-    through Trainer over a DataHandler of `data_text`: (losses, seconds,
-    launches), every logged loss finite and every parameter moved and
-    finite, CIFAR_PER_STEP launches a step."""
+def train_cifar10(dev, data_text: str, what: str, model_path: Path = CIFAR_MODEL,
+                  per_step=CIFAR_PER_STEP, phase: str = "phase 8g"):
+    """A CIFAR-10 model (by default cifar10_conv; full width, f32, batch
+    128) trained FORMAT_STEPS steps through Trainer over a DataHandler of
+    `data_text`: (losses, seconds, launches), every logged loss finite and
+    every parameter moved and finite, `per_step` launches a step."""
     import re
 
     import numpy as np
@@ -3077,7 +3175,7 @@ def train_cifar10(dev, data_text: str, what: str):
     from convnet_tpu_torch.graph import build_graph
     from convnet_tpu_torch.trainer import Trainer
 
-    model = read_model(str(CIFAR_MODEL))
+    model = read_model(str(model_path))
     model.display_after = 1  # a logged loss every step
     graph = build_graph(model)
     data = DataHandler(parse_dataset_config(data_text))
@@ -3091,17 +3189,17 @@ def train_cifar10(dev, data_text: str, what: str):
     train_s = time.perf_counter() - t0
     launches = read_launches()
     data.close()
-    expect_launches(f"phase 8g's cifar10_conv steps over {what}", launches, CIFAR_PER_STEP,
+    expect_launches(f"{phase}'s {graph.name} steps over {what}", launches, per_step,
                     FORMAT_STEPS)
     losses = [float(m.group(1)) for m in (re.search(r"^step \d+ loss (\S+)", line) for line in logged)
               if m]
     if len(losses) != FORMAT_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"phase 8g: cifar10_conv's logged losses over {what}: {losses}")
+        raise AssertionError(f"{phase}: {graph.name}'s logged losses over {what}: {losses}")
     for name, p in trainer.state["params"].items():
         for k, v in p.items():
             if not torch.isfinite(v).all() or torch.equal(v, p_init[name][k]):
-                raise AssertionError(f"phase 8g: cifar10_conv's {name}/{k} over {what} did not move "
-                                     "or is not finite")
+                raise AssertionError(f"{phase}: {graph.name}'s {name}/{k} over {what} did not "
+                                     "move or is not finite")
     return losses, train_s, launches
 
 
@@ -3827,10 +3925,6 @@ BENCH_STEPS, PIPELINE_STEPS = 20, 5
 # the bench's mfu must lie in (0, MFU_MAX]: above 1 the FLOP count or the
 # peak is wrong (a little over 1 is left to the count's rounding)
 MFU_MAX = 1.05
-# a CIFAR-10 f32 train step's launches: rnorm1 and rnorm2, fc1's dropout
-# forward and backward, one step_draws (its dropout key); an f32 model's
-# input takes no prologue kernel
-CIFAR_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 2, "step_draws": 1}
 # phase 10b holds the LRN kernels' outputs against the plain version this
 # many rows at a time (rnorm1 at batch 4096 has 12.4M rows of 96)
 CHECK_ROWS = 1 << 20
@@ -4606,6 +4700,381 @@ def check_gather_probes(root: Path, dev, card):
     return facts, paths, entries
 
 
+# phase 8h: the example models and the ImageNet data templates.
+# (a) mnist_lenet through the train CLI over its DUMMY data file, as written;
+# (b) cifar10_local through Trainer over the CIFAR-10 template on the lzf
+# fixture shard; (c) AlexNet through the train and extract CLIs over the
+# ImageNet templates, repointed at a list of JPEGs written here
+MNIST = REPO / "examples" / "mnist" / "mnist_lenet.pbtxt"
+MNIST_DATA = REPO / "examples" / "mnist" / "mnist_dummy_train.pbtxt"
+CIFAR_LOCAL = REPO / "examples" / "cifar10" / "cifar10_local.pbtxt"
+IMAGENET_TRAIN = REPO / "examples" / "imagenet" / "imagenet_train_data.pbtxt"
+IMAGENET_VAL = REPO / "examples" / "imagenet" / "imagenet_val_data.pbtxt"
+EXAMPLE_STEPS, EXAMPLE_LOG, JPEG_ROWS = 20, 5, 256
+# mnist_lenet's f32 step: fc1's dropout forward and backward and one
+# step_draws (its key); its input (one channel at 28, no crop) is scaled in
+# plain PyTorch, since the prologue kernel takes only bf16 strided convs
+# (s2d_relayout.prologue_plan, as the JAX package's); under
+# CONVNET_POOL_BACKEND=pallas both pools take the max pool kernel
+LENET_PER_STEP = {"dropout": 2, "step_draws": 1}
+LENET_POOL_PER_STEP = {**LENET_PER_STEP, "maxpool_fwd": 2}
+# cifar10_local's f32 step: one step_draws (the template's flips); no
+# dropout, no LRN, ATen's max pools
+CIFAR_LOCAL_PER_STEP = {"step_draws": 1}
+# the max pools of both models (k, s, pad): mnist's exact-cover 2x2/2 and
+# cifar10_local's 3x3/2 on 32 and 16, whose last window hangs off the input
+EXAMPLE_POOLS = [("mnist pool1", (BATCH, 28, 28, 16), 2, 2, 0),
+                 ("mnist pool2", (BATCH, 14, 14, 32), 2, 2, 0),
+                 ("cifar10_local pool1", (BATCH, 32, 32, 64), 3, 2, 0),
+                 ("cifar10_local pool2", (BATCH, 16, 16, 64), 3, 2, 0)]
+# cifar10_local's LOCAL edges: 8x8x64 in, k3 s1 p1, 64 sites of 576 x 64 and x 32
+CIFAR_LOCALS = {"local3": dict(x=(BATCH, 8, 8, 64), cout=64, kernel=3, stride=1, padding=1),
+                "local4": dict(x=(BATCH, 8, 8, 64), cout=32, kernel=3, stride=1, padding=1)}
+
+
+def plain_sequential_logits(graph, params, x, dropout_seed=None):
+    """The logits of a chain of CONV, LOCAL, MAXPOOL and FC edges with
+    ReLU layers (mnist_lenet, cifar10_local), composed from the plain
+    versions of the kernels (the max pool, dropout) and the same cuDNN,
+    cuBLAS and ATen ops, not through apply_fn; differentiable by autograd.
+    x: the input layer's f32 NHWC batch. dropout_seed = (seed, step)
+    applies each layer's dropout with the mask apply_fn draws."""
+    import torch
+
+    from convnet_tpu_torch.graph import ACT as act
+    from convnet_tpu_torch.graph import ET as et
+    from convnet_tpu_torch.ops.conv import conv2d, fc
+    from convnet_tpu_torch.ops.dropout import dropout_key, dropout_reference
+    from convnet_tpu_torch.ops.local import local_conv2d
+    from convnet_tpu_torch.ops.pool import maxpool_reference
+
+    layers = [n for n in graph.topo_layer_order() if not graph.layer(n).is_input]
+    for i, name in enumerate(layers):
+        (e,) = graph.incoming(name)
+        p = params.get(e.name)
+        if e.edge_type == et.CONV:
+            x = conv2d(x, p["w"], e.stride, e.padding) + p["b"]
+        elif e.edge_type == et.LOCAL:
+            x = local_conv2d(x, p["w"], e.stride, e.padding, e.kernel_size) + p["b"]
+        elif e.edge_type == et.FC:
+            x = (fc(x, p["w"]) + p["b"])[:, None, None, :]
+        elif e.edge_type == et.MAXPOOL:
+            x = maxpool_reference(x, e.kernel_size, e.stride, e.padding)
+        else:
+            raise ValueError(f"plain_sequential_logits: edge {e.name} of type {e.edge_type}")
+        layer = graph.layer(name)
+        if layer.is_output:
+            return x.reshape(x.shape[0], -1)
+        if layer.activation == act.RECTIFIED_LINEAR:
+            x = torch.relu(x)
+        elif layer.activation != act.LINEAR:
+            raise ValueError(f"plain_sequential_logits: layer {name}'s activation")
+        if dropout_seed is not None and layer.dropprob > 0.0:
+            x = dropout_reference(x, layer.dropprob, dropout_key(*dropout_seed, i))
+    raise ValueError("plain_sequential_logits: the chain has no output layer")
+
+
+def plain_sequential_step(graph, spec):
+    """plain_step(state, batch) -> loss for check_train_parity: the input
+    scaled as jitter_batch scales it (no crop, no mean), then
+    plain_sequential_logits with the step's dropout masks."""
+    def plain_step(st, b):
+        seed, step = st["seed"], st["step"]
+        x = b["input"].float() * spec.scale
+        return plain_sgd_step(graph, st, b["labels"], lambda params: plain_sequential_logits(
+            graph, params, x, dropout_seed=(seed, step)))
+
+    return plain_step
+
+
+def logged_steps(log: str):
+    """[(step, loss, img/s)] of a train log's display lines."""
+    import re
+
+    return [(int(a), float(b), float(c)) for a, b, c in
+            re.findall(r"^step (\d+) loss (\S+) train_err \S+ \((\S+) img/s\)", log, re.M)]
+
+
+def train_cli_run(directory: Path, model, data_pbtxt: Path, what: str, per_step, card):
+    """The train CLI (in this process) over `data_pbtxt` for EXAMPLE_STEPS
+    steps, from a copy of the model written into `directory`: rc 0, the
+    step reached, `per_step` launches a step, every parameter moved and
+    finite, every logged loss finite. Returns (Trainer, launches, logged
+    steps, seconds, model path)."""
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch.cli import train as train_cli
+    from convnet_tpu_torch.config import model_to_text
+
+    model_path = directory / f"{model.name}.pbtxt"
+    model_path.write_text(model_to_text(model))
+    out = directory / f"{model.name}_run"
+    reset_launches()
+    t0 = time.perf_counter()
+    with _CapturingTrainer(train_cli) as cap:
+        rc = train_cli.main([str(model_path), str(data_pbtxt), "--output-dir", str(out),
+                             "--max-iter", str(EXAMPLE_STEPS)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    (trainer,) = cap.made
+    if rc != 0 or trainer.state["step"] != EXAMPLE_STEPS:
+        raise AssertionError(f"{what}: the train CLI gave rc {rc} at step {trainer.state['step']}")
+    expect_launches(what, launches, per_step, EXAMPLE_STEPS)
+    expect_trained(what, trainer.state["params"], trainer.p_init, card)
+    logged = logged_steps((out / f"{model.name}_train_log.txt").read_text())
+    if (len(logged) != EXAMPLE_STEPS // model.display_after
+            or not np.isfinite([loss for _, loss, _ in logged]).all()):
+        raise AssertionError(f"{what}: logged steps {logged}")
+    print(f"[{card}] {what}: train CLI, {EXAMPLE_STEPS} steps in {run_s:.3f} s (set-up "
+          f"included); logged (step, loss, img/s) {logged}; launches {launches}")
+    return trainer, launches, logged, run_s, model_path
+
+
+def check_mnist(dev, gen, directory: Path, card):
+    """Phase 8h (a): mnist_lenet (full width, f32, batch 128). Its kernels
+    at its shapes first: the max pool at pool1 and pool2 (and cifar10_local's
+    ceil-mode pools) bit for bit (check_maxpool), dropout at fc1's (B, 1, 1,
+    128) array-equal with the element offsets of data ranks (check_dropout),
+    conv1's Cin = 1 f32 forward and both gradients against float64
+    (check_conv_grad's bars). Then EXAMPLE_STEPS steps through the train
+    CLI over examples/mnist/mnist_dummy_train.pbtxt as it stands (the model
+    copied with a loss logged every EXAMPLE_LOG steps); from the trained
+    state, PARITY_STEPS steps of the port's step against the plain-composed
+    one (dropout on, the same keys), with the default pool and under
+    CONVNET_POOL_BACKEND=pallas, each path's launches counted; the step's
+    times; a Predictor at batch 1 and 64 within phase 3's bar of the plain
+    forward. Returns (facts, {path: launches})."""
+    import numpy as np
+
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.predictor import Predictor
+    from convnet_tpu_torch.trainer import device_batch
+
+    facts = {"maxpool_max_abs_err": check_maxpool(dev, gen, card, EXAMPLE_POOLS),
+             "dropout_max_abs_err": check_dropout(dev, gen, card, (BATCH, 1, 1, 128)),
+             "conv1_f32_max_abs_err": check_conv_grad(dev, gen, card, LENET_CONV1_GRAD)}
+    model = read_model(str(MNIST))
+    model.display_after, model.validate_after, model.checkpoint_after = EXAMPLE_LOG, 0, 0
+    trainer, launches, logged, run_s, _ = train_cli_run(
+        directory, model, MNIST_DATA, "phase 8h (a): mnist_lenet", LENET_PER_STEP, card)
+    paths = {"mnist_lenet": launches}
+    graph, state = trainer.graph, clone_state(trainer.state)
+    del trainer
+    data = DataHandler(parse_dataset_config(MNIST_DATA.read_text()))
+    jitter = data.jitter_specs()
+    batches = [device_batch(data.get_batch(), dev) for _ in range(max(PARITY_STEPS, LAUNCH_K))]
+    data.close()
+    spec = jitter["input"][0]
+    plain_step = plain_sequential_step(graph, spec)
+    for path, per_step, ctx in (("mnist_lenet_parity", LENET_PER_STEP, contextlib.nullcontext()),
+                                ("mnist_lenet_pool_kernel", LENET_POOL_PER_STEP, pool_switches())):
+        with ctx:
+            print(f"[{card}] phase 8h (a): mnist_lenet, the port's step against the plain one "
+                  f"({path}):")
+            reset_launches()
+            check_train_parity(graph, state, jitter, batches[:PARITY_STEPS], None, None, card,
+                               plain_step=plain_step)
+            paths[path] = read_launches()
+            expect_launches(f"phase 8h (a): {path}", paths[path], per_step, PARITY_STEPS)
+    facts["step_ms"] = launch_times(graph, state, jitter, batches, card, paths=("train",),
+                                    what="mnist_lenet")["train"]
+    facts["train_cli"] = {"seconds": run_s, "logged": logged}
+    rng = np.random.default_rng(21)
+    facts["served"] = {}
+    for batch in (1, 64):
+        pred = Predictor(graph, state["params"], batch_size=batch, jitter=jitter, raw_size=28,
+                         input_dtype=np.uint8, device=dev)
+        req = rng.integers(0, 256, (batch, 28, 28, 1), dtype=np.uint8)
+        reset_launches()
+        out = pred({"input": req})
+        paths[f"mnist_lenet_serve_batch{batch}"] = read_launches()
+        err = expect_served(
+            f"phase 8h (a): mnist_lenet's Predictor, a request of {batch}", graph,
+            state["params"], req, out, spec, None, card,
+            plain=lambda x: plain_sequential_logits(graph, state["params"], x.float() * spec.scale))
+        facts["served"][batch] = {"max_abs_logit_err": err, "request_ms": request_ms(pred, req)}
+    print(f"[{card}] phase 8h (a): mnist_lenet served at batch 1 and 64: {facts['served']} "
+          "(request ms on the host clock, uint8 in, numpy out)")
+    return facts, paths
+
+
+def check_cifar10_local(dev, gen, card):
+    """Phase 8h (b): cifar10_local (full width, f32, batch 128). LOCAL at
+    its local3 and local4 (64 sites of 576 x 64 and x 32) in f32 against
+    float64 (local_against_f64); FORMAT_STEPS steps through Trainer over the
+    CIFAR-10 data template on the lzf fixture shard (train_cifar10's
+    checks, CIFAR_LOCAL_PER_STEP launches a step); from seed-0 params, 4
+    steps as one launch of 4 replays of the captured step (its f32 LOCAL
+    products with TF32 off inside the capture) against 4 eager steps under
+    deterministic algorithms, array-equal (check_steps_per_launch, exact);
+    the step's times. Returns (facts, launches)."""
+    import torch
+
+    from convnet_tpu_torch import testdata
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.trainer import device_batch, init_state
+
+    for name, geometry in CIFAR_LOCALS.items():
+        local_against_f64(dev, gen, card, geometry, (torch.float32,), f"cifar10_local {name}")
+    text = cifar_template_text(testdata.CIFAR_SHARD, testdata.CIFAR_MEAN)
+    losses, train_s, launches = train_cifar10(dev, text, "the lzf fixture shard", CIFAR_LOCAL,
+                                              CIFAR_LOCAL_PER_STEP, "phase 8h (b)")
+    print(f"[{card}] phase 8h (b): cifar10_local, {FORMAT_STEPS} steps through Trainer over the "
+          f"CIFAR-10 template on the lzf fixture shard in {train_s:.3f} s: losses {losses}; "
+          f"launches {launches}")
+    graph = build_graph(read_model(str(CIFAR_LOCAL)))
+    data = DataHandler(parse_dataset_config(text))
+    jitter = data.jitter_specs()
+    batches = [device_batch(data.get_batch(), dev) for _ in range(LAUNCH_K)]
+    data.close()
+    state0 = init_state(graph, seed=0, device=dev)
+    replay = check_steps_per_launch(dev, graph, state0, jitter, batches, card,
+                                    phase="phase 8h (b): cifar10_local",
+                                    per_step=CIFAR_LOCAL_PER_STEP, exact=True)
+    step_ms = launch_times(graph, state0, jitter, batches, card, paths=("train",),
+                           what="cifar10_local")["train"]
+    return {"losses": losses, "train_s": train_s, "replay": replay, "step_ms": step_ms}, launches
+
+
+def check_imagenet_jpeg(dev, directory: Path, card):
+    """Phase 8h (c): full-width AlexNet (bf16, batch 128) through the train
+    CLI over examples/imagenet/imagenet_train_data.pbtxt, its three paths
+    repointed and nothing else changed: the list holds JPEG_ROWS JPEGs of
+    500x375 (photo_jpegs), the labels and mean.h5 are written by hdf5.py,
+    the mean and std being compute_mean's full-pixel ones over the rows the
+    native reader decodes at raw 256. The reader must be "native". Then
+    EXAMPLE_STEPS steps (a copy of the model logging every 10): every
+    parameter moved and finite, the logged losses finite, PIXEL_MEAN_STEP
+    launches a step (a full-pixel mean keeps the crop in plain PyTorch,
+    in both packages), img/s over the last 10 steps and the host's stages.
+    Then fc7 through the extract CLI from that run's checkpoint over
+    imagenet_val_data.pbtxt, repointed alike: JPEG_ROWS finite rows within
+    phase 8e's bar of a Predictor's fc7 of the same decoded rows. Returns
+    (facts, {path: launches})."""
+    try:
+        import PIL  # noqa: F401  (photo_jpegs writes the list with it)
+    except ImportError as e:
+        raise AssertionError("phase 8h (c) needs PIL to write its JPEG list") from e
+    import numpy as np
+    import torch
+
+    from convnet_tpu_torch import hdf5
+    from convnet_tpu_torch.cli import extract as extract_cli
+    from convnet_tpu_torch.config import parse_dataset_config, read_model
+    from convnet_tpu_torch.data import native
+    from convnet_tpu_torch.data.datahandler import DataHandler
+    from convnet_tpu_torch.graph import build_graph
+    from convnet_tpu_torch.predictor import Predictor
+    from convnet_tpu_torch.tools.compute_mean import mean_std
+
+    jpegs = directory / "jpegs"
+    jpegs.mkdir()
+    t0 = time.perf_counter()
+    files = photo_jpegs(jpegs, JPEG_ROWS)
+    write_s = time.perf_counter() - t0
+    (jpegs / "list.txt").write_text("\n".join(files) + "\n")
+    loader = native.NativeImageLoader(files, RAW, 3)
+    try:
+        t0 = time.perf_counter()
+        rows = loader.load(np.arange(JPEG_ROWS))
+        decode_s = time.perf_counter() - t0
+    finally:
+        loader.close()
+    mean, std = mean_std(rows, per_channel=False, chunk=64)
+    with hdf5.File(jpegs / "mean.h5", "w") as f:
+        f.create_dataset("mean", data=mean.astype(np.float32))
+        f.create_dataset("std", data=std.astype(np.float32))
+    labels = np.random.default_rng(24).integers(0, 1000, JPEG_ROWS).astype(np.int32)
+    with hdf5.File(jpegs / "labels.h5", "w") as f:
+        f.create_dataset("labels", data=labels)
+    texts = {}
+    for which, template in (("train", IMAGENET_TRAIN), ("val", IMAGENET_VAL)):
+        texts[which] = repointed(template, {f"/data/imagenet/{which}_list.txt": jpegs / "list.txt",
+                                            f"/data/imagenet/{which}_labels.h5": jpegs / "labels.h5",
+                                            "/data/imagenet/mean.h5": jpegs / "mean.h5"})
+        (directory / f"imagenet_{which}.pbtxt").write_text(texts[which])
+    print(f"[{card}] phase 8h (c): {JPEG_ROWS} JPEGs of 500x375 written by PIL in {write_s:.3f} s; "
+          f"the native loader decoded them at raw {RAW} in {decode_s:.3f} s; full-pixel mean "
+          f"{mean.shape} and labels written by hdf5.py")
+    model = read_model(str(ALEXNET))
+    model.display_after = 10  # the last display line: img/s over the last 10 steps
+    trainer, launches, logged, run_s, model_path = train_cli_run(
+        directory, model, directory / "imagenet_train.pbtxt",
+        "phase 8h (c): AlexNet over the ImageNet JPEG template", PIXEL_MEAN_STEP, card)
+    backends = trainer.train_data.backends()
+    stage_ms = {k: t.mean * 1e3 for k, t in trainer.timers.items() if t.count}
+    del trainer
+    torch.cuda.empty_cache()
+    if backends != {"input": "native"}:
+        raise AssertionError(f"phase 8h (c): the JPEG list was read by {backends}")
+    img_s = logged[-1][2]
+    print(f"[{card}] phase 8h (c): AlexNet trained from the JPEG list on the {backends} reader: "
+          f"{img_s:.1f} img/s over the last 10 steps (host clock, decode included); the host's "
+          f"stages, ms a step: {stage_ms} (get_batch: the wait on the prefetch queue, depth 4)")
+    paths = {"alexnet_imagenet_jpeg": launches}
+
+    newest = sorted((directory / "alexnet_run").glob("alexnet_*.h5"))[-1]
+    feats = directory / "imagenet_fc7.h5"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = extract_cli.main([str(model_path), str(directory / "imagenet_val.pbtxt"),
+                           "--checkpoint", str(newest), "--output", str(feats), "--layers", "fc7"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    paths["alexnet_imagenet_jpeg_extract"] = read_launches()
+    expect_launches("phase 8h (c): the JPEG extract", paths["alexnet_imagenet_jpeg_extract"],
+                    {"lrn_fwd": 2}, -(-JPEG_ROWS // BATCH))
+    with hdf5.File(feats) as f:
+        fc7 = f["fc7"][...]
+    if rc != 0 or fc7.shape != (JPEG_ROWS, 4096) or not np.isfinite(fc7).all():
+        raise AssertionError(f"phase 8h (c): the extract gave rc {rc}, fc7 {fc7.shape}")
+    data = DataHandler(parse_dataset_config(texts["val"]), randomize=False)
+    if data.backends() != {"input": "native"}:
+        raise AssertionError(f"phase 8h (c): the val list was read by {data.backends()}")
+    graph = build_graph(model, data.input_image_sizes())
+    pred = Predictor.from_checkpoint(graph, str(newest), layers=["fc7"], batch_size=BATCH,
+                                     jitter=data.jitter_specs(), raw_size=RAW,
+                                     input_dtype=np.uint8, device=dev)
+    want = np.concatenate([pred({"input": b["input"]})["fc7"].reshape(BATCH, -1)[:valid]
+                           for b, valid in data.iter_epoch()])
+    data.close()
+    tol = float(1e-2 * np.abs(want).max())
+    err = float(np.abs(fc7 - want).max())
+    print(f"[{card}] phase 8h (c): extract CLI, fc7 from {newest.name} over the val template: rc "
+          f"{rc}, {fc7.shape} rows in {extract_s:.3f} s (checkpoint load included); against a "
+          f"Predictor's fc7 of the same decoded rows max |diff| {err} (bar {tol}); launches "
+          f"{paths['alexnet_imagenet_jpeg_extract']}")
+    if err > tol:
+        raise AssertionError("phase 8h (c): the extract CLI's fc7 differs from the Predictor's")
+    return {"write_s": write_s, "decode_s": decode_s, "train_cli_s": run_s, "logged": logged,
+            "img_s_last_10": img_s, "stage_ms": stage_ms, "extract_s": extract_s,
+            "extract_vs_predictor_max_abs": err, "bar": tol}, paths
+
+
+def check_examples(dev, directory: Path, card):
+    """Phase 8h: (a) check_mnist, (b) check_cifar10_local, (c)
+    check_imagenet_jpeg. Returns (facts, {path: launches})."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    directory.mkdir(parents=True, exist_ok=True)
+    mnist, paths = check_mnist(dev, gen, directory, card)
+    cifar, paths["cifar10_local"] = check_cifar10_local(dev, gen, card)
+    jpeg, jpeg_paths = check_imagenet_jpeg(dev, directory, card)
+    paths.update(jpeg_paths)
+    facts = {"mnist_lenet": mnist, "cifar10_local": cifar, "alexnet_imagenet_jpeg": jpeg,
+             "seconds": time.perf_counter() - t0, "card": card}
+    print(json.dumps({"phase8h": facts}, default=str))
+    return facts, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", type=Path,
@@ -4804,6 +5273,7 @@ def main(argv=None) -> int:
         cache_ms = write_learnable_set(tmp8, card)
         learned = check_learning(tmp8, card)
         jpeg = {"fixtures": check_jpeg_fixtures(card), "rows_s": check_image_streams(dev, card)}
+        examples, example_paths = check_examples(dev, tmp8 / "examples", card)
         launch = check_steps_per_launch(dev, graph, state0, train_jitter, batches8, card)
         launch["step_ms"] = launch_times(graph, state0, train_jitter, batches8, card)
         launch["trainer_img_s"], rate_launches = trainer_rates(dev, graph, train_jitter, tmp8,
@@ -4861,6 +5331,11 @@ def main(argv=None) -> int:
              # over the virtual shard of its halves and over the SOHM shard
              "hdf5_latest_cifar10": formats_launches, "hdf5_vds_cifar10": vds_launches,
              "hdf5_sohm_cifar10": sohm_launches,
+             # phase 8h: mnist_lenet's train CLI run, its parity steps with
+             # the default pool and with the max pool kernel, and its
+             # Predictor's requests; cifar10_local's Trainer; AlexNet's
+             # train CLI over the ImageNet JPEG template and its extract
+             **example_paths,
              # phase 10: the pipeline bench's paths and the bench's step
              **measure_paths,
              # phase 11: the copy probe's tilings (counted in its process)

@@ -613,20 +613,34 @@ def test_step_draws_kernel_rows_of_the_global_draw(cuda, data):
             assert torch.equal(got, w[d * b:(d + 1) * b]) and torch.equal(got, p)
 
 
-def test_f32_conv_gradients_exact(cuda):
-    """conv2's shape in f32: with TF32 left on for dgrad/wgrad the
-    gradients would miss a float64 computation by about 1e-3."""
+def _assert_f32_conv_exact(cuda, shape, cout, k, pad):
+    """An f32 stride-1 conv's output and both gradients within rtol 1e-5 and
+    1e-5 of the largest element of a float64 computation."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((16, 27, 27, 96), generator=gen, device=cuda)
-    w = 0.05 * torch.randn((5, 5, 96, 256), generator=gen, device=cuda)
-    gy = torch.randn((16, 27, 27, 256), generator=gen, device=cuda)
-    grads = []
+    x = torch.randn(shape, generator=gen, device=cuda)
+    w = 0.05 * torch.randn((k, k, shape[3], cout), generator=gen, device=cuda)
+    gy = torch.randn((*shape[:3], cout), generator=gen, device=cuda)
+    results = []
     for dt in (torch.float32, torch.float64):
         xx = x.to(dt).requires_grad_()
         ww = w.to(dt).requires_grad_()
-        grads.append(torch.autograd.grad(conv.conv2d(xx, ww, 1, 2), (xx, ww), gy.to(dt)))
-    for got, want in zip(*grads):
+        y = conv.conv2d(xx, ww, 1, pad)
+        results.append((y.detach(), *torch.autograd.grad(y, (xx, ww), gy.to(dt))))
+    for got, want in zip(*results):
         torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+def test_f32_conv_gradients_exact(cuda):
+    """conv2's shape in f32: with TF32 left on for dgrad/wgrad the
+    gradients would miss a float64 computation by about 1e-3."""
+    _assert_f32_conv_exact(cuda, (16, 27, 27, 96), 256, 5, 2)
+
+
+def test_f32_conv_one_input_channel_exact(cuda):
+    """mnist_lenet's conv1 (one input channel, 28x28 -> 16, k5 p2) at batch
+    128 in f32, forward and both gradients: the JAX package takes such a
+    conv through im2col, the port through cuDNN with TF32 off."""
+    _assert_f32_conv_exact(cuda, (128, 28, 28, 1), 16, 5, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +689,8 @@ def _at_offset(x, elements):
 MAXPOOL_CASES = [  # (h, c, k, s, pad)
     (55, 96, 3, 2, 0), (27, 256, 3, 2, 0), (13, 256, 3, 2, 0),  # AlexNet's pools
     (14, 100, 3, 2, 1),  # no whole 16-byte words in bf16; padding; ceil-mode last window
+    (28, 16, 2, 2, 0), (14, 32, 2, 2, 0),  # mnist_lenet's pools
+    (32, 64, 3, 2, 0), (16, 64, 3, 2, 0),  # cifar10_local's: the last window hangs off
     (8, 16, 2, 2, 0), (9, 8, 3, 2, 1), (10, 24, 3, 3, 0), (6, 1, 3, 2, 0),
     (7, 8, 5, 1, 2), (6, 3, 4, 3, 1),  # k outside the compiled 2 and 3
 ]

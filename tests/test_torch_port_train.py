@@ -524,16 +524,21 @@ def _port_state(jparams, seed=0):
     return {"params": params, "moms": pt_optim.init_momentum(params), "step": 0, "seed": seed}
 
 
-def _assert_updates_close(graph, p0, want, got, rel):
-    """Each leaf's update (after - before) within rel of its largest."""
+def _assert_updates_close(graph, p0, want, got, rel, ulps=0):
+    """Each leaf's update (after - before) within rel of its largest, plus
+    `ulps` f32 ulps of the leaf's largest |element| (a weight whose updates
+    are a few hundred of its ulps is rounded to within half an ulp, so
+    two results can differ by that much however close their updates)."""
     for e in graph.weighted_edges:
         for k in ("w", "b"):
             before = np.asarray(p0[e.name][k])
             upd_j = np.asarray(want[e.name][k]) - before
             upd_p = _np(got[e.name][k]) - before
+            ulp = np.spacing(np.abs(before).max().astype(np.float32))
             err = np.abs(upd_p - upd_j).max() / np.abs(upd_j).max()
-            print(f"{e.name}/{k}: update error {err:.3g} of the largest update")
-            assert err <= rel, (e.name, k, err)
+            bar = rel + ulps * ulp / np.abs(upd_j).max()
+            print(f"{e.name}/{k}: update error {err:.3g} of the largest update (bar {bar:.3g})")
+            assert err <= bar, (e.name, k, err)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
