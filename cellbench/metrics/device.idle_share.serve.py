@@ -1,0 +1,9 @@
+"""device.idle_share.serve: the share of the traced stretch of
+requests, from the card's first operation to its last, in which no kernel,
+copy or set ran, in %."""
+
+
+def read(ctx):
+    if ctx.kind != "serve" or not ctx.trace or ctx.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.trace["window_s"])
