@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Dict, List, Optional, Tuple
 
 from convnet_tpu_torch import proto as pb
@@ -81,6 +82,11 @@ class LayerSpec:
     data_field: str = ""
     gpu_id: int = 0
     image_size: int = 0
+
+    @cached_property
+    def span_name(self) -> str:
+        """The layer's span in a profiler trace (`utils.timers.span`)."""
+        return f"model.layer.{self.name}"
 
     @staticmethod
     def from_proto(p: pb.Layer) -> "LayerSpec":
@@ -145,6 +151,12 @@ class EdgeSpec:
     @property
     def has_weights(self) -> bool:
         return self.edge_type in WEIGHTED_EDGE_TYPES
+
+    @cached_property
+    def span_name(self) -> str:
+        """The edge's span in a profiler trace (`utils.timers.span`):
+        model.edge.<EDGE_TYPE>.<name>."""
+        return f"model.edge.{ET.Name(self.edge_type)}.{self.name}"
 
     @staticmethod
     def from_proto(p: pb.Edge) -> "EdgeSpec":

@@ -74,6 +74,7 @@ from convnet_tpu_torch.parallel.mesh import (
     edge_is_sharded,
     gather_from_model,
 )
+from convnet_tpu_torch.utils.timers import span
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -343,78 +344,80 @@ def apply_fn(
                     continue
             z = None
             for e in inc:
-                if e.source in deferred_lrn:
-                    le, x_src, frelu = deferred_lrn[e.source]
-                    contrib = lrn_maxpool_bias(
-                        x_src,
-                        pending_bias.get(le.source),
-                        le.add_scale,
-                        le.pow_scale,
-                        le.frac_of_filters_response_norm,
-                        le.response_norm_blocked,
-                        e.kernel_size,
-                        e.stride,
-                        e.padding,
-                        frelu,
-                    )
+                with span(e.span_name):
+                    if e.source in deferred_lrn:
+                        le, x_src, frelu = deferred_lrn[e.source]
+                        contrib = lrn_maxpool_bias(
+                            x_src,
+                            pending_bias.get(le.source),
+                            le.add_scale,
+                            le.pow_scale,
+                            le.frac_of_filters_response_norm,
+                            le.response_norm_blocked,
+                            e.kernel_size,
+                            e.stride,
+                            e.padding,
+                            frelu,
+                        )
+                        z = contrib if z is None else z + contrib
+                        continue
+                    p = params.get(e.name)
+                    if p is None and e.has_weights:
+                        raise ValueError(
+                            f"no parameters for edge {e.name!r}; params provide {sorted(params)}"
+                        )
+                    fuse = e.edge_type == ET.RESPONSE_NORM and e.source in preacts
+                    x_in = preacts[e.source] if fuse else acts[e.source]
+                    dbias = defer_bias.get(name) == e.name
+                    sharded = edge_is_sharded(graph, mesh, e.name)
+                    e_run = e
+                    if sharded:
+                        x_in, e_run = _model_input(e, x_in, mesh)
+                    if graph.remat and train and e.has_weights:
+                        # recompute the edge's output in the backward instead of
+                        # keeping it (Model.remat; model.py:386-395)
+                        contrib = torch.utils.checkpoint.checkpoint(
+                            _edge_fprop, e_run, p, x_in, cdt, defer_bias=dbias,
+                            use_reentrant=False, preserve_rng_state=False,
+                        )
+                    else:
+                        contrib = _edge_fprop(
+                            e_run, p, x_in, cdt,
+                            fuse_relu=fuse,
+                            defer_bias=dbias,
+                            bias=pending_bias.get(e.source) if fuse else None,
+                        )
+                    if sharded:
+                        contrib = gather_from_model(contrib, mesh)
+                    if dbias:
+                        pending_bias[name] = gather_from_model(p["b"], mesh) if sharded else p["b"]
                     z = contrib if z is None else z + contrib
-                    continue
-                p = params.get(e.name)
-                if p is None and e.has_weights:
-                    raise ValueError(
-                        f"no parameters for edge {e.name!r}; params provide {sorted(params)}"
-                    )
-                fuse = e.edge_type == ET.RESPONSE_NORM and e.source in preacts
-                x_in = preacts[e.source] if fuse else acts[e.source]
-                dbias = defer_bias.get(name) == e.name
-                sharded = edge_is_sharded(graph, mesh, e.name)
-                e_run = e
-                if sharded:
-                    x_in, e_run = _model_input(e, x_in, mesh)
-                if graph.remat and train and e.has_weights:
-                    # recompute the edge's output in the backward instead of
-                    # keeping it (Model.remat; model.py:386-395)
-                    contrib = torch.utils.checkpoint.checkpoint(
-                        _edge_fprop, e_run, p, x_in, cdt, defer_bias=dbias,
-                        use_reentrant=False, preserve_rng_state=False,
-                    )
-                else:
-                    contrib = _edge_fprop(
-                        e_run, p, x_in, cdt,
-                        fuse_relu=fuse,
-                        defer_bias=dbias,
-                        bias=pending_bias.get(e.source) if fuse else None,
-                    )
-                if sharded:
-                    contrib = gather_from_model(contrib, mesh)
-                if dbias:
-                    pending_bias[name] = gather_from_model(p["b"], mesh) if sharded else p["b"]
-                z = contrib if z is None else z + contrib
-            if l.is_output:
-                z = z.to(torch.promote_types(z.dtype, torch.float32))
-                out[f"{name}:preact"] = z.reshape(z.shape[0], -1)
-            relu_fusable = (
-                l.activation == ACT.RECTIFIED_LINEAR and not l.is_output and l.dropprob == 0.0
-            )
-            if relu_fusable and any(e2.edge_type == ET.RESPONSE_NORM for e2 in consumers):
-                preacts[name] = z
-            # the activation is materialized only if a consumer or the caller
-            # reads it: a response-norm consumer of a ReLU layer reads preacts
-            readers = [
-                e2 for e2 in consumers
-                if not (relu_fusable and e2.edge_type == ET.RESPONSE_NORM)
-            ]
-            if readers or want is None or name in want:
-                if name in pending_bias:
-                    z = z + pending_bias[name].to(z.dtype)
-                a = apply_activation(z, l.activation)
-                if train and l.dropprob > 0.0:
-                    if dropout_keys is None:
-                        raise ValueError("train=True with dropout needs dropout_keys")
-                    # the bits of the rank's rows of the global batch
-                    offset = mesh.d * a.numel() if mesh is not None else 0
-                    a = dropout(a, l.dropprob, dropout_keys[drop_i], offset)
-                acts[name] = a.to(store_dt) if store_dt is not None else a
+            with span(l.span_name):
+                if l.is_output:
+                    z = z.to(torch.promote_types(z.dtype, torch.float32))
+                    out[f"{name}:preact"] = z.reshape(z.shape[0], -1)
+                relu_fusable = (
+                    l.activation == ACT.RECTIFIED_LINEAR and not l.is_output and l.dropprob == 0.0
+                )
+                if relu_fusable and any(e2.edge_type == ET.RESPONSE_NORM for e2 in consumers):
+                    preacts[name] = z
+                # the activation is materialized only if a consumer or the caller
+                # reads it: a response-norm consumer of a ReLU layer reads preacts
+                readers = [
+                    e2 for e2 in consumers
+                    if not (relu_fusable and e2.edge_type == ET.RESPONSE_NORM)
+                ]
+                if readers or want is None or name in want:
+                    if name in pending_bias:
+                        z = z + pending_bias[name].to(z.dtype)
+                    a = apply_activation(z, l.activation)
+                    if train and l.dropprob > 0.0:
+                        if dropout_keys is None:
+                            raise ValueError("train=True with dropout needs dropout_keys")
+                        # the bits of the rank's rows of the global batch
+                        offset = mesh.d * a.numel() if mesh is not None else 0
+                        a = dropout(a, l.dropprob, dropout_keys[drop_i], offset)
+                    acts[name] = a.to(store_dt) if store_dt is not None else a
         if (want is None or name in want) and name in acts:
             out[name] = acts[name]
     return out
@@ -446,22 +449,28 @@ def loss_fn(
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
     batch_size = None
-    for l in graph.output_layers:
-        logits = outs[f"{l.name}:preact"]
-        batch_size = logits.shape[0]
-        if l.data_field not in batch:
-            raise ValueError(
-                f"output layer {l.name!r} expects target field {l.data_field!r} "
-                f"but the batch has {sorted(batch)}"
-            )
-        target = batch[l.data_field]
-        if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
-            target = target.reshape(-1)
-        else:
-            target = target.reshape(target.shape[0], -1)
-        total = total + losses_ops.compute_loss(l.loss_function, logits, target)
-        if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
-            metrics[f"{l.name}/errors"] = losses_ops.classification_errors(logits, target)
-    loss = total / batch_size
+    outputs = graph.output_layers
+    for l in outputs:
+        # an output layer's loss and errors, and after the last one the
+        # batch mean, are its layer's work in a trace (the backward's nodes
+        # credit to the layer that made them)
+        with span(l.span_name):
+            logits = outs[f"{l.name}:preact"]
+            batch_size = logits.shape[0]
+            if l.data_field not in batch:
+                raise ValueError(
+                    f"output layer {l.name!r} expects target field {l.data_field!r} "
+                    f"but the batch has {sorted(batch)}"
+                )
+            target = batch[l.data_field]
+            if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
+                target = target.reshape(-1)
+            else:
+                target = target.reshape(target.shape[0], -1)
+            total = total + losses_ops.compute_loss(l.loss_function, logits, target)
+            if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
+                metrics[f"{l.name}/errors"] = losses_ops.classification_errors(logits, target)
+            if l is outputs[-1]:
+                loss = total / batch_size
     metrics["loss"] = loss
     return loss, metrics

@@ -29,6 +29,7 @@ import torch.distributed as dist
 
 from convnet_tpu_torch import ops  # noqa: F401  (its import warms the CPU's vector math)
 from convnet_tpu_torch.graph import DECAY, Graph, OptimSpec
+from convnet_tpu_torch.utils.timers import span
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -119,13 +120,14 @@ def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params,
     sharded = sharded or {}
     if (step is None) == (hyper is None):
         raise ValueError("apply_updates takes the step or its schedule tensor, not both")
-    for row, (e, k, spec) in enumerate(_leaves(graph)):
-        p, m, g = params[e.name][k], moms[e.name][k], grads[e.name][k]
-        if hyper is None:
-            _update_leaf(spec, p, m, g, epsilon_at(spec, step), momentum_at(spec, step),
-                         step >= spec.start_optimization_after, sharded.get((e.name, k)))
-        else:
-            # a leaf that never freezes needs no select
-            active = hyper[row, 2] if spec.start_optimization_after > 0 else True
-            _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active,
-                         sharded.get((e.name, k)))
+    with span("optim.update"):
+        for row, (e, k, spec) in enumerate(_leaves(graph)):
+            p, m, g = params[e.name][k], moms[e.name][k], grads[e.name][k]
+            if hyper is None:
+                _update_leaf(spec, p, m, g, epsilon_at(spec, step), momentum_at(spec, step),
+                             step >= spec.start_optimization_after, sharded.get((e.name, k)))
+            else:
+                # a leaf that never freezes needs no select
+                active = hyper[row, 2] if spec.start_optimization_after > 0 else True
+                _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active,
+                             sharded.get((e.name, k)))

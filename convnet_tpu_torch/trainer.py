@@ -27,7 +27,9 @@ from the newest one in its checkpoint directory (`checkpoint.py`, the JAX
 package's HDF5 layout). With steps_per_launch k, display, validation and
 checkpoints fire at the first launch boundary at or past each multiple.
 `Trainer.train(profile_dir=...)` traces the reference's window of steps
-with torch.profiler.
+with torch.profiler; the step's stages, edges and layers, its update and
+the Trainer's host stages show in the trace as named spans
+(`utils/timers.py`).
 
 Under a mesh (`parallel/mesh.py`; the Trainer takes the model's `parallel
 {}` block over the default process group, as the JAX Trainer does) every
@@ -74,7 +76,7 @@ from convnet_tpu_torch.parallel.mesh import (
     shard_params,
     state_shardings,
 )
-from convnet_tpu_torch.utils.timers import Timer, start_trace, stop_trace
+from convnet_tpu_torch.utils.timers import Timer, span, start_trace, stop_trace
 
 #: {data_field: (JitterSpec, mean, std)}, mean/std numpy arrays or None.
 JitterMap = Dict[str, Tuple[JitterSpec, Optional[np.ndarray], Optional[np.ndarray]]]
@@ -254,11 +256,12 @@ def _reduce_over_data(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor
     """Sum the gradients (of the loss already divided by the data axis) and
     the metrics over the rank's data group, one all-reduce a dtype: "loss"
     comes back as the global batch's mean, the error counts as sums."""
-    names = list(metrics)
-    packed = torch.stack([metrics[k].float() / mesh.data if k == "loss" else metrics[k].float()
-                          for k in names])
-    *grads, packed = all_reduce_sum([*grads, packed], mesh.data_group)
-    return grads, {k: v.to(metrics[k].dtype) for k, v in zip(names, packed)}
+    with span("parallel.reduce"):
+        names = list(metrics)
+        packed = torch.stack([metrics[k].float() / mesh.data if k == "loss" else metrics[k].float()
+                              for k in names])
+        *grads, packed = all_reduce_sum([*grads, packed], mesh.data_group)
+        return grads, {k: v.to(metrics[k].dtype) for k, v in zip(names, packed)}
 
 
 def _step_core(graph: Graph, jitter: Optional[JitterMap], mesh: Optional[Mesh] = None):
@@ -276,14 +279,20 @@ def _step_core(graph: Graph, jitter: Optional[JitterMap], mesh: Optional[Mesh] =
         with torch.inference_mode(False), torch.enable_grad():
             for name, k in keys:
                 params[name][k].requires_grad_(True)
-            dropout_keys, crops = draw_step(graph, jitter, batch, rng, mesh)
+            with span("trainer.draws"):
+                dropout_keys, crops = draw_step(graph, jitter, batch, rng, mesh)
             core.draws = (dropout_keys, crops)
-            proc = preprocess(graph, jitter, batch, crops, consts)
-            loss, metrics = model_lib.loss_fn(graph, params, proc, train=True,
-                                              dropout_keys=dropout_keys, mesh=mesh)
-            if mesh is not None:
-                loss = loss / mesh.data
-            flat = torch.autograd.grad(loss, [params[name][k] for name, k in keys])
+            with span("trainer.prologue"):
+                proc = preprocess(graph, jitter, batch, crops, consts)
+            with span("model.forward"):
+                loss, metrics = model_lib.loss_fn(graph, params, proc, train=True,
+                                                  dropout_keys=dropout_keys, mesh=mesh)
+                if mesh is not None:
+                    loss = loss / mesh.data
+            # on a card the backward runs on the autograd engine's device
+            # thread, while this one waits inside the span
+            with span("model.backward"):
+                flat = torch.autograd.grad(loss, [params[name][k] for name, k in keys])
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
             flat, metrics = _reduce_over_data(list(flat), metrics, mesh)
@@ -376,11 +385,12 @@ class _StepGraph:
         sched = sched.pin_memory()
         rows = []
         for i in range(n):
-            for f, buf in self.static.items():
-                buf.copy_(batches[f][i], non_blocking=True)
-            self.hyper.copy_(sched[i], non_blocking=True)
-            self.cuda_graph.replay()
-            rows.append({k: v.clone() for k, v in self.metrics.items()})
+            with span("trainer.replay"):
+                for f, buf in self.static.items():
+                    buf.copy_(batches[f][i], non_blocking=True)
+                self.hyper.copy_(sched[i], non_blocking=True)
+                self.cuda_graph.replay()
+                rows.append({k: v.clone() for k, v in self.metrics.items()})
         self.replays += n
         state["step"] = state["rng_step"] = t0 + n
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
@@ -404,12 +414,13 @@ class TrainSteps:
     def step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One eager step: state["step"] advances by one; the metrics
         ("loss", "<output>/errors") stay device tensors."""
-        step = state["step"]
-        metrics = self._core(state["params"], state["moms"], rng_tensor(state, _state_device(state)),
-                             batch, step=step)
-        state["step"] = state["rng_step"] = step + 1
-        self.last_draws = self._core.draws
-        return metrics
+        with span("trainer.step"):
+            step = state["step"]
+            metrics = self._core(state["params"], state["moms"],
+                                 rng_tensor(state, _state_device(state)), batch, step=step)
+            state["step"] = state["rng_step"] = step + 1
+            self.last_draws = self._core.draws
+            return metrics
 
     def launch(self, state: TrainState, batches: Dict[str, torch.Tensor], n: int):
         """n steps over batches stacked on a leading axis of n; metrics of
@@ -428,8 +439,9 @@ class TrainSteps:
                 "step a launch")
         if self.captured is None or not self.captured.holds(state):
             self.captured = None  # the old graph's memory goes back first
-            self.captured = _StepGraph(self.graph, self._core, state,
-                                       {f: v[0] for f, v in batches.items()})
+            with span("trainer.capture"):
+                self.captured = _StepGraph(self.graph, self._core, state,
+                                           {f: v[0] for f, v in batches.items()})
         metrics = self.captured.run(state, batches, n)
         self.last_draws = self.captured.draws
         return metrics
@@ -492,7 +504,10 @@ class Trainer:
     multiple, as in the JAX package. `timers` time the host's stages:
     get_batch, stack (k > 1: into cached pinned buffers), pin (k = 1),
     copy (k = 1: enqueueing the copy to the device) and launch (enqueueing
-    the steps, and at k > 1 each step's copy out of the pinned buffers).
+    the steps, and at k > 1 each step's copy out of the pinned buffers),
+    each also the span `trainer.<stage>` in a profiler trace. The display
+    line ends with the window's data wait: the first four's seconds as a
+    share of the window's.
 
     jitter: {field: (JitterSpec, mean, std)} to use instead of the data
     handlers' `jitter_specs()` (for example a mean given without an HDF5
@@ -553,7 +568,8 @@ class Trainer:
         self.steps_per_launch = max(1, int(steps_per_launch))
         self.steps = TrainSteps(graph, train_jitter, self.mesh)
         self._eval_step = make_eval_step(graph, eval_jitter, self.mesh)
-        self.timers = {k: Timer() for k in ("get_batch", "stack", "pin", "copy", "launch")}
+        self.timers = {k: Timer(f"trainer.{k}") for k in ("get_batch", "stack", "pin", "copy",
+                                                          "launch")}
         # k > 1 on a card: two sets of pinned staging buffers a launch size,
         # taken in turn, each reused once the launch's copies out of it ran
         self._pinned: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
@@ -678,6 +694,11 @@ class Trainer:
         self._staged_key = key
         return bufs
 
+    def _staging_s(self) -> float:
+        """The host's seconds so far in staging batches (the get_batch,
+        stack, pin and copy timers)."""
+        return sum(self.timers[k].total for k in ("get_batch", "stack", "pin", "copy"))
+
     def train(self, max_iter: Optional[int] = None, profile_dir: Optional[str] = None):
         """The step loop up to `max_iter` steps (default: the pbtxt's).
         profile_dir: trace about ten steps past the first steps' warm-up
@@ -695,7 +716,7 @@ class Trainer:
         prof = None
         cuda = self.device.type == "cuda"
         window: List[Dict[str, torch.Tensor]] = []
-        t0 = time.time()
+        t0, staged0 = time.time(), self._staging_s()
         next_batch = self._stage(min(k, total - it)) if it < total else None
         while it < total:
             if profile_dir is not None:
@@ -726,12 +747,13 @@ class Trainer:
                 seen = sum(m["loss"].numel() for m in window) * self.train_data.batch_size
                 dt = time.time() - t0
                 ips = seen / dt if dt > 0 else 0.0
+                wait = (self._staging_s() - staged0) / dt if dt > 0 else 0.0
                 self.log(
                     f"step {it} loss {loss:.4f} train_err {errs / max(1, seen):.4f} "
-                    f"({ips:.1f} img/s)"
+                    f"({ips:.1f} img/s) data wait {100 * wait:.1f}%"
                 )
                 window = []
-                t0 = time.time()
+                t0, staged0 = time.time(), self._staging_s()
             if (
                 g.validate_after
                 and self.val_data
@@ -739,10 +761,10 @@ class Trainer:
             ):
                 verr, vloss = self.validate()
                 self.log(f"step {it} VALIDATION loss {vloss:.4f} err {verr:.4f}")
-                t0 = time.time()
+                t0, staged0 = time.time(), self._staging_s()
             if g.checkpoint_after and it // g.checkpoint_after > prev // g.checkpoint_after:
                 self.save()
-                t0 = time.time()
+                t0, staged0 = time.time(), self._staging_s()
         if prof is not None:
             stop_trace(prof, cuda)
             self.log(f"profile trace -> {profile_dir} (truncated at end of run)")

@@ -1,5 +1,26 @@
-"""Wall-clock timers and torch.profiler capture (counterpart of
-`convnet_tpu/utils/timers.py`)."""
+"""Wall-clock timers, named spans and torch.profiler capture (counterpart
+of `convnet_tpu/utils/timers.py`).
+
+A span names a stretch of the host's work in a torch.profiler trace:
+while a profiler records, `span(name)` opens
+`torch.profiler.record_function(name)`, an event in the profiler's own
+session and on its clock, which the card's kernels share (Kineto's CUPTI
+events), so that a trace can credit each kernel to the span that launched
+it. With no profiler recording, a span is one check of the profiler's
+Python flag (the check torch's own compiled code makes before its
+record_function): it builds no string, allocates nothing, calls nothing
+in the dispatcher, touches no device and never synchronizes. Names are
+fixed strings, built once.
+
+The port's spans: `trainer.step` (an eager step) holding `trainer.draws`,
+`trainer.prologue`, `model.forward` (with `model.edge.<EDGE_TYPE>.<edge>`
+for each edge's op and `model.layer.<layer>` for each layer's bias,
+activation, dropout, store cast and an output layer's loss),
+`model.backward`, `parallel.reduce` under a mesh and `optim.update`;
+`trainer.capture` and `trainer.replay` for a captured step; and the
+Trainer's `Timer`s `trainer.get_batch`, `.stack`, `.pin`, `.copy` and
+`.launch`. The Predictor's forward takes the edge and layer spans too.
+"""
 
 from __future__ import annotations
 
@@ -7,16 +28,29 @@ import contextlib
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
+
+#: what span() returns while no profiler records: reentrant, stateless
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: `record_function(name)` while a torch.profiler
+    records, else a shared one that does nothing."""
+    return _profiler.record_function(name) if _profiler._is_profiler_enabled else _OFF
 
 
 class Timer:
-    """Accumulating wall-clock timer: `with t:` or start()/stop() add one
-    interval to `total` (seconds) and one to `count`."""
+    """Accumulating wall-clock timer of the span `name`: `with t:` or
+    start()/stop() add one interval to `total` (seconds) and one to
+    `count`; `with t:` also opens span(name)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.total = 0.0
         self.count = 0
         self._start = None
+        self._span = _OFF
 
     def start(self):
         self._start = time.perf_counter()
@@ -34,10 +68,14 @@ class Timer:
         return self.total / self.count if self.count else 0.0
 
     def __enter__(self):
+        self._span = span(self.name)
+        self._span.__enter__()
         return self.start()
 
     def __exit__(self, *exc):
         self.stop()
+        self._span.__exit__(*exc)
+        self._span = _OFF
 
 
 def start_trace(logdir: str, cuda: bool):
@@ -57,15 +95,3 @@ def stop_trace(prof, cuda: bool) -> None:
     if cuda:
         torch.cuda.synchronize()
     prof.stop()
-
-
-@contextlib.contextmanager
-def profile_trace(logdir: str, device="cuda"):
-    """Trace the block with torch.profiler into `logdir`: the host's
-    operators, and the card's kernels when `device` is a CUDA device."""
-    cuda = torch.device(device).type == "cuda"
-    prof = start_trace(logdir, cuda)
-    try:
-        yield prof
-    finally:
-        stop_trace(prof, cuda)

@@ -6,6 +6,8 @@ chip_smoke.py's phase 8c holds to the eager steps), with the JAX
 package's cadence of display, validation and checkpoints; remat changes
 no f32 result beyond 1e-6."""
 
+import gzip
+import json
 import os
 
 import numpy as np
@@ -188,15 +190,21 @@ def test_remat_equals_no_remat_in_f32():
 
 
 def test_timer_and_profile_trace(tmp_path):
-    t = timers.Timer()
+    t = timers.Timer("trainer.get_batch")
     assert t.mean == 0.0
     with t:
         sum(range(1000))
     dt = t.start().stop()
     assert t.count == 2 and t.total >= dt >= 0.0 and t.mean == t.total / 2
-    with timers.profile_trace(str(tmp_path), device="cpu"):
+    prof = timers.start_trace(str(tmp_path), cuda=False)
+    with t:
         torch.ones(64).sum()
-    assert any(f.endswith(".json") or f.endswith(".json.gz") for f in os.listdir(tmp_path))
+    timers.stop_trace(prof, cuda=False)
+    assert t.count == 3
+    (trace,) = [f for f in os.listdir(tmp_path) if f.endswith(".json") or f.endswith(".json.gz")]
+    opener = gzip.open if trace.endswith(".gz") else open
+    with opener(os.path.join(tmp_path, trace), "rt") as f:
+        assert "trainer.get_batch" in {ev.get("name") for ev in json.load(f)["traceEvents"]}
 
 
 def test_draws_do_not_depend_on_the_launch():
