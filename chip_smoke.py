@@ -26,7 +26,9 @@ any failure raises and the script exits non-zero:
    holds) array-equal at four (seed, step). The max pool at pool1, pool2, pool5 and a
    ragged geometry (C = 100, 14x14, pad 1, the ceil-mode last window), each
    also from a view off a 16-byte boundary, bit for bit (NaN payloads and
-   the sign of zero included) on inputs with planted NaNs; the fused
+   the sign of zero included) on inputs with planted NaNs: the forward
+   without and with taps, and the backward from the taps against ATen's
+   max-pool autograd and the plain backward; the fused
    LRN -> max pool forward at rnorm1/pool1 and rnorm2/pool2, with bias and
    ReLU, bit for bit the max pool of the LRN kernel's output, and so again
    without them on inputs with planted NaNs and windows that hold both -0
@@ -40,21 +42,22 @@ any failure raises and the script exits non-zero:
    alexnet.pbtxt, bf16, crop 224 from 256, uint8 wire, batch 128, random
    weights from the port's seeded init, mean 0.45, scale 1/255) answers
    requests of 128, 128 and 57 images. The outputs must be finite, of
-   shape (n, 1000), with softmax rows summing to 1 within 1e-3; both
-   kernels' launch counts must show the requests went through them; and
-   the logits must agree with AlexNet's forward composed directly from
-   the plain versions (tolerance printed below).
+   shape (n, 1000), with softmax rows summing to 1 within 1e-3; the
+   LRN's, the prologue's and the max pool's launch counts must show the
+   requests went through them; and the logits must agree with AlexNet's
+   forward composed directly from the plain versions (tolerance printed
+   below).
 4. Training: a Trainer on the same full-width AlexNet over DUMMY data
    (uint8 256x256x3 images, 1000 classes, random 224 crops and flips,
    scale 1/255, mean 0.45, batch 128) takes 20 steps and one validation
    pass. The parameters must move and stay finite, the losses be finite,
-   each step launch lrn_fwd 2, lrn_bwd 2, dropout 4, s2d_prologue 1 and
-   step_draws 1 times, and three steps from one state must agree with a train step
+   each step launch lrn_fwd 2, lrn_bwd 2, dropout 4, s2d_prologue 1,
+   step_draws 1, maxpool_fwd 3 and maxpool_bwd 3 times, and three steps from one state must agree with a train step
    composed from the plain versions with autograd (tolerance printed).
 5. Training with the reference's pool gradient: the same Trainer takes 20
-   more steps with CONVNET_POOL_LRN_FUSED=1 and CONVNET_POOL_BACKEND=pallas
-   set (and restored after). Each step must launch pool_lrn_fwd 2,
-   pool_lrn_bwd 2, maxpool_fwd 1, lrn_fwd 0, lrn_bwd 0, dropout 4,
+   more steps with CONVNET_POOL_LRN_FUSED=1 set (and restored after).
+   Each step must launch pool_lrn_fwd 2, pool_lrn_bwd 2, maxpool_fwd 1,
+   maxpool_bwd 1, lrn_fwd 0, lrn_bwd 0, dropout 4,
    s2d_prologue 1 and step_draws 1 times; the parameters stay finite; three steps from one
    state must agree with a step composed from the plain versions with
    autograd, the LRN -> pool chains taking cuda-convnet's all-ties pool
@@ -191,18 +194,17 @@ any failure raises and the script exits non-zero:
    phase 8g's numbers and the card's name and power limit. (h) The example
    models and the ImageNet data templates (about 15 s, after 8b, since it
    needs PIL). mnist_lenet (examples/mnist/mnist_lenet.pbtxt, full width,
-   f32, batch 128): the max pool kernel at its pools (28x28x16 and
+   f32, batch 128): the max pool kernels at its pools (28x28x16 and
    14x14x32, k2 s2) and at cifar10_local's ceil-mode 3x3/2 pools on 32 and
    16 (64 channels), bit for bit as in phase 2; dropout at fc1's (128, 1,
    1, 128) as in phase 2; conv1's one-channel f32 output and gradients
    ((128, 28, 28, 1) -> 16, k5 p2) against float64 by phase 2's bar; 20
    steps through the train CLI over examples/mnist/mnist_dummy_train.pbtxt
    as it stands (a copy of the model logging every 5 steps): finite
-   losses, every parameter moved and finite, dropout 2 and step_draws 1
-   launches a step (no prologue kernel: its input is f32 at 28, one
-   channel, no crop); three steps against the plain-composed step
-   (dropout on, the same keys) with ATen's pool and again with
-   CONVNET_POOL_BACKEND=pallas (maxpool_fwd 2 a step more); its step's
+   losses, every parameter moved and finite, dropout 2, step_draws 1,
+   maxpool_fwd 2 and maxpool_bwd 2 launches a step (no prologue kernel:
+   its input is f32 at 28, one channel, no crop); three steps against the
+   plain-composed step (dropout on, the same keys); its step's
    times at 1 and 4 a launch; a Predictor at batch 1 and 64 within phase
    3's bar of the plain forward. cifar10_local (full width, f32, batch
    128): LOCAL at local3 and local4 (64 sites of 576 x 64 and x 32) in f32
@@ -365,7 +367,7 @@ MEAN = 0.45
 # largest update from the plain-composed step (see check_train_parity)
 UPDATE_TOL = 6e-2
 # the switches of the reference-gradient train path (the JAX package's)
-POOL_SWITCHES = {"CONVNET_POOL_LRN_FUSED": "1", "CONVNET_POOL_BACKEND": "pallas"}
+POOL_SWITCHES = {"CONVNET_POOL_LRN_FUSED": "1"}
 # the bound of a kernel: the larger of its bytes over the card's memory
 # rate and its operations over the card's f32 rate outside the tensor
 # cores (NVIDIA's H100 SXM data sheet)
@@ -532,7 +534,8 @@ def reset_launches():
                                        s2d_relayout)
 
     lrn.LAUNCHES = lrn.BWD_LAUNCHES = dropout.LAUNCHES = s2d_relayout.LAUNCHES = 0
-    pool.LAUNCHES = fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
+    pool.LAUNCHES = pool.BWD_LAUNCHES = 0
+    fused_pool_lrn.LAUNCHES = fused_pool_lrn.BWD_LAUNCHES = 0
     dropout.DRAW_LAUNCHES = copy_add.LAUNCHES = 0
     gather.CROP_WINDOW_LAUNCHES = gather.RELAYOUT_LAUNCHES = 0
     gather.CROP_DEINTERLEAVE_LAUNCHES = 0
@@ -545,8 +548,12 @@ def read_launches():
 
 
 # a train step's launches on the default path (step_draws: the dropout keys
-# and the crops, drawn on the card)
-TRAIN_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1, "step_draws": 1}
+# and the crops, drawn on the card; the max pool pair once a pool)
+TRAIN_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "s2d_prologue": 1, "step_draws": 1,
+                  "maxpool_fwd": 3, "maxpool_bwd": 3}
+# an AlexNet forward's launches where no gradient is wanted (a serving
+# batch; an extract batch has no prologue kernel): the pools without taps
+SERVE_PER_BATCH = {"lrn_fwd": 2, "s2d_prologue": 1, "maxpool_fwd": 3}
 
 
 def expect_launches(what, got, per_call, calls):
@@ -1024,12 +1031,15 @@ def unaligned(x, elements=1):
 
 
 def check_maxpool(dev, gen, card, cases=None):
-    """The max pool kernel vs its plain version, bit for bit (NaN payloads
-    and the sign of zero included): at `cases` ((name, shape, k, s, pad)
-    each; by default pool1, pool2 and pool5 and POOL_RAGGED), on tie-heavy
-    inputs (halves, with -0 and +0) with planted NaNs, each also from a
-    view 2 or 4 bytes past a 16-byte boundary (the kernel's one-value
-    form), bf16 and f32. Returns max |err| over the non-NaN outputs (0)."""
+    """The max pool kernels vs their plain versions and ATen, bit for bit
+    (NaN payloads and the sign of zero included): at `cases` ((name, shape,
+    k, s, pad) each; by default pool1, pool2 and pool5 and POOL_RAGGED), on
+    tie-heavy inputs (halves, with -0 and +0) with planted NaNs, each also
+    from a view 2 or 4 bytes past a 16-byte boundary (the kernels'
+    one-value form), bf16 and f32: the forward without and with taps (the
+    taps the plain version's), and the backward from those taps against
+    ATen's max-pool autograd and the plain backward. Returns max |err| over
+    the non-NaN outputs (0)."""
     import torch
 
     from convnet_tpu_torch.ops import pool
@@ -1042,9 +1052,20 @@ def check_maxpool(dev, gen, card, cases=None):
         for dtype in (torch.bfloat16, torch.float32):
             x = plant_nans(gen, halves(gen, shape, dev, dtype))
             want = pool.maxpool_reference(x, k, s, p)
+            want_taps = pool.maxpool_argmax_reference(x, k, s, p)[1]
+            dy = torch.randn(want.shape, generator=gen, device=dev).to(dtype)
+            xx = x.clone().requires_grad_()
+            (want_dx,) = torch.autograd.grad(pool.maxpool_reference(xx, k, s, p), xx, dy)
             for form, xin in (("aligned", x), ("unaligned", unaligned(x))):
                 got = pool.maxpool_fwd(xin, k, s, p)
+                got_t, taps = pool.maxpool_fwd(xin, k, s, p, taps=True)
+                dyin = dy if form == "aligned" else unaligned(dy)
+                dx = pool.maxpool_bwd(dyin, taps, shape[1], shape[2], k, s, p)
                 torch.cuda.synchronize()
+                pair = (same_bits(got_t, want) and torch.equal(taps, want_taps)
+                        and same_bits(dx, want_dx)
+                        and same_bits(dx, pool.maxpool_bwd_reference(dy, taps, shape[1],
+                                                                     shape[2], k, s, p)))
                 fin = torch.isfinite(want)
                 err = (got.float() - want.float())[fin].abs().max().item()
                 worst = max(worst, err)
@@ -1054,8 +1075,12 @@ def check_maxpool(dev, gen, card, cases=None):
                       f"{int(((want == 0) & want.signbit()).sum().item())} -0 outputs of "
                       f"{want.numel()}" + (f", {tied_windows(x, want, k, s)} window maxima tied"
                                            if p == 0 and (shape[1] - k) % s == 0 else ""))
+                print(f"[{card}] {tag} with taps, and maxpool_bwd: bit for bit {pair}")
                 if not same_bits(got, want):
                     raise AssertionError(f"{tag} is not bit for bit its plain version")
+                if not pair:
+                    raise AssertionError(f"{tag}: the forward with taps or the backward is not "
+                                         "bit for bit its plain version and ATen")
     return worst
 
 
@@ -1625,15 +1650,47 @@ def time_kernels(dev, gen, card, mean_t, plain=True, only=None):
         # image (its field's key, then its draw)
         work["step_draws"] = (16 + 16 * len(words) + 9 * BATCH, 100 * len(words) + 200 * BATCH)
 
-    # pool5 runs on the reference-gradient path; pool1 and pool2 are timed
-    # for the default path's choice. Each is an exact cover, where torch's
-    # floor-mode pool is the same function.
+    # the train step's three pools (pool5 the reference-gradient path's
+    # too): the forward as serving runs it, and the train step's pair, the
+    # forward with taps (ATen's forward with its int64 indices beside it)
+    # and the backward from them (ATen's backward, its zero fill included).
+    # Each is an exact cover, where torch's floor-mode pool is the same
+    # function. A checkout without the backward kernel times the forward.
     for shape_name, shape in POOL_SHAPES.items():
         xps = [(bf16(shape), 3, 2) for _ in range(2)]
         timed(f"maxpool_fwd {shape_name}", pool.maxpool_fwd, pool.maxpool_reference, xps,
               lambda x, k, s: F.max_pool2d(x.permute(0, 3, 1, 2), k, s))
-        out = pool.maxpool_reference(xps[0][0], 3, 2).numel()
-        work[f"maxpool_fwd {shape_name}"] = (2 * (xps[0][0].numel() + out), 9 * out)
+        n_in, out = shape[0] * shape[1] * shape[2] * shape[3], pool.maxpool_reference(
+            xps[0][0], 3, 2).numel()
+        work[f"maxpool_fwd {shape_name}"] = (2 * (n_in + out), 9 * out)
+        if hasattr(pool, "maxpool_bwd"):
+            timed(f"maxpool_fwd taps {shape_name}", pool.maxpool_fwd,
+                  lambda x, k, s, p, t: pool.maxpool_argmax_reference(x, k, s, p),
+                  [(x, 3, 2, 0, True) for x, _, _ in xps],
+                  lambda x, k, s, p, t: F.max_pool2d(x.permute(0, 3, 1, 2), k, s,
+                                                     return_indices=True))
+            aten, bwds = {}, []
+            for x, _, _ in xps:
+                y, taps = pool.maxpool_fwd(x, 3, 2, 0, True)
+                dy = bf16(y.shape)
+                xt = x.permute(0, 3, 1, 2)
+                aten[dy.data_ptr()] = (dy.permute(0, 3, 1, 2), xt,
+                                       F.max_pool2d(xt, 3, 2, return_indices=True)[1])
+                bwds.append((dy, taps, shape[1], shape[2], 3, 2))
+
+            def aten_bwd(dy, *_):
+                g, xt, index = aten[dy.data_ptr()]
+                return torch.ops.aten.max_pool2d_with_indices_backward(
+                    g, xt, [3, 3], [2, 2], [0, 0], [1, 1], False, index)
+
+            timed(f"maxpool_bwd {shape_name}", pool.maxpool_bwd, pool.maxpool_bwd_reference,
+                  bwds, aten_bwd)
+            # taps: one byte an output value; the backward reads dy and the
+            # taps once and writes dx once, and compares and adds about 4
+            # window visits an input value
+            work[f"maxpool_fwd taps {shape_name}"] = (2 * (n_in + out) + out, 9 * out)
+            work[f"maxpool_bwd {shape_name}"] = (3 * out + 2 * n_in, 8 * n_in)
+            del aten, bwds
         del xps
 
     for shape_name, shape in CHAINS.items():
@@ -2869,7 +2926,8 @@ HDF5_CKPT_AFTER, HDF5_STEPS, HDF5_RESUME_STEPS = 10, 15, 20
 # a train step over a full-pixel mean file: the jitter takes the plain path
 # (the prologue kernel takes a per-channel affine only, as the JAX
 # package's does: convnet_tpu/trainer.py:104), the rest runs the kernels
-PIXEL_MEAN_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "step_draws": 1}
+PIXEL_MEAN_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 4, "step_draws": 1, "maxpool_fwd": 3,
+                   "maxpool_bwd": 3}
 
 
 # phase 8f: AlexNet over the learnable set normalized by compute_mean's
@@ -3099,7 +3157,8 @@ def check_hdf5_path(dev, directory: Path, card):
     extract_s = time.perf_counter() - t0
     launches["hdf5_extract"] = read_launches()
     batches = -(-LEARN_ROWS // BATCH)
-    expect_launches("the HDF5 extract", launches["hdf5_extract"], {"lrn_fwd": 2}, batches)
+    expect_launches("the HDF5 extract", launches["hdf5_extract"], {"lrn_fwd": 2, "maxpool_fwd": 3},
+                    batches)
     with hdf5.File(feats) as f:
         fc7 = f["fc7"][...]
         chunks = f["fc7"]._layout.chunk
@@ -3135,9 +3194,10 @@ CIFAR_MODEL = REPO / "examples" / "cifar10" / "cifar10_conv.pbtxt"
 CIFAR_DATA = REPO / "examples" / "cifar10" / "cifar10_train_data.pbtxt"
 FORMAT_BATCHES, FORMAT_STEPS = 20, 10
 # a CIFAR-10 f32 train step's launches: rnorm1 and rnorm2, fc1's dropout
-# forward and backward, one step_draws (its dropout key); an f32 model's
-# input takes no prologue kernel
-CIFAR_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 2, "step_draws": 1}
+# forward and backward, one step_draws (its dropout key), the pair at its
+# three pools; an f32 model's input takes no prologue kernel
+CIFAR_PER_STEP = {"lrn_fwd": 2, "lrn_bwd": 2, "dropout": 2, "step_draws": 1, "maxpool_fwd": 3,
+                  "maxpool_bwd": 3}
 
 
 def repointed(template: Path, paths: dict) -> str:
@@ -4113,7 +4173,7 @@ def check_pipeline(dev, card):
     runs = (
         ("alexnet_inference", lambda: [bp.bench_alexnet_inference(dev, b, PIPELINE_STEPS)
                                        for b in (1024, 256)],
-         {"lrn_fwd": 2, "s2d_prologue": 1}, 2 * calls),
+         SERVE_PER_BATCH, 2 * calls),
         ("aug_pipeline", lambda: [bp.bench_aug(dev, steps=PIPELINE_STEPS)],
          {"s2d_prologue": 1, "step_draws": 1}, calls),
         ("cifar_step", lambda: [bp.bench_cifar_step(dev, steps=PIPELINE_STEPS)], CIFAR_PER_STEP,
@@ -4378,8 +4438,7 @@ def check_probe_predictors(dev, card) -> dict:
         out = pred({"input": req})
         paths[f"serving_probe_batch{batch}"] = read_launches()
         expect_launches(f"a request of {batch} to the serving probe's Predictor",
-                        paths[f"serving_probe_batch{batch}"], {"lrn_fwd": 2, "s2d_prologue": 1},
-                        1)
+                        paths[f"serving_probe_batch{batch}"], SERVE_PER_BATCH, 1)
         errs[batch] = expect_served(f"phase 11c: the serving probe's Predictor at batch {batch}",
                                     graph, params, req, out, spec, mean_t, card)
         if batch == 1:
@@ -4711,16 +4770,15 @@ CIFAR_LOCAL = REPO / "examples" / "cifar10" / "cifar10_local.pbtxt"
 IMAGENET_TRAIN = REPO / "examples" / "imagenet" / "imagenet_train_data.pbtxt"
 IMAGENET_VAL = REPO / "examples" / "imagenet" / "imagenet_val_data.pbtxt"
 EXAMPLE_STEPS, EXAMPLE_LOG, JPEG_ROWS = 20, 5, 256
-# mnist_lenet's f32 step: fc1's dropout forward and backward and one
-# step_draws (its key); its input (one channel at 28, no crop) is scaled in
-# plain PyTorch, since the prologue kernel takes only bf16 strided convs
-# (s2d_relayout.prologue_plan, as the JAX package's); under
-# CONVNET_POOL_BACKEND=pallas both pools take the max pool kernel
-LENET_PER_STEP = {"dropout": 2, "step_draws": 1}
-LENET_POOL_PER_STEP = {**LENET_PER_STEP, "maxpool_fwd": 2}
-# cifar10_local's f32 step: one step_draws (the template's flips); no
-# dropout, no LRN, ATen's max pools
-CIFAR_LOCAL_PER_STEP = {"step_draws": 1}
+# mnist_lenet's f32 step: fc1's dropout forward and backward, one
+# step_draws (its key) and the max pool pair at both pools; its input (one
+# channel at 28, no crop) is scaled in plain PyTorch, since the prologue
+# kernel takes only bf16 strided convs (s2d_relayout.prologue_plan, as the
+# JAX package's)
+LENET_PER_STEP = {"dropout": 2, "step_draws": 1, "maxpool_fwd": 2, "maxpool_bwd": 2}
+# cifar10_local's f32 step: one step_draws (the template's flips), the max
+# pool pair at both pools; no dropout, no LRN
+CIFAR_LOCAL_PER_STEP = {"step_draws": 1, "maxpool_fwd": 2, "maxpool_bwd": 2}
 # the max pools of both models (k, s, pad): mnist's exact-cover 2x2/2 and
 # cifar10_local's 3x3/2 on 32 and 16, whose last window hangs off the input
 EXAMPLE_POOLS = [("mnist pool1", (BATCH, 28, 28, 16), 2, 2, 0),
@@ -4842,8 +4900,7 @@ def check_mnist(dev, gen, directory: Path, card):
     CLI over examples/mnist/mnist_dummy_train.pbtxt as it stands (the model
     copied with a loss logged every EXAMPLE_LOG steps); from the trained
     state, PARITY_STEPS steps of the port's step against the plain-composed
-    one (dropout on, the same keys), with the default pool and under
-    CONVNET_POOL_BACKEND=pallas, each path's launches counted; the step's
+    one (dropout on, the same keys), its launches counted; the step's
     times; a Predictor at batch 1 and 64 within phase 3's bar of the plain
     forward. Returns (facts, {path: launches})."""
     import numpy as np
@@ -4869,16 +4926,13 @@ def check_mnist(dev, gen, directory: Path, card):
     data.close()
     spec = jitter["input"][0]
     plain_step = plain_sequential_step(graph, spec)
-    for path, per_step, ctx in (("mnist_lenet_parity", LENET_PER_STEP, contextlib.nullcontext()),
-                                ("mnist_lenet_pool_kernel", LENET_POOL_PER_STEP, pool_switches())):
-        with ctx:
-            print(f"[{card}] phase 8h (a): mnist_lenet, the port's step against the plain one "
-                  f"({path}):")
-            reset_launches()
-            check_train_parity(graph, state, jitter, batches[:PARITY_STEPS], None, None, card,
-                               plain_step=plain_step)
-            paths[path] = read_launches()
-            expect_launches(f"phase 8h (a): {path}", paths[path], per_step, PARITY_STEPS)
+    print(f"[{card}] phase 8h (a): mnist_lenet, the port's step against the plain one:")
+    reset_launches()
+    check_train_parity(graph, state, jitter, batches[:PARITY_STEPS], None, None, card,
+                       plain_step=plain_step)
+    paths["mnist_lenet_parity"] = read_launches()
+    expect_launches("phase 8h (a): mnist_lenet_parity", paths["mnist_lenet_parity"],
+                    LENET_PER_STEP, PARITY_STEPS)
     facts["step_ms"] = launch_times(graph, state, jitter, batches, card, paths=("train",),
                                     what="mnist_lenet")["train"]
     facts["train_cli"] = {"seconds": run_s, "logged": logged}
@@ -5028,7 +5082,7 @@ def check_imagenet_jpeg(dev, directory: Path, card):
     extract_s = time.perf_counter() - t0
     paths["alexnet_imagenet_jpeg_extract"] = read_launches()
     expect_launches("phase 8h (c): the JPEG extract", paths["alexnet_imagenet_jpeg_extract"],
-                    {"lrn_fwd": 2}, -(-JPEG_ROWS // BATCH))
+                    {"lrn_fwd": 2, "maxpool_fwd": 3}, -(-JPEG_ROWS // BATCH))
     with hdf5.File(feats) as f:
         fc7 = f["fc7"][...]
     if rc != 0 or fc7.shape != (JPEG_ROWS, 4096) or not np.isfinite(fc7).all():
@@ -5161,8 +5215,7 @@ def main(argv=None) -> int:
     outs = [pred({"input": r}) for r in requests]
     serve_launches = read_launches()
     print(f"[{card}] launches during {len(REQUESTS)} requests: {serve_launches}")
-    expect_launches("the requests", serve_launches, {"lrn_fwd": 2, "s2d_prologue": 1},
-                    len(REQUESTS))
+    expect_launches("the requests", serve_launches, SERVE_PER_BATCH, len(REQUESTS))
 
     mean_t = torch.as_tensor(mean, device=dev)
     for req, out in zip(requests, outs):
@@ -5214,8 +5267,8 @@ def main(argv=None) -> int:
         print(f"[{card}] launches during {TRAIN_STEPS} train steps with {POOL_SWITCHES} "
               f"({ref_s:.3f} s): {ref_launches}")
         expect_launches("the reference-gradient train steps", ref_launches,
-                        {"pool_lrn_fwd": 2, "pool_lrn_bwd": 2, "maxpool_fwd": 1, "dropout": 4,
-                         "s2d_prologue": 1, "step_draws": 1}, TRAIN_STEPS)
+                        {"pool_lrn_fwd": 2, "pool_lrn_bwd": 2, "maxpool_fwd": 1, "maxpool_bwd": 1,
+                         "dropout": 4, "s2d_prologue": 1, "step_draws": 1}, TRAIN_STEPS)
         for name, p in trainer.state["params"].items():
             for k, v in p.items():
                 if not torch.isfinite(v).all():
@@ -5331,8 +5384,7 @@ def main(argv=None) -> int:
              # over the virtual shard of its halves and over the SOHM shard
              "hdf5_latest_cifar10": formats_launches, "hdf5_vds_cifar10": vds_launches,
              "hdf5_sohm_cifar10": sohm_launches,
-             # phase 8h: mnist_lenet's train CLI run, its parity steps with
-             # the default pool and with the max pool kernel, and its
+             # phase 8h: mnist_lenet's train CLI run, its parity steps, and its
              # Predictor's requests; cifar10_local's Trainer; AlexNet's
              # train CLI over the ImageNet JPEG template and its extract
              **example_paths,
@@ -5383,8 +5435,13 @@ def main(argv=None) -> int:
                "train"),
         kernel("s2d_prologue", "s2d_prologue.cu", "s2d_relayout.py:200",
                ["prologue.py:93", "jitter_gather.py:96"], s2d_err, ["s2d_prologue"], "train"),
-        kernel("maxpool_fwd", "maxpool_fwd.cu", "pool.py:87", [], pool_err, ["maxpool_fwd pool5"],
-               "reference_gradient"),
+        kernel("maxpool_fwd", "maxpool_fwd.cu", "pool.py:87", [], pool_err,
+               ["maxpool_fwd taps pool1", "maxpool_fwd taps pool2", "maxpool_fwd taps pool5"],
+               "train"),
+        # the backward of the TPU's max pool is XLA's select-and-scatter
+        # (pool.py:173-181): no Pallas kernel of its own
+        kernel("maxpool_bwd", "maxpool_bwd.cu", "pool.py:176", [], pool_err,
+               ["maxpool_bwd pool1", "maxpool_bwd pool2", "maxpool_bwd pool5"], "train"),
         kernel("pool_lrn_fwd", "pool_lrn.cu", "fused_pool_lrn.py:388", [], plrn_err,
                ["pool_lrn_fwd rnorm1", "pool_lrn_fwd rnorm2"], "reference_gradient"),
         kernel("pool_lrn_bwd", "pool_lrn.cu", "fused_pool_lrn.py:134", [], plrn_bwd_err,

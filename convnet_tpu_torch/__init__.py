@@ -26,7 +26,8 @@ those paths are hand-written CUDA kernels here (`csrc/`, bound in
   backward;
 - `ops/s2d_relayout.py`: the uint8 -> space-to-depth input prologue,
   with per-image crops and flips;
-- `ops/pool.py`: the max pool forward, under CONVNET_POOL_BACKEND=pallas;
+- `ops/pool.py`: the max pool forward, which where a gradient is wanted
+  also writes each window's argmax as one byte, and the backward from it;
 - `ops/fused_pool_lrn.py`: response norm then max pool, forward and
   backward (the reference's all-ties pool gradient), for the LRN -> pool
   chains of a train step under CONVNET_POOL_LRN_FUSED=1.

@@ -35,6 +35,7 @@ KERNEL_NAMES = {
     "lrn_fwd": r"\blrn_fwd_(regs|generic)\b", "lrn_bwd": r"\blrn_bwd_kernel\b",
     "dropout": r"\bdropout_kernel\b", "step_draws": r"\bstep_draws_kernel\b",
     "s2d_prologue": r"\bs2d_prologue_kernel\b", "maxpool_fwd": r"\bmaxpool_fwd_kernel\b",
+    "maxpool_bwd": r"\bmaxpool_bwd_(kernel|tiles)\b",
     "pool_lrn_fwd": r"\bpool_lrn_fwd_(fast|generic)\b",
     "pool_lrn_bwd": r"\bpool_lrn_bwd_(fast|generic)\b",
     "copy_add": r"\bcopy_add_kernel\b",
@@ -52,7 +53,8 @@ def launch_counts() -> Dict[str, int]:
 
     return {"lrn_fwd": lrn.LAUNCHES, "lrn_bwd": lrn.BWD_LAUNCHES, "dropout": dropout.LAUNCHES,
             "step_draws": dropout.DRAW_LAUNCHES, "s2d_prologue": s2d_relayout.LAUNCHES,
-            "maxpool_fwd": pool.LAUNCHES, "pool_lrn_fwd": fused_pool_lrn.LAUNCHES,
+            "maxpool_fwd": pool.LAUNCHES, "maxpool_bwd": pool.BWD_LAUNCHES,
+            "pool_lrn_fwd": fused_pool_lrn.LAUNCHES,
             "pool_lrn_bwd": fused_pool_lrn.BWD_LAUNCHES, "copy_add": copy_add.LAUNCHES,
             "crop_window": gather.CROP_WINDOW_LAUNCHES, "relayout": gather.RELAYOUT_LAUNCHES,
             "crop_deinterleave": gather.CROP_DEINTERLEAVE_LAUNCHES}

@@ -47,8 +47,10 @@ _SIGNATURES = {
     "cn_step_draws": [_p, _p, _i, _p, _u32, _u32] + [_i] * 6 + [_p] * 4,
     # x, oy, ox, flip, mean, std, out, b, h, w, c, crop, s, p, scale, stream
     "cn_s2d_prologue": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
-    # x, y, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream
-    "cn_maxpool_fwd": [_p, _p] + [_i] * 10 + [_p],
+    # x, y, taps, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream
+    "cn_maxpool_fwd": [_p, _p, _p] + [_i] * 10 + [_p],
+    # dy, taps, dx, b, h, w, c, oh, ow, k, s, pad, is_bf16, stream
+    "cn_maxpool_bwd": [_p, _p, _p] + [_i] * 10 + [_p],
     # z, bias, m, b, h, w, c, oh, ow, k, s, is_bf16, relu, blocked, n, alpha, beta, q,
     # stream
     "cn_pool_lrn_fwd": [_p] * 3 + [_i] * 12 + [_f, _f, _i, _p],

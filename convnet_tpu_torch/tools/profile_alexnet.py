@@ -67,8 +67,8 @@ TRACE_STEPS = 5
 #: the category of each of the port's kernels (ops.KERNEL_NAMES)
 _OWN = {"lrn_fwd": "lrn", "lrn_bwd": "lrn", "pool_lrn_fwd": "lrn", "pool_lrn_bwd": "lrn",
         "dropout": "dropout", "step_draws": "dropout", "s2d_prologue": "prologue",
-        "maxpool_fwd": "pool-fwd", "copy_add": "copy", "crop_window": "copy",
-        "relayout": "copy", "crop_deinterleave": "prologue"}
+        "maxpool_fwd": "pool-fwd", "maxpool_bwd": "pool-bwd", "copy_add": "copy",
+        "crop_window": "copy", "relayout": "copy", "crop_deinterleave": "prologue"}
 #: Words of cuDNN's and cuBLAS's kernel names (convolutions and GEMMs).
 _CONV_WORDS = ("cudnn", "conv", "xmma", "gemm", "gemv", "cutlass", "implicit", "wgrad", "dgrad",
                "fprop", "splitk")

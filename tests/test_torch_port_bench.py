@@ -166,6 +166,8 @@ def test_profile_on_the_cpu(capsys, tmp_path):
     ("step_draws_kernel(long const*, KeyWords, int, long*, CropDraw, int*, int*, unsigned char*)",
      "dropout"),
     ("void maxpool_fwd_kernel<__nv_bfloat16, 3, 2>(...)", "pool-fwd"),
+    ("void (anonymous namespace)::maxpool_bwd_tiles<__nv_bfloat16, 4, unsigned char, 3, 2>(...)",
+     "pool-bwd"),
     ("void at::native::(anonymous namespace)::max_pool_forward_nhwc<c10::BFloat16, float>",
      "pool-fwd"),
     ("void at::native::(anonymous namespace)::max_pool_backward_nhwc<c10::BFloat16, float>",

@@ -117,15 +117,15 @@ def test_library_is_keyed_by_the_sources():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
     assert names == {"lrn_fwd.cu", "lrn_bwd.cu", "dropout.cu", "s2d_prologue.cu",
-                     "maxpool_fwd.cu", "pool_lrn.cu", "copy_add.cu", "crop_window.cu",
-                     "relayout.cu", "crop_deinterleave.cu"}
+                     "maxpool_fwd.cu", "maxpool_bwd.cu", "pool_lrn.cu", "copy_add.cu",
+                     "crop_window.cu", "relayout.cu", "crop_deinterleave.cu"}
     # the shared headers are hashed too: editing one builds a new library
     assert {p.name for p in _build._hashed_files()} == names | {"lrn_math.cuh", "dtype.cuh",
                                                                      "stage.cuh", "span.cuh"}
     assert set(_build._SIGNATURES) == {"cn_lrn_fwd", "cn_lrn_bwd", "cn_dropout", "cn_step_draws",
-                                       "cn_s2d_prologue", "cn_maxpool_fwd", "cn_pool_lrn_fwd",
-                                       "cn_pool_lrn_bwd", "cn_copy_add", "cn_crop_window",
-                                       "cn_relayout", "cn_crop_deinterleave"}
+                                       "cn_s2d_prologue", "cn_maxpool_fwd", "cn_maxpool_bwd",
+                                       "cn_pool_lrn_fwd", "cn_pool_lrn_bwd", "cn_copy_add",
+                                       "cn_crop_window", "cn_relayout", "cn_crop_deinterleave"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -144,6 +144,8 @@ def test_kernel_names_match_the_sources():
         assert any(re.search(pattern, k) for k in kernels), name
     assert {k for k in kernels if re.search(KERNEL_NAMES["relayout"], k)} == {
         "relayout_run_kernel", "relayout_tile_kernel"}
+    assert {k for k in kernels if re.search(KERNEL_NAMES["maxpool_bwd"], k)} == {
+        "maxpool_bwd_kernel", "maxpool_bwd_tiles"}
 
 
 @pytest.mark.parametrize("beta,q", [(0.75, 3), (1.0, 4), (1.25, 5), (0.6, 0), (5.0, 0)])
@@ -173,18 +175,80 @@ def test_pool_wrappers_take_the_plain_versions_on_cpu():
     z = torch.from_numpy((np.round(rng.standard_normal((2, 7, 7, 16)) * 2) / 2).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((2, 3, 3, 16)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
-    before = (pool.LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES)
+    before = (pool.LAUNCHES, pool.BWD_LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES)
     assert torch.equal(pool.maxpool_fwd(z, 3, 2), pool.maxpool_reference(z, 3, 2))
+    y, taps = pool.maxpool_fwd(z, 3, 2, taps=True)
+    assert torch.equal(y, pool.maxpool_reference(z, 3, 2)) and taps.dtype == torch.uint8
+    assert torch.equal(pool.maxpool_bwd(g, taps, 7, 7, 3, 2),
+                       pool.maxpool_bwd_reference(g, taps, 7, 7, 3, 2))
     m = plrn.pool_lrn_fwd(z, 5, 0.2, 0.75, 3, 2, bias=b, relu=True)
     assert torch.equal(m, pool.maxpool_reference(lrn._fwd_math(z, 5, 0.2, 0.75, b, True), 3, 2))
     dz, db = plrn.pool_lrn_bwd(g, m, z, 5, 0.2, 0.75, 3, 2, bias=b, relu=True)
     want_dz, want_db = plrn._bwd_reference(g, m, z, 5, 0.2, 0.75, 3, 2, b, True)
     assert torch.equal(dz, want_dz) and torch.equal(db, want_db)
-    assert (pool.LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES) == before
+    assert (pool.LAUNCHES, pool.BWD_LAUNCHES, plrn.LAUNCHES, plrn.BWD_LAUNCHES) == before
     with pytest.raises(ValueError, match="pooled shape"):
         plrn.pool_lrn_bwd(g[:, :2], m, z, 5, 0.2, 0.75, 3, 2)
     with pytest.raises(ValueError, match="padding 0"):
         plrn.lrn_maxpool(z, 1.0, 0.75, 5 / 16, False, 3, 2, 1)
+
+
+# The max pool pair's geometries, (h, k, s, pad): AlexNet's three pools,
+# mnist_lenet's k = 2, s = 2, and a padded one whose ceil-mode last window
+# hangs off the input.
+PAIR_CASES = [(55, 3, 2, 0), (27, 3, 2, 0), (13, 3, 2, 0), (28, 2, 2, 0), (14, 3, 2, 1)]
+
+
+def _pair_input(x):
+    """x (B, H, W, C) f32 on a grid of halves, made tie-heavy in place:
+    post-ReLU zeros (the first image), -0 among +0 (the second), NaNs, and
+    a 4 x 4 corner of -inf in the last, so that its first windows hold
+    nothing above -inf. Returns x."""
+    x[0] = x[0].clamp(min=0.0)
+    x[1, ::2, 1::2] = torch.where(x[1, ::2, 1::2] == 0, -0.0, x[1, ::2, 1::2])
+    x[1, 1::3, ::2] = torch.where(x[1, 1::3, ::2] <= 0, -0.0, x[1, 1::3, ::2])
+    x[2, 3, 4] = float("nan")
+    x[2, 5, 5, ::2] = float("nan")
+    x[-1, :4, :4] = float("-inf")
+    return x
+
+
+def _bits_or_nan(a, b):
+    """Bit for bit, but any NaN equals any NaN: the CPU's bf16 max pool
+    does not keep a NaN's payload (the card's does, and is held to it)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and _same_bits(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,s,p", PAIR_CASES)
+def test_maxpool_pair_plain_matches_aten_autograd(dtype, h, k, s, p):
+    """The kernels' plain versions against `F.max_pool2d`'s forward, its
+    argmax and its autograd on the CPU. The backward is held against ATen
+    in f32 (exact inputs), rounded once to the dtype: ATen's CUDA backward
+    sums in f32, the CPU's bf16 one in bf16. dy holds no -0, which the CPU
+    sums to +0 where the card's one-window copy keeps -0."""
+    gen = torch.Generator().manual_seed(h * 10 + k)
+    x = _pair_input(torch.round(2.0 * torch.randn((4, h, h, 8), generator=gen)) / 2).to(dtype)
+    y, taps = pool.maxpool_argmax_reference(x, k, s, p)
+    assert _bits_or_nan(y, pool.maxpool_reference(x, k, s, p))
+    # the taps name ATen's argmax: its flat index into the padded plane
+    plo, phi = conv.ceil_mode_padding(h, k, s, p)
+    xt = torch.nn.functional.pad(x.float().permute(0, 3, 1, 2), (plo, phi, plo, phi),
+                                 value=float("-inf"))
+    _, index = torch.nn.functional.max_pool2d(xt, k, s, return_indices=True)
+    oh = y.shape[1]
+    at = s * torch.arange(oh)
+    t = taps.long()
+    flat = (at[:, None, None] + t // k) * xt.shape[3] + at[None, :, None] + t % k
+    assert torch.equal(flat, index.permute(0, 2, 3, 1))
+    assert ((taps == 0) & (y == float("-inf"))).any()  # a window with nothing above -inf
+    dy = torch.randn(y.shape, generator=gen).to(dtype)
+    dx = pool.maxpool_bwd_reference(dy, taps, h, h, k, s, p)
+    xf = x.float().requires_grad_()
+    (want,) = torch.autograd.grad(pool.maxpool_reference(xf, k, s, p), xf, dy.float())
+    assert _same_bits(dx, want.to(dtype))
+    assert (dx != 0).sum() <= dy.numel()  # one winner a window, ties or not
 
 
 def test_dropout_wrapper_takes_the_plain_version_on_cpu():
@@ -734,17 +798,90 @@ def test_maxpool_kernel_keeps_the_first_zero_and_the_last_nan(cuda, dtype, c):
 
 
 def test_maxpool_switch_keeps_the_single_winner_gradient(cuda, monkeypatch):
+    """maxpool2d on the card takes the kernel pair where x needs its
+    gradient, whatever CONVNET_POOL_BACKEND says (the port does not read
+    it): ATen's single-winner gradient bit for bit. Where no gradient is
+    wanted, the forward alone, without taps."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     x = _halves(gen, (4, 13, 13, 32), cuda, torch.bfloat16)
     g = torch.randn((4, 6, 6, 32), generator=gen, device=cuda).to(torch.bfloat16)
     xx = x.clone().requires_grad_()
-    (want,) = torch.autograd.grad(pool.maxpool2d(xx, 3, 2), xx, g)
-    monkeypatch.setenv("CONVNET_POOL_BACKEND", "pallas")
-    before = pool.LAUNCHES
+    (want,) = torch.autograd.grad(pool.maxpool_reference(xx, 3, 2), xx, g)
+    for backend in ("auto", "pallas", "xla"):
+        monkeypatch.setenv("CONVNET_POOL_BACKEND", backend)
+        before = (pool.LAUNCHES, pool.BWD_LAUNCHES)
+        xx = x.clone().requires_grad_()
+        (got,) = torch.autograd.grad(pool.maxpool2d(xx, 3, 2), xx, g)
+        assert (pool.LAUNCHES, pool.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        assert _same_bits(got, want)
+    before = (pool.LAUNCHES, pool.BWD_LAUNCHES)
+    with torch.no_grad():
+        y = pool.maxpool2d(x.clone().requires_grad_(), 3, 2)
+    assert _same_bits(pool.maxpool2d(x, 3, 2), y)
+    assert (pool.LAUNCHES, pool.BWD_LAUNCHES) == (before[0] + 2, before[1])
+    assert _same_bits(y, pool.maxpool_reference(x, 3, 2))
+
+
+# The pair's card cases: the forward's, tiles that lie wholly in the
+# padding (pad 2 at s = 2), and a window of more than 256 taps (int32 taps).
+PAIR_CARD_CASES = MAXPOOL_CASES + [(11, 16, 3, 2, 2), (9, 16, 2, 2, 1), (40, 8, 17, 8, 3)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,k,s,p", PAIR_CARD_CASES)
+def test_maxpool_pair_matches_aten(cuda, dtype, h, c, k, s, p, offset):
+    """The forward with taps and the backward bit for bit against ATen's
+    max pool and its autograd on the card, on the CPU test's tie-heavy
+    input (post-ReLU zeros, -0 among +0, windows of -inf) with NaNs of
+    several payloads planted, dy with rows of -0, from aligned tensors and
+    from views off a 16-byte boundary; the taps and dx against the plain
+    versions too. A window with nothing above -inf is the one exception:
+    ATen's NHWC kernel credits the padded plane's first position there,
+    outside the window but for the first, where its CPU and NCHW kernels
+    and the JAX package credit the window's first tap, as the kernels do;
+    against ATen those windows' dy is 0."""
+    gen = torch.Generator(device=cuda).manual_seed(h + c + k)
+    x = _plant_nans(gen, _pair_input(_halves(gen, (4, h, h, c), cuda, torch.float32)).to(dtype))
+    before = (pool.LAUNCHES, pool.BWD_LAUNCHES)
+    y, taps = pool.maxpool_fwd(_at_offset(x, offset), k, s, p, taps=True)
+    assert _same_bits(y, pool.maxpool_reference(x, k, s, p))
+    assert torch.equal(taps, pool.maxpool_argmax_reference(x, k, s, p)[1])
+    dy = torch.randn(y.shape, generator=gen, device=cuda).to(dtype)
+    dy[:, ::3] = -0.0
+    dx = pool.maxpool_bwd(_at_offset(dy, offset), taps, h, h, k, s, p)
+    assert (pool.LAUNCHES, pool.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _same_bits(dx, pool.maxpool_bwd_reference(dy, taps, h, h, k, s, p))
+    finite = torch.where(y == float("-inf"), 0.0, dy)
+    assert (y == float("-inf")).any() or k > 4 + p  # the -inf corner holds whole windows
     xx = x.clone().requires_grad_()
-    (got,) = torch.autograd.grad(pool.maxpool2d(xx, 3, 2), xx, g)
-    assert pool.LAUNCHES == before + 1
-    assert torch.equal(got, want)
+    (want,) = torch.autograd.grad(pool.maxpool_reference(xx, k, s, p), xx, finite)
+    assert _same_bits(pool.maxpool_bwd(_at_offset(finite, offset), taps, h, h, k, s, p), want)
+
+
+def test_alexnet_step_runs_the_pool_pair(cuda):
+    """One AlexNet train step on the card (batch 8) launches the forward
+    with taps and the backward once a MAXPOOL edge, 3 each, and the card
+    runs no ATen max-pool kernel."""
+    from convnet_tpu_torch import bench, ops
+    from convnet_tpu_torch.trainer import init_state, make_train_step
+
+    graph = bench.alexnet_graph()
+    step = make_train_step(graph, bench.train_jitter(224))
+    state = init_state(graph, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = bench.random_batch((8,), 224 + bench.RAW_MARGIN, cuda, gen)
+    step(state, batch)
+    before = ops.launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["maxpool_fwd"] - before["maxpool_fwd"] == 3
+    assert after["maxpool_bwd"] - before["maxpool_bwd"] == 3
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("maxpool_bwd_tiles" in n for n in names)
+    assert not any("max_pool" in n for n in names), [n for n in names if "max_pool" in n]
 
 
 POOL_LRN_CASES = [  # (h, c, k, s, frac, bias + relu, blocked)

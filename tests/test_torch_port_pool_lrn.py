@@ -1,7 +1,7 @@
 """The port's reference-gradient pool path against the JAX package's, on the
 CPU: the fused LRN -> max pool op with cuda-convnet's all-ties pool
-gradient (TPU kernel table rows 12 and 13), the max pool under
-CONVNET_POOL_BACKEND=pallas (row 10), the MaxPoolUndo oracle, the model's
+gradient (TPU kernel table rows 12 and 13), the max pool against the JAX
+package's Pallas kernel (row 10), the MaxPoolUndo oracle, the model's
 deferral plan under CONVNET_POOL_LRN_FUSED=1, and the two other forms of
 the train prologue (rows 8 and 9).
 
@@ -170,30 +170,37 @@ def test_ties_credit_every_winner():
 
 
 # ---------------------------------------------------------------------------
-# Row 10: the max pool under CONVNET_POOL_BACKEND=pallas; the MaxPoolUndo oracle
+# Row 10: the max pool against the JAX package's Pallas kernel; the
+# MaxPoolUndo oracle
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("b,h,c,k,s", [(8, 13, 16, 3, 2), (8, 8, 16, 2, 2), (4, 9, 32, 3, 3)])
 def test_maxpool_switch_matches_jax_pallas(dtype, b, h, c, k, s, monkeypatch):
-    """Shapes the JAX kernel's gate accepts (exact cover, C*B % 128 == 0):
-    the forward array-equal; the VJP the port's default (ATen, one winner)
-    pool gradient."""
+    """Shapes the JAX kernel's gate accepts (exact cover, C*B % 128 == 0),
+    the JAX package under CONVNET_POOL_BACKEND=pallas, which the port does
+    not read (its one path): the forward array-equal, the VJP array-equal
+    to the JAX package's (its Pallas forward, select-and-scatter's one
+    winner), and the kernels' plain pair's forward and, where no position
+    is credited by more than one window or in f32, its gradient too (the
+    card sums a bf16 gradient in f32, the CPU and XLA here in bf16)."""
     monkeypatch.setenv("CONVNET_POOL_BACKEND", "pallas")
     assert jax_pool._pool_form(jnp.zeros((b, h, h, c)), k, s, 0) is not None
     rng = np.random.default_rng(h * c)
     xj = jnp.asarray(_halves(rng, (b, h, h, c)), JAX_DT[dtype])
-    want = jax_pool.maxpool2d(xj, k, s)
+    want, vjp = jax.vjp(lambda a: jax_pool.maxpool2d(a, k, s), xj)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(TORCH_DT[dtype]).requires_grad_()
     got = pt_pool.maxpool2d(xt, k, s)
     np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
     g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32)).to(TORCH_DT[dtype])
     (dx,) = torch.autograd.grad(got, xt, g)
-    monkeypatch.delenv("CONVNET_POOL_BACKEND")
-    xd = xt.detach().clone().requires_grad_()
-    (want_dx,) = torch.autograd.grad(pt_pool.maxpool2d(xd, k, s), xd, g)
-    assert torch.equal(dx, want_dx)
+    (want_dx,) = vjp(jnp.asarray(_np(g), JAX_DT[dtype]))
+    np.testing.assert_array_equal(_np(dx), np.asarray(want_dx, np.float32))
+    y, taps = pt_pool.maxpool_argmax_reference(xt.detach(), k, s)
+    assert torch.equal(y, got)
+    if dtype == "f32" or k <= s:
+        assert torch.equal(pt_pool.maxpool_bwd_reference(g, taps, h, h, k, s), dx)
 
 
 @pytest.mark.parametrize("h,k,s,p", [(8, 3, 2, 0), (7, 3, 2, 0), (9, 2, 2, 0), (9, 3, 2, 1),
@@ -239,9 +246,10 @@ edge {{ source: "fc" dest: "output" edge_type: FC initialization: DENSE_GAUSSIAN
 
 def _switches(monkeypatch):
     monkeypatch.setenv("CONVNET_POOL_LRN_FUSED", "1")
+    # the JAX package's TPU path on the CPU: its max pool and fused kernels
+    # in interpret mode, the conv bias deferred into them as the port
+    # always does (the port reads only CONVNET_POOL_LRN_FUSED)
     monkeypatch.setenv("CONVNET_POOL_BACKEND", "pallas")
-    # the JAX package's TPU path on the CPU: the fused kernels in interpret
-    # mode, the conv bias deferred into them as the port always does
     monkeypatch.setenv("CONVNET_POOL_LRN_BACKEND", "pallas")
     monkeypatch.setenv("CONVNET_LRN_BIAS_FUSED", "1")
     monkeypatch.setenv("CONVNET_LRN_BACKEND", "pallas")
