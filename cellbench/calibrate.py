@@ -10,8 +10,9 @@ own runs do not run this):
   the control and the "half" fault below put in the program's place for
   the three steps after the window, from the state that the window left
   ("after_" numbers);
-- control: the reference put in the program's place, computed in the
-  precision below the configuration's (bf16 -> fp8: `Net`'s "fp8"),
+- control: the reference that the configuration names put in the
+  program's place, computed in the precision below the configuration's
+  (bf16 -> fp8: the reference's precision "fp8"),
   against the float32 reference, a line a control seed;
 - faults, in the reference put in the program's place, a line a control
   seed: train: half of the batch left out ("half"); serve: an answer
@@ -43,7 +44,6 @@ import numpy as np
 import torch
 
 from cellbench import check, harness
-from cellbench.reference.net import exact_f32, train_steps
 from cellbench.weights import make_batches, make_requests, make_weights
 
 
@@ -62,8 +62,8 @@ def controls(cell: harness.Cell, seed: int, device) -> dict:
         coords = check.coordinates(shapes, seed, device)
 
         def steps(**kw):
-            return train_steps(net, make_weights(net, seed, device, tr["init"]), batches, seed,
-                               *args, coords=coords, **kw)
+            return cell.reference.train_steps(net, make_weights(net, seed, device, tr["init"]),
+                                              batches, seed, *args, coords=coords, **kw)
 
         ref = steps()
         out["control"] = check.train_gaps(steps(precision="fp8"), ref)
@@ -73,7 +73,7 @@ def controls(cell: harness.Cell, seed: int, device) -> dict:
     params = make_weights(net, seed, device, tr["init"])
     gaps = {(run, n): 0.0 for run in ("control", "altered", "half")
             for n in ("logit_gap", "prob_gap")}
-    with exact_f32(), torch.no_grad():
+    with cell.reference.exact_f32(), torch.no_grad():
         for req in make_requests(seed, tr["pool"], tr["batch"], tr["raw"], channels):
             x = net.prologue(torch.from_numpy(req).to(device), *args)
             p32 = net.probabilities(params, x).double().cpu().numpy()

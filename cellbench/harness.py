@@ -6,7 +6,10 @@ is a file found by its name under the benchmark's root (the directory
 that holds BENCHMARK.json):
 
 - `cellbench/configs/<config>.json`: the model file as it is run, and its
-  cut from the source;
+  cut from the source; its "reference", where it has one, names the plain
+  reference that decides `correct`, `cellbench/reference/<reference>.py`
+  (the shared `net` where it names none; what a reference provides:
+  `cellbench/reference/__init__.py`);
 - `cellbench/traffic/<traffic>.json`: the mix's parameters, whose "kind"
   names the module in `cellbench/kinds/` that runs them;
 - `cellbench/metrics/<metric>.py`: a per-layer metric's reader, a
@@ -35,17 +38,34 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from cellbench.reference.net import Net
 from cellbench import yardstick
 
 #: Modules that no process of the benchmark may hold, by whole top-level name.
 BANNED = ("jax", "jaxlib", "flax", "convnet_tpu")
 ROOT = Path(__file__).resolve().parent.parent
+#: The reference of a configuration that names none.
+DEFAULT_REFERENCE = "net"
 
 
 def _json(path: Path):
     with open(path) as f:
         return json.load(f)
+
+
+def _load(path: Path, name: str):
+    """The module of the file at `path`, held in sys.modules under `name`
+    (where dataclasses look up the module of their class)."""
+    if not path.exists():
+        raise FileNotFoundError(f"no module at {path}")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def _module_name(kind: str, name: str) -> str:
+    return f"cellbench_{kind}_" + name.replace(".", "_").replace("-", "_")
 
 
 def banned_modules() -> List[str]:
@@ -55,7 +75,8 @@ def banned_modules() -> List[str]:
 
 class Cell:
     """One entry of BENCHMARK.json's workloads, with its configuration,
-    traffic, limits, metrics and the reference's network."""
+    traffic, limits, metrics, the reference module that its configuration
+    names (`reference`) and that module's network of the model (`net`)."""
 
     def __init__(self, root: Path, name: str):
         self.root = Path(root)
@@ -66,7 +87,8 @@ class Cell:
         self.name = name
         self.chips = entry[0]["chips"]
         data = self.root / "cellbench"
-        self.config = _json(data / "configs" / f"{entry[0]['config']}.json")
+        config = entry[0]["config"]
+        self.config = _json(data / "configs" / f"{config}.json")
         self.traffic = _json(data / "traffic" / f"{entry[0]['traffic']}.json")
         self.limits = _json(data / "limits" / f"{name}.json")
         self.end_to_end = [m for m in bench["end_to_end"]
@@ -74,17 +96,17 @@ class Cell:
         mine = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in bench["per_layer"]
                           if (name in m["workloads"] if "workloads" in m else m["moves"] in mine)]
-        self.net = Net("\n".join(self.config["model"]), self.config["crop"])
+        ref = self.config.get("reference", DEFAULT_REFERENCE)
+        self.reference = _load(data / "reference" / f"{ref}.py", _module_name("reference", ref))
+        try:
+            self.net = self.reference.Net("\n".join(self.config["model"]), self.config["crop"])
+        except ValueError as err:
+            raise ValueError(f"configuration {config}: reference {ref} refuses the model: "
+                             f"{err}") from err
 
     def reader(self, metric: str) -> Callable:
         path = self.root / "cellbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            "cellbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-        if spec is None or not path.exists():
-            raise FileNotFoundError(f"metric {metric!r} has no reader at {path}")
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(path, _module_name("metric", metric)).read
 
 
 class Context:

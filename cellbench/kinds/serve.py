@@ -17,8 +17,9 @@ the 95th percentile of every request's milliseconds is the per-layer
 `predictor.p95_ms`.
 
 Once the window has closed, the Predictor is freed and the reference
-computes, in float32, the output layer's probabilities of every pool
-request among those sampled; `logit_gap` holds each sampled answer to it.
+that the configuration names (`ctx.cell.reference`) computes, in
+float32, the output layer's probabilities of every pool request among
+those sampled; `logit_gap` holds each sampled answer to it.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ import numpy as np
 import torch
 
 from cellbench import check, measure
-from cellbench.reference.net import exact_f32
 from cellbench.weights import make_requests, make_weights
 
 
@@ -103,7 +103,7 @@ def run(ctx, seed: int, seconds: float, trace: bool, t_start: float):
 
     params = make_weights(net, seed, dev, tr["init"])
     reference = {}
-    with exact_f32(), torch.no_grad():
+    with ctx.cell.reference.exact_f32(), torch.no_grad():
         for j in sorted({j for j, _ in answers}):
             x = net.prologue(torch.from_numpy(requests[j]).to(dev), cfg["crop"], cfg["scale"],
                              cfg["mean"])

@@ -19,13 +19,14 @@ Once the window has closed (and, in a traced run, the per-layer metrics
 are read), the same step function drives the state that the window left
 through three more steps (`follow` again), from the pool's fourth batch
 on, so that a batch that the first three did not take is held too. Then
-the port's state is freed and the reference runs both stretches in
-float32 with the same batches and draws: the first from the seed's
-weights, the second from a copy of the state that the window left (the
-reference cannot follow the window's hundreds of steps in less time than
-the window). `correct` holds the gaps of the loss, the first gradient
-and the change to their limits (`cellbench.check`; the second
-stretch's numbers are named "after_...").
+the port's state is freed and the reference that the configuration
+names (`ctx.cell.reference`) runs both stretches in float32 with the
+same batches and draws: the first from the seed's weights, the second
+from a copy of the state that the window left (the reference cannot
+follow the window's hundreds of steps in less time than the window).
+`correct` holds the gaps of the loss, the first gradient and the change
+to their limits (`cellbench.check`; the second stretch's numbers are
+named "after_...").
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ import numpy as np
 import torch
 
 from cellbench import check, measure
-from cellbench.reference.net import train_steps
 from cellbench.weights import make_batches, make_weights
 
 
@@ -45,6 +45,7 @@ def run(ctx, seed: int, seconds: float, trace: bool, t_start: float):
     from convnet_tpu_torch.data.jitter import JitterSpec
 
     cfg, tr, net, dev = ctx.cell.config, ctx.cell.traffic, ctx.net, ctx.device
+    train_steps = ctx.cell.reference.train_steps
     cuda = dev.type == "cuda"
     batch, pool_n = tr["batch"], tr["pool"]
     if pool_n < 3 or tr["warmup"] < 1:

@@ -12,7 +12,8 @@ import torch
 from cellbench import calibrate, harness
 
 
-@pytest.mark.parametrize("cell", ["tiny.train", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.train", "tiny.serve", "tinyjoin.train",
+                                  "tinyjoin.serve"])
 def test_control_and_faults_fail_the_limits(root, cell):
     c = harness.Cell(root, cell)
     for seed in (11, 12, 13):

@@ -41,6 +41,9 @@ def test_every_named_piece_has_its_file():
     data = REPO / "cellbench"
     for c in bench["configs"]:
         assert (REPO / c["file"]).exists()
+        ref = json.loads((REPO / c["file"]).read_text()).get("reference",
+                                                             harness.DEFAULT_REFERENCE)
+        assert (data / "reference" / f"{ref}.py").exists(), (c["name"], ref)
     for w in bench["workloads"]:
         assert (data / "traffic" / f"{w['traffic']}.json").exists()
         assert (data / "limits" / f"{w['name']}.json").exists()

@@ -1,18 +1,71 @@
-"""The reference: its reader of the model text, its frozen copy of the
-port's draws, and, at float32 where rounding cannot hide a difference of
-meaning, agreement with the port's train step to round-off (the witness
-that the reference means what the port means)."""
+"""The references: each provides what the benchmark takes from one
+(`cellbench/reference/__init__.py`); the shared reader of the model text
+and frozen copy of the port's draws; and, at float32 where rounding cannot
+hide a difference of meaning, each reference's agreement with the port's
+train step to round-off (the witness that the reference means what the
+port means)."""
 
+import re
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from cellbench import check, harness
-from cellbench.reference import draws
+from cellbench import check, harness, reference
+from cellbench.reference import draws, net
 from cellbench.reference.textproto import parse
-from cellbench.tests import tiny
+from cellbench.tests import join, tiny
+
+
+def assert_interface(module, model: str, crop: int):
+    """The reference `module` provides every name of the interface, its
+    Net of `model` at `crop` too, and that Net's layers, edges and
+    optimizers."""
+    def has(obj, names, what):
+        missing = [n for n in names if not hasattr(obj, n)]
+        assert not missing, f"{module.__name__}: {what} lacks {missing}"
+
+    has(module, reference.MODULE, "the module")
+    n = module.Net(model, crop)
+    has(n, reference.NET, "Net")
+    has(n.input, reference.INPUT, "Net.input")
+    has(n.output, reference.OUTPUT, "Net.output")
+    for layer in n.layers.values():
+        has(layer, reference.LAYER, "a layer")
+    for e in n.edges:
+        has(e, reference.EDGE, "an edge")
+        has(e.wopt, reference.OPTIM, "an optimizer")
+        has(e.bopt, reference.OPTIM, "an optimizer")
+    assert set(n.param_shapes()) == {e.name for e in n.weighted}
+
+
+@pytest.mark.parametrize("module,model", [(net, tiny.MODEL), (join, tiny.JOIN_MODEL)])
+def test_each_reference_provides_the_interface(module, model):
+    assert_interface(module, model, 16)
+
+
+def test_the_interface_is_written_down_and_covers_what_the_harness_reads():
+    doc = reference.__doc__
+    for names in (reference.MODULE, reference.NET, reference.INPUT, reference.OUTPUT,
+                  reference.LAYER, reference.EDGE, reference.OPTIM):
+        for name in names:
+            assert f"`{name}" in doc or f"`.{name}" in doc, name
+    root = tiny.REPO / "cellbench"
+    read = set()
+    for path in root.rglob("*.py"):
+        if not {"reference", "tests"} & set(path.relative_to(root).parts):
+            read |= set(re.findall(r"\bnet\.(\w+)", path.read_text()))
+    assert read <= set(reference.NET), read - set(reference.NET)
+
+
+@pytest.mark.parametrize("cell", ["alexnet.train.b1024", "alexnet_local.train.b1024"])
+def test_the_cells_reference_is_the_shared_net(cell):
+    c = harness.Cell(tiny.REPO, cell)
+    direct = net.Net("\n".join(c.config["model"]), c.config["crop"])
+    assert c.reference.__file__ == net.__file__
+    assert c.net.param_shapes() == direct.param_shapes()
+    assert c.net.flops_per_image() == direct.flops_per_image()
 
 
 def test_textproto():
@@ -44,13 +97,16 @@ def test_draws_follow_the_port(seed, step):
                                              "cpu").view(x.shape))
 
 
-def test_float32_port_matches_the_reference(tmp_path, monkeypatch):
-    model = [l for l in tiny.CONFIG["model"] if "activation_dtype" not in l]
+@pytest.mark.parametrize("config,cell", [("CONFIG", "tiny.train"),
+                                         ("JOIN_CONFIG", "tinyjoin.train")])
+def test_float32_port_matches_the_reference(tmp_path, monkeypatch, config, cell):
+    cfg = getattr(tiny, config)
+    model = [l for l in cfg["model"] if "activation_dtype" not in l]
     model = [l.replace('"bfloat16"', '"float32"') for l in model]
-    monkeypatch.setitem(tiny.CONFIG, "model", model)
+    monkeypatch.setitem(cfg, "model", model)
     root = tiny.make_root(tmp_path)
     got = {}
-    harness.run(root, "tiny.train", 31, 0.1, False, torch.device("cpu"), time.perf_counter(),
+    harness.run(root, cell, 31, 0.1, False, torch.device("cpu"), time.perf_counter(),
                 readings=got)
     for k in ("grad_gap", "change_gap", "after_grad_gap", "after_change_gap"):
         assert got[k] < 1e-5, (k, got[k])

@@ -18,11 +18,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from cellbench.reference.net import Net
 
-
-def make_weights(net: Net, seed: int, device, rule: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{edge: {"w", "b"}} f32 tensors on `device`, each of its own storage."""
+def make_weights(net, seed: int, device, rule: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{edge: {"w", "b"}} f32 tensors on `device`, each of its own storage,
+    for a reference's `Net` (`cellbench/reference/__init__.py`)."""
     shapes = net.param_shapes()
     sizes = [math.prod(shapes[e.name]["w"]) for e in net.weighted]
     gen = torch.Generator(device=device)
