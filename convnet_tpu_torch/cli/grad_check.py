@@ -5,6 +5,8 @@ analytic side is autograd through the port's forward (the kernels' own
 backward Functions included, so on a card an LRN runs through `lrn_fwd`
 and `lrn_bwd`); the numeric side perturbs a random subset of each
 parameter's elements in place and evaluates the loss twice each.
+The loss is the model's (`model.loss_fn`): the output layers' losses,
+each times its `loss_weight`, summed.
 
 Usage:
     python -m convnet_tpu_torch.cli.grad_check MODEL.pbtxt [--batch-size 8]

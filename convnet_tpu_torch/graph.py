@@ -82,6 +82,8 @@ class LayerSpec:
     data_field: str = ""
     gpu_id: int = 0
     image_size: int = 0
+    #: an output layer's weight in the summed loss (the port's schema)
+    loss_weight: float = 1.0
 
     @cached_property
     def span_name(self) -> str:
@@ -106,6 +108,8 @@ class LayerSpec:
                 f"{p.dropprob} (1.0 would drop everything; the inverted-"
                 "dropout scale 1/(1-p) diverges)"
             )
+        if not p.loss_weight > 0.0:
+            raise ValueError(f"layer {p.name!r}: loss_weight must be positive, got {p.loss_weight}")
         return LayerSpec(
             name=p.name,
             num_channels=p.num_channels,
@@ -117,6 +121,7 @@ class LayerSpec:
             data_field=p.data_field or p.name,
             gpu_id=p.gpu_id,
             image_size=p.image_size,
+            loss_weight=p.loss_weight,
         )
 
 
@@ -171,7 +176,7 @@ class EdgeSpec:
                 f"CONV edges (grouped convolution), got num_groups="
                 f"{p.num_groups} on edge_type {p.edge_type}"
             )
-        if p.edge_type in (ET.CONV, ET.LOCAL, ET.MAXPOOL):
+        if p.edge_type in (ET.CONV, ET.LOCAL, ET.MAXPOOL, ET.AVGPOOL):
             if p.stride < 1:
                 raise ValueError(
                     f"edge {p.source}->{p.dest}: stride must be >= 1, got "
@@ -343,8 +348,18 @@ def _edge_out_shape(
         ow = conv_out_size(w, e.kernel_size, e.stride, e.padding)
         oc = c if t == ET.MAXPOOL else dest_layer.num_channels
         return (oh, ow, oc)
-    if t == ET.RESPONSE_NORM:
+    if t in (ET.RESPONSE_NORM, ET.CONCAT):
         return (h, w, c)
+    if t == ET.AVGPOOL:
+        # whole windows only: no rule for a window that takes padding or
+        # hangs off the input is guessed
+        k, s = e.kernel_size, e.stride
+        if e.padding or h < k or w < k or (h - k) % s or (w - k) % s:
+            raise ValueError(
+                f"avgpool edge {e.name}: {k}x{k} windows at stride {s}, padding "
+                f"{e.padding} do not tile {h}x{w} whole (a partial window is refused)"
+            )
+        return ((h - k) // s + 1, (w - k) // s + 1, c)
     if t == ET.CONV_ONETOONE:
         return (h, w, dest_layer.num_channels)
     if t == ET.RGBTOYUV:
@@ -360,6 +375,44 @@ def _edge_out_shape(
             )
         return (h // e.sample_factor, w // e.sample_factor, c)
     raise ValueError(f"unknown edge type {t}")
+
+
+def _sum_shape(
+    l: LayerSpec, inc: List[EdgeSpec], shapes: Dict[str, Tuple[int, int, int]]
+) -> Tuple[int, int, int]:
+    """Shape of a layer that sums its incoming edges' outputs: theirs, one
+    for all."""
+    out_shapes = {_edge_out_shape(e, shapes[e.source], l) for e in inc}
+    if len(out_shapes) != 1:
+        raise ValueError(f"layer {l.name}: incoming edges disagree on shape: {out_shapes}")
+    (shape,) = out_shapes
+    if shape[2] != l.num_channels:
+        raise ValueError(
+            f"layer {l.name}: num_channels={l.num_channels} but edges "
+            f"produce {shape[2]} channels"
+        )
+    return shape
+
+
+def _concat_shape(
+    l: LayerSpec, inc: List[EdgeSpec], shapes: Dict[str, Tuple[int, int, int]]
+) -> Tuple[int, int, int]:
+    """Shape of a layer joined by CONCAT edges: its sources' channels side
+    by side, in the model file's edge order, over their common H and W."""
+    if any(e.edge_type != ET.CONCAT for e in inc):
+        kinds = sorted({ET.Name(e.edge_type) for e in inc})
+        raise ValueError(f"layer {l.name}: CONCAT edges mixed with other edge kinds {kinds}")
+    spatial = {shapes[e.source][:2] for e in inc}
+    if len(spatial) != 1:
+        raise ValueError(f"layer {l.name}: concatenated sources disagree on H, W: {spatial}")
+    channels = sum(shapes[e.source][2] for e in inc)
+    if channels != l.num_channels:
+        raise ValueError(
+            f"layer {l.name}: num_channels={l.num_channels} but its CONCAT edges bring "
+            f"{channels} channels"
+        )
+    (hw,) = spatial
+    return (*hw, channels)
 
 
 def build_graph(
@@ -413,18 +466,10 @@ def build_graph(
             if not inc:
                 continue
             if all(e.source in ready for e in inc):
-                out_shapes = {_edge_out_shape(e, shapes[e.source], l) for e in inc}
-                if len(out_shapes) != 1:
-                    raise ValueError(
-                        f"layer {l.name}: incoming edges disagree on shape: {out_shapes}"
-                    )
-                (shape,) = out_shapes
-                if shape[2] != l.num_channels:
-                    raise ValueError(
-                        f"layer {l.name}: num_channels={l.num_channels} but edges "
-                        f"produce {shape[2]} channels"
-                    )
-                shapes[l.name] = shape
+                if any(e.edge_type == ET.CONCAT for e in inc):
+                    shapes[l.name] = _concat_shape(l, inc, shapes)
+                else:
+                    shapes[l.name] = _sum_shape(l, inc, shapes)
                 ready.add(l.name)
                 for e in inc:
                     ordered.append(e)

@@ -7,6 +7,10 @@ layouts (HWIO conv weights, (H*W*C, units) FC weights, (Cin, Cout)
 CONV_ONETOONE weights, (out_h, out_w, k*k*Cin, Cout) LOCAL weights), so a
 JAX params tree maps over unchanged (`params_from_numpy`).
 Activations are NHWC; FC outputs are (B, 1, 1, units).
+A layer sums its incoming edges' outputs, or, where they are CONCAT
+edges, holds their sources side by side along the channels (one
+`ops.concat.concat_channels` under all the edges' spans); an AVGPOOL edge
+takes ATen's average pool over whole windows.
 
 The forward keeps the reference's fusion plan and cast points:
 - a conv whose ReLU output feeds only a response-norm edge leaves its bias
@@ -42,6 +46,7 @@ their kernels' autograd Functions, the rest through ATen's and cuDNN's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
@@ -54,6 +59,7 @@ from convnet_tpu_torch import checkpoint
 from convnet_tpu_torch.graph import ACT, ET, INIT, LOSS, EdgeSpec, Graph
 from convnet_tpu_torch.ops import losses as losses_ops
 from convnet_tpu_torch.ops.activations import apply_activation
+from convnet_tpu_torch.ops.concat import concat_channels
 from convnet_tpu_torch.ops.conv import S2DInput, conv2d, conv_onetoone, fc
 from convnet_tpu_torch.ops.dropout import dropout
 from convnet_tpu_torch.ops.fused_pool_lrn import (
@@ -66,7 +72,7 @@ from convnet_tpu_torch.ops.lrn import (
     response_norm_cross_map_bias,
 )
 from convnet_tpu_torch.ops.local import local_conv2d, local_weight_shape
-from convnet_tpu_torch.ops.pool import maxpool2d
+from convnet_tpu_torch.ops.pool import avgpool2d, maxpool2d
 from convnet_tpu_torch.ops.resample import downsample, rgb_to_yuv, upsample
 from convnet_tpu_torch.parallel.mesh import (
     Mesh,
@@ -238,6 +244,8 @@ def _edge_fprop(e: EdgeSpec, p, x, cdt, fuse_relu=False, defer_bias=False, bias=
         return z + p["b"].to(z.dtype)
     if t == ET.MAXPOOL:
         return maxpool2d(x, e.kernel_size, e.stride, e.padding)
+    if t == ET.AVGPOOL:
+        return avgpool2d(x, e.kernel_size, e.stride)  # whole windows (graph.py)
     if t == ET.RESPONSE_NORM:
         args = (
             e.add_scale,
@@ -343,7 +351,12 @@ def apply_fn(
                     deferred_lrn[name] = (e, x_src, frelu)
                     continue
             z = None
-            for e in inc:
+            if inc[0].edge_type == ET.CONCAT:  # then every edge of inc is (graph.py)
+                with contextlib.ExitStack() as spans:
+                    for e in inc:
+                        spans.enter_context(span(e.span_name))
+                    z = concat_channels([acts[e.source] for e in inc])
+            for e in inc if z is None else ():
                 with span(e.span_name):
                     if e.source in deferred_lrn:
                         le, x_src, frelu = deferred_lrn[e.source]
@@ -440,7 +453,8 @@ def loss_fn(
     dropout_keys: Optional[Dict[int, torch.Tensor]] = None,
     mesh: Optional[Mesh] = None,
 ):
-    """Mean loss over the batch and metrics (device tensors): "loss" and
+    """Mean loss over the batch and metrics (device tensors): "loss", the
+    output layers' losses summed, each times its `loss_weight`, and
     "<output>/errors" for each cross-entropy output. Targets live in
     `batch` under each output layer's data_field. Under a mesh, over this
     rank's rows."""
@@ -467,7 +481,10 @@ def loss_fn(
                 target = target.reshape(-1)
             else:
                 target = target.reshape(target.shape[0], -1)
-            total = total + losses_ops.compute_loss(l.loss_function, logits, target)
+            loss_l = losses_ops.compute_loss(l.loss_function, logits, target)
+            if l.loss_weight != 1.0:
+                loss_l = loss_l * l.loss_weight
+            total = total + loss_l
             if l.loss_function == LOSS.CROSS_ENTROPY_MULTINOMIAL:
                 metrics[f"{l.name}/errors"] = losses_ops.classification_errors(logits, target)
             if l is outputs[-1]:

@@ -8,5 +8,6 @@ from convnet_tpu_torch.models.zoo import (  # noqa: F401
     cifar10,
     cifar10_local,
     from_pbtxt,
+    googlenet,
     mnist_lenet,
 )

@@ -56,3 +56,10 @@ def alexnet_2tower(image_size: Optional[int] = None) -> Graph:
     (num_groups: 2). Its `parallel { data: 4 model: 2 }` puts one tower on
     each rank of the model axis; on one device both towers run there."""
     return _example("imagenet/alexnet_2tower.pbtxt", image_size)
+
+
+def googlenet(image_size: Optional[int] = None) -> Graph:
+    """GoogLeNet (Inception v1, arXiv:1409.4842) at Table 1's widths, with
+    its two auxiliary heads: CONCAT joins, AVGPOOL edges and loss weights,
+    the port's schema only."""
+    return _example("imagenet/port/googlenet.pbtxt", image_size)

@@ -264,12 +264,15 @@ def maxpool2d_undo_reference(
 
 
 def avgpool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
-    """Average pooling (DOWNSAMPLE edges, `convnet_tpu/ops/pool.py:198-210`):
-    x (B, H, W, C) NHWC zero-padded by the ceil-mode padding, each window
-    summed and divided by kernel^2, padded taps included. The pad is
-    explicit because F.avg_pool2d's own padding is symmetric."""
+    """Average pooling (DOWNSAMPLE edges, `convnet_tpu/ops/pool.py:198-210`;
+    AVGPOOL edges, whose windows are whole): x (B, H, W, C) NHWC
+    zero-padded by the ceil-mode padding, each window summed and divided
+    by kernel^2, padded taps included. The pad is explicit because
+    F.avg_pool2d's own padding is symmetric; ATen's pool reads the NHWC
+    tensor as a channels-last NCHW view."""
     plo_h, phi_h = ceil_mode_padding(x.shape[1], kernel, stride, padding)
     plo_w, phi_w = ceil_mode_padding(x.shape[2], kernel, stride, padding)
-    xt = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h)).permute(0, 3, 1, 2)
-    y = F.avg_pool2d(xt, kernel, stride=stride)
+    if plo_h or phi_h or plo_w or phi_w:
+        x = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h))
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel, stride=stride)
     return y.permute(0, 2, 3, 1).contiguous()

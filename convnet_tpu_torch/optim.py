@@ -16,7 +16,10 @@ as a host int. A CUDA graph of the step, which replays every host value it
 captured, reads the step's values from a device tensor instead
 (`schedule`: eps, momentum and whether the leaf updates, one row a leaf),
 filled before each replay; the f32 arithmetic is the same, so are the
-results.
+results. An eager step updates the leaves that share l2, eps and
+momentum, and take no clip, norm limit or shard, together: one launch of
+each operation for all of them (`_update_group`), the same roundings in
+the same order, so the same bits as one leaf at a time.
 """
 
 from __future__ import annotations
@@ -108,6 +111,20 @@ def _update_leaf(spec: OptimSpec, w: torch.Tensor, m: torch.Tensor, g: torch.Ten
     m.copy_(inc)
 
 
+def _update_group(l2: float, eps: float, mom: float, ws, ms, gs) -> None:
+    """`_update_leaf` of many active, unclipped, unconstrained and unsharded
+    leaves that share l2, eps and mom (host floats), in place: the same
+    roundings in the same order (l2 w, + g, x eps; mom m, - that; w +), a
+    launch of each for all the leaves instead of one a leaf, and one
+    temporary a leaf."""
+    t = torch._foreach_mul(ws, l2)
+    torch._foreach_add_(t, gs)
+    torch._foreach_mul_(t, eps)
+    torch._foreach_mul_(ms, mom)
+    torch._foreach_sub_(ms, t)
+    torch._foreach_add_(ws, ms)
+
+
 @torch.no_grad()
 def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params,
                   step: Optional[int] = None, hyper: Optional[torch.Tensor] = None,
@@ -121,13 +138,22 @@ def apply_updates(graph: Graph, params: Params, moms: Params, grads: Params,
     if (step is None) == (hyper is None):
         raise ValueError("apply_updates takes the step or its schedule tensor, not both")
     with span("optim.update"):
+        groups: Dict[Tuple[float, float, float], list] = {}
         for row, (e, k, spec) in enumerate(_leaves(graph)):
             p, m, g = params[e.name][k], moms[e.name][k], grads[e.name][k]
             if hyper is None:
-                _update_leaf(spec, p, m, g, epsilon_at(spec, step), momentum_at(spec, step),
-                             step >= spec.start_optimization_after, sharded.get((e.name, k)))
+                eps, mom = epsilon_at(spec, step), momentum_at(spec, step)
+                active = step >= spec.start_optimization_after
+                group = sharded.get((e.name, k))
+                if (active and group is None and spec.gradient_clip <= 0.0
+                        and spec.weight_norm_limit <= 0.0):
+                    groups.setdefault((spec.l2_decay, eps, mom), []).append((p, m, g))
+                else:
+                    _update_leaf(spec, p, m, g, eps, mom, active, group)
             else:
                 # a leaf that never freezes needs no select
                 active = hyper[row, 2] if spec.start_optimization_after > 0 else True
                 _update_leaf(spec, p, m, g, hyper[row, 0], hyper[row, 1], active,
                              sharded.get((e.name, k)))
+        for (l2, eps, mom), leaves in groups.items():
+            _update_group(l2, eps, mom, *map(list, zip(*leaves)))

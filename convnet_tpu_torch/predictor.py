@@ -153,7 +153,10 @@ class Predictor:
             }
 
     def predict_labels(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        """Top-1 class ids from the first output layer."""
-        out_layer = self.graph.output_layers[0].name
+        """Top-1 class ids from the output layer of the largest
+        `loss_weight` (the first of those on ties): a model's main head,
+        not an auxiliary one."""
+        outputs = self.graph.output_layers
+        out_layer = max(outputs, key=lambda l: l.loss_weight).name
         acts = self(batch)[out_layer]
         return np.argmax(acts.reshape(acts.shape[0], -1), axis=-1)

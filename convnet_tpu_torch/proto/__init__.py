@@ -11,9 +11,18 @@ the same file name there raises "duplicate file name" in any process that
 imports both packages (the parity tests do). The price is that the two
 packages' message classes are distinct types: a message parsed by one
 package's reader is not handed to the other package's functions.
+
+The port's schema is those bytes plus its own additions (`ADDITIONS`),
+applied here, in one place, to a parsed copy of them before the copy is
+loaded: the edge types `CONCAT` (a layer joined by concatenating its
+sources along the channels) and `AVGPOOL` (an average pool with kernel,
+stride and padding), and the field `Layer.loss_weight` (an output layer's
+weight in the summed loss, default 1). Their numbers are ones the JAX
+package's schema does not use, so a file that holds none of them reads
+alike in both packages.
 """
 
-from google.protobuf import descriptor_pool, message_factory
+from google.protobuf import descriptor_pb2, descriptor_pool, message_factory
 
 SERIALIZED = (
     b'\n\x14convnet_config.proto\x12\x06config"\xbf\x03\n\x05Model\x12\x0c\n\x04name'
@@ -90,8 +99,31 @@ SERIALIZED = (
     b'\r\n\x05layer\x18\x03 \x03(\t\x12\x17\n\nbatch_size\x18\x04 \x01(\x05:\x03128'
 )
 
+#: The port's additions to the JAX package's schema: (message, enum,
+#: value name, number) for enum values, (message, field name, number,
+#: default) for optional float fields.
+ADDITIONS = {
+    "enum_values": (("Edge", "EdgeType", "CONCAT", 200), ("Edge", "EdgeType", "AVGPOOL", 201)),
+    "float_fields": (("Layer", "loss_weight", 200, "1"),),
+}
+
+
+def _with_additions(base: bytes) -> bytes:
+    """The serialized schema `base` with ADDITIONS applied."""
+    fd = descriptor_pb2.FileDescriptorProto.FromString(base)
+    msgs = {m.name: m for m in fd.message_type}
+    for msg, enum, name, number in ADDITIONS["enum_values"]:
+        (e,) = [e for e in msgs[msg].enum_type if e.name == enum]
+        e.value.add(name=name, number=number)
+    for msg, name, number, default in ADDITIONS["float_fields"]:
+        msgs[msg].field.add(name=name, number=number, default_value=default,
+                            label=descriptor_pb2.FieldDescriptorProto.LABEL_OPTIONAL,
+                            type=descriptor_pb2.FieldDescriptorProto.TYPE_FLOAT)
+    return fd.SerializeToString()
+
+
 _POOL = descriptor_pool.DescriptorPool()
-DESCRIPTOR = _POOL.AddSerializedFile(SERIALIZED)
+DESCRIPTOR = _POOL.AddSerializedFile(_with_additions(SERIALIZED))
 
 
 def _message(name: str):

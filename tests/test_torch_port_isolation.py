@@ -269,13 +269,31 @@ def test_both_schemas_load_in_one_process():
     """The port's schema sits in a private descriptor pool: importing it
     beside the JAX package's (which registers convnet_config.proto in the
     default pool) raises no duplicate-file error, and each package's reader
-    parses the same model alike, into its own message classes."""
+    parses the same model alike, into its own message classes. The port's
+    schema is the JAX package's bytes plus exactly the edge types CONCAT
+    and AVGPOOL and the field Layer.loss_weight: every other message,
+    field and enum value is the JAX package's."""
+    from google.protobuf import descriptor_pb2
+
     from convnet_tpu import config as jax_config
     from convnet_tpu.proto import convnet_config_pb2 as jax_pb
     from convnet_tpu_torch import config as pt_config
     from convnet_tpu_torch import proto as pt_pb
 
     assert pt_pb.SERIALIZED == jax_pb.DESCRIPTOR.serialized_pb
+    port = descriptor_pb2.FileDescriptorProto()
+    pt_pb.DESCRIPTOR.CopyToProto(port)
+    jax = descriptor_pb2.FileDescriptorProto.FromString(jax_pb.DESCRIPTOR.serialized_pb)
+    msgs = {m.name: m for m in port.message_type}
+    (edge_type,) = [e for e in msgs["Edge"].enum_type if e.name == "EdgeType"]
+    added = [(v.name, v.number) for v in edge_type.value][-2:]
+    assert added == [("CONCAT", 200), ("AVGPOOL", 201)]
+    del edge_type.value[-2:]
+    field = msgs["Layer"].field[-1]
+    assert (field.name, field.number, field.type, field.default_value) == (
+        "loss_weight", 200, descriptor_pb2.FieldDescriptorProto.TYPE_FLOAT, "1")
+    del msgs["Layer"].field[-1]
+    assert port == jax
     path = str(REPO / "examples" / "imagenet" / "alexnet.pbtxt")
     jm, pm = jax_config.read_model(path), pt_config.read_model(path)
     assert (len(pm.layer), len(pm.edge)) == (len(jm.layer), len(jm.edge)) == (14, 13)

@@ -194,9 +194,10 @@ def test_pool_wrappers_take_the_plain_versions_on_cpu():
 
 
 # The max pool pair's geometries, (h, k, s, pad): AlexNet's three pools,
-# mnist_lenet's k = 2, s = 2, and a padded one whose ceil-mode last window
-# hangs off the input.
-PAIR_CASES = [(55, 3, 2, 0), (27, 3, 2, 0), (13, 3, 2, 0), (28, 2, 2, 0), (14, 3, 2, 1)]
+# mnist_lenet's k = 2, s = 2, a padded one whose ceil-mode last window
+# hangs off the input, and GoogLeNet's stride-1 pool of an inception block.
+PAIR_CASES = [(55, 3, 2, 0), (27, 3, 2, 0), (13, 3, 2, 0), (28, 2, 2, 0), (14, 3, 2, 1),
+              (28, 3, 1, 1)]
 
 
 def _pair_input(x):
@@ -304,7 +305,9 @@ def test_copy_add_kernel_refuses_what_it_does_not_take(cuda):
     assert ca.LAUNCHES == before
 
 
-@pytest.mark.parametrize("c", [96, 256])
+# AlexNet's LRN widths and GoogLeNet's (norm1 at 64 channels after a pool,
+# without bias or ReLU; norm2 at 192 after conv2, with both)
+@pytest.mark.parametrize("c", [64, 96, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias,relu,blocked", [(True, True, False), (False, False, False),
                                                (True, True, True)])
@@ -408,7 +411,7 @@ def _lrn_bwd_inputs(cuda, c, dtype, seed, m=3000):
     return g, z, b
 
 
-@pytest.mark.parametrize("c", [96, 256])
+@pytest.mark.parametrize("c", [64, 96, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias,relu,blocked", [(True, True, False), (False, False, False),
                                                (False, True, False), (True, True, True)])
@@ -757,6 +760,10 @@ MAXPOOL_CASES = [  # (h, c, k, s, pad)
     (32, 64, 3, 2, 0), (16, 64, 3, 2, 0),  # cifar10_local's: the last window hangs off
     (8, 16, 2, 2, 0), (9, 8, 3, 2, 1), (10, 24, 3, 3, 0), (6, 1, 3, 2, 0),
     (7, 8, 5, 1, 2), (6, 3, 4, 3, 1),  # k outside the compiled 2 and 3
+    # GoogLeNet's stride-2 pools (the last windows hang off) and its blocks'
+    # 3x3 stride-1 pad-1 pools, which take the generic backward
+    (112, 64, 3, 2, 0), (56, 192, 3, 2, 0), (28, 480, 3, 2, 0), (14, 832, 3, 2, 0),
+    (28, 192, 3, 1, 1), (14, 480, 3, 1, 1), (7, 832, 3, 1, 1),
 ]
 
 
